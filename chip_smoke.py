@@ -10,7 +10,10 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
 2. holds each kernel's wrapper against its plain PyTorch version at the
    flagship shape (B=48, N=8+110, K=12, H=256, 5 layers), in float32 and
    bfloat16, and times both (CUDA events) beside the card's bound for the
-   work;
+   work; for K2 also the kernel alone (``kernel_ms``, without the wrapper's
+   neighbor list and embeddings), the grid it launched, its phases' shares
+   of one launch, the bf16 versions' distance from the float32 one, and a
+   bf16 run at B=132;
 3. samples pharmacophores at the flagship CA configuration (hidden 256,
    5 layers, K=12, bf16, random weights from a seed) through
    ``ConditionalDDPM.sample_given_pocket`` with the msgpass engine (K1 in
@@ -162,7 +165,7 @@ def timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
     bound = max(t_ops, t_bytes) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"  kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.5f} ({by})")
+    log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.5f} ({by})")
     return dict(dtype=dtype_name, comparisons=checks, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
 
@@ -207,47 +210,77 @@ def check_k1(dev, dtype_name):
     return timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
 
 
-def check_k2(dev, dtype_name):
-    """K2's wrapper at the flagship shape, on the inputs the fused engine
-    gives it (``make_fused_apply``: float32 type encoders, the 6 Å cutoff,
-    pocket rows held): kernel vs plain. h and the displacement
-    x_out - x_in are compared each on its own scale."""
+def check_k2(dev, dtype_name, b=B):
+    """K2's wrapper at the flagship shape (batch b), on the inputs the fused
+    engine gives it (``make_fused_apply``: float32 type encoders, the 6 Å
+    cutoff, pocket rows held): kernel vs plain. h and the displacement
+    x_out - x_in are compared each on its own scale. Times the wrapper
+    (``ms``: neighbor list, embeddings and the kernel) and the kernel alone
+    (``kernel_ms``: ``_layers_kernel``), and reports the grid it launched."""
     import torch
 
     from cmdgen_tpu_torch.ops.egnn_fused import (
-        egnn_forward_fused, egnn_forward_fused_plain, fused_params)
+        PHASES, _layers_kernel, egnn_forward_fused, egnn_forward_fused_plain, fused_params,
+        layer_args, phase_shares)
 
     cdt = getattr(torch, dtype_name)
     _, dyn = flagship_dynamics(dev, cdt)
     ecfg = dyn.cfg.egnn
     params = fused_params(dyn.egnn, cdt)
-    pocket, x, _ = flagship_geometry(3, B, dev)
+    pocket, x, _ = flagship_geometry(3, b, dev)
     n = N_P + N_Q
     g = torch.Generator(device=dev).manual_seed(4)
-    phar_h = torch.eye(8, device=dev)[torch.randint(0, 8, (B, N_P), generator=g, device=dev)]
+    phar_h = torch.eye(8, device=dev)[torch.randint(0, 8, (b, N_P), generator=g, device=dev)]
     xh_phar = torch.cat([x[:, :N_P], phar_h], -1)
     xh_pocket = torch.cat([pocket.x, pocket.h], -1)
-    t = torch.rand(B, 1, generator=g, device=dev)
+    t = torch.rand(b, 1, generator=g, device=dev)
     with torch.no_grad():
         h, x, mask, edge_mask, ucm = dyn._inputs(
-            xh_phar, xh_pocket, t, torch.ones(B, N_P, device=dev), pocket.mask,
+            xh_phar, xh_pocket, t, torch.ones(b, N_P, device=dev), pocket.mask,
             lambda mlp, v: mlp.forward_f32(v))
     args = (params, h, x, edge_mask, mask, ucm)
     kw = dict(n_layers=ecfg.n_layers, neighbor_k=ecfg.neighbor_k,
               norm_constant=ecfg.norm_constant, coords_range=ecfg.coords_range,
               normalization_factor=ecfg.normalization_factor, tanh=ecfg.tanh,
               update_rows=N_P, compute_dtype=cdt)
-    log(f"K2 {dtype_name}:")
+    log(f"K2 {dtype_name} B={b}:")
     with torch.no_grad():
         oh, ox = egnn_forward_fused(*args, **kw)
         rh, rx = egnn_forward_fused_plain(*args, **kw)
         torch.cuda.synchronize()
+        grid = dict(egnn_forward_fused.last_grid)
+        log(f"  grid: {grid['blocks']} blocks of 512 threads, {grid['blocks_per_sm']} per SM, "
+            f"{grid['smem_bytes']} bytes of shared memory each "
+            f"({torch.cuda.get_device_properties(dev).multi_processor_count} SMs)")
         if not torch.equal(ox[:, N_P:], x[:, N_P:]):
             raise AssertionError(f"K2 {dtype_name} moved pocket rows")
         rel = TOL_REL_FUSED[dtype_name]
         checks = [compare("h", oh, rh, rel["h"]),
                   compare("dx", ox[:, :N_P] - x[:, :N_P], rx[:, :N_P] - x[:, :N_P], rel["dx"])]
+        vs_f32 = None
+        if cdt != torch.float32:
+            # both bf16 versions against the float32 plain version: the
+            # kernel should stray from it no further than the plain one
+            th, tx = egnn_forward_fused_plain(fused_params(dyn.egnn, torch.float32), *args[1:],
+                                              **dict(kw, compute_dtype=torch.float32))
+
+            def rel_err(o, r):
+                return (o - r).abs().max().item() / r.abs().max().item()
+
+            def dx(xx):
+                return xx[:, :N_P] - x[:, :N_P]
+
+            vs_f32 = {who: [rel_err(hh, th), rel_err(dx(xx), dx(tx))]
+                      for who, hh, xx in (("kernel", oh, ox), ("plain", rh, rx))}
+            log(f"  relative to the float32 plain version (h, dx): kernel "
+                f"{vs_f32['kernel'][0]:.2e}, {vs_f32['kernel'][1]:.2e}; bf16 plain "
+                f"{vs_f32['plain'][0]:.2e}, {vs_f32['plain'][1]:.2e}")
         ms = cuda_ms(lambda: egnn_forward_fused(*args, **kw), 10)
+        largs = layer_args(*args[:5], **kw)
+        kernel_ms = cuda_ms(lambda: _layers_kernel(*largs), 20)
+        stamps = torch.zeros(1 + len(PHASES) * L, dtype=torch.int64, device=dev)
+        _layers_kernel(*largs, stamps=stamps)
+        phases = phase_shares(stamps)
         plain_ms = cuda_ms(lambda: egnn_forward_fused_plain(*args, **kw), 5)
     es = 4 if dtype_name == "float32" else 2
     r = N_P
@@ -256,11 +289,16 @@ def check_k2(dev, dtype_name):
                  + 3 * 2 * n * H * H          # node_in (two halves), node_out
                  + 2 * n * H * H + 2 * r * H * H      # coord w_j, w_i
                  + 2 * r * K * H * H + 2 * r * K * H)  # coord_mid, gate
-    flops = B * L * per_layer
-    nbytes = (B * n * H * es + B * n * 3 * 4 + 3 * B * n * K * 4 + B * n * 4
+    flops = b * L * per_layer
+    nbytes = (b * n * H * es + b * n * 3 * 4 + 3 * b * n * K * 4 + b * n * 4
               + L * (9 * H * H + 6 * H) * es + L * (7 * H) * 4
-              + B * n * H * 4 + B * n * 3 * 4)
-    return timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
+              + b * n * H * 4 + b * n * 3 * 4)
+    out = timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
+    log(f"  kernel alone: kernel_ms={kernel_ms:.4f} ({kernel_ms / out['bound_ms']:.1f}x its bound)")
+    log("  phases, share of one launch's clock (ms at kernel_ms): " + ", ".join(
+        f"{name} {v:.1%} ({v * kernel_ms:.3f})" for name, v in phases.items()))
+    out.update(kernel_ms=kernel_ms, grid=grid, batch=b, phases=phases, vs_f32=vs_f32)
+    return out
 
 
 def device_profile(fn, reps):
@@ -443,6 +481,7 @@ def main():
 
     k1 = [check_k1(dev, d) for d in ("float32", "bfloat16")]
     k2 = [check_k2(dev, d) for d in ("float32", "bfloat16")]
+    k2_wide = check_k2(dev, "bfloat16", b=132)  # one sample per SM
 
     sampling = flagship_sampling(dev, args.timesteps)
     trained = trained_run(dev, repo)
@@ -456,7 +495,7 @@ def main():
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": worst["max_abs_err"], "tol": worst["tol"],
-            "ms": main_check["ms"], "kernel_ms": main_check["ms"],
+            "ms": main_check["ms"], "kernel_ms": main_check.get("kernel_ms", main_check["ms"]),
             "plain_ms": main_check["plain_ms"], "bound_ms": main_check["bound_ms"],
             "bound_by": main_check["bound_by"], "library_ms": None,
             "checks": checks,
@@ -470,6 +509,9 @@ def main():
               "cmdgen_tpu/ops/egnn_fused.py:209", k2,
               sampling["fused"][2]["egnn_forward_fused"]),
     ]
+    kernels[1]["grid"] = k2[-1]["grid"]
+    kernels[1]["batch_132"] = {key: k2_wide[key] for key in (
+        "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "phases", "comparisons")}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "flagship": {e: {"denoise_steps_per_s": v[0], "seconds": v[1], "launches": v[2],

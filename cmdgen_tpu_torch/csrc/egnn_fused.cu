@@ -1,5 +1,5 @@
-// K2: the whole L-layer EGNN stack for one sample per block, hand-written
-// for Hopper (sm_90a).
+// K2: the whole L-layer EGNN stack over the whole batch in one cooperative
+// launch, hand-written for Hopper (sm_90a).
 //
 // Replaces: cmdgen_tpu/ops/egnn_fused.py:egnn_forward_fused (pallas_call at
 // :342, kernel body _make_fused_kernel :48-206), with inv_sublayers=1, the
@@ -25,26 +25,39 @@
 // (5.9 MB in bf16) stay resident in the 50 MB L2. The kernel is bound by
 // operations.
 //
-// Design: one block per sample loops over the layers. h (in the compute
-// dtype) and x (float) stay in shared memory for the whole stack; the block
-// raises its dynamic shared memory limit to 227 KB. Each layer first
-// projects every node (w_j h + b and w_i h) into global scratch arrays of
-// the sample, which stay in L2; then runs the message tile that K1 uses
-// (egnn_common.cuh) over receiver tiles of R (R * K <= 128 edges), summing
-// into a third scratch array; then the node MLP over all N rows at once,
-// so each weight matrix streams through the block once per layer, not once
-// per receiver tile. Products run on the tensor cores for bf16 (WMMA,
-// weights streamed through shared memory by cp.async) and as float FMAs
-// for float (weights read from L2). Phases are separated by block
-// barriers. Only B blocks of 512 threads run (48 on 132 SMs at the
-// flagship batch), and one block's latency sets the kernel's time
-// (PERF.md): splitting a sample over several blocks (a cluster) and wgmma
-// are the first things a later version changes.
-// 512 threads per block: one block holds an SM alone, and its phases are
-// latency-bound. A sweep over 256-1024 (PERF.md) found 512 the fastest in
-// float and within 7% of 1024 in bf16; at 1024 the float path spills.
+// Design: one persistent block per SM (a cooperative grid, capped at the
+// largest phase's work-item count) walks the layers in four batch-wide
+// phases separated by grid barriers:
+//   A. node projections proj = h w_j + b, wia = h w_i, one item per
+//      kEdgeRows-row tile and matrix;
+//   B. GCL messages, one item per R receivers x K edges of one sample
+//      (R * K <= kEdgeRows): edge load, pair layer, edge_out product, silu,
+//      attention gate and the K-sum into agg, all inside the block (no
+//      atomics: the summation order is fixed); a last round that would
+//      leave blocks idle is taken in half items (SplitTail);
+//   C. node MLP residual and h *= node_mask, one item per kNodeRows-row
+//      tile (the h and agg tiles side by side; the hidden layer stays in
+//      shared memory between its two products), then the coordinate
+//      projections of the new h from shared memory: coord w_j over the
+//      tile, coord w_i stored for its movable rows;
+//   D. coordinate pass, one item per R movable receivers of one sample,
+//      reading x from one buffer and writing the other (movable rows read
+//      their neighbors' x from before the update); rows that do not move
+//      are copied times node_mask.
+// h (compute dtype), proj, wia, agg ([B*N, H] each, ~2.9 MB in bf16 at the
+// flagship shape) and the two x buffers live in global memory, in L2.
+// bf16 products run on the tensor cores by mma.sync from shared memory
+// (egnn_tiles.cuh), epilogues straight from the accumulator registers:
+// edge_out's and coord_mid's weights are loaded once per phase and stay
+// resident beside the 128-row edge tile; the node phases stream each
+// matrix through the same buffer in 64-row chunks, the next matrix loading
+// while the current one multiplies. float products stay exact-float FMAs
+// (block_gemm<float>, weights read from L2), in the same phases.
 #define EGNN_THREADS 512
+#include <cooperative_groups.h>
+
 #include "egnn_common.cuh"
+#include "egnn_tiles.cuh"
 
 namespace egnn {
 
@@ -73,42 +86,75 @@ struct FusedWeights {
   const T* cg;      // [L, H]    coord_gate (no bias)
 };
 
-// edges per receiver tile: R * K <= kTileEdges, fewer where shared memory
-// runs short (float at large N)
-constexpr int kTileEdges = 128;
+// rows of one message tile (R receivers x K edges, also the row tile of
+// phase A) and of one node MLP tile; the wrapper's launch_plan uses the
+// same numbers
+constexpr int kEdgeRows = 128;
+constexpr int kNodeRows = 64;
+constexpr int kPhases = 4;  // per layer
 
 template <typename T>
+struct FusedArgs {
+  const T* h0;          // [B*N, H] entry h
+  const float* x0;      // [B*N, 3] entry x
+  const int* idx;       // [B*N, K] neighbor indices within the sample
+  const float* kmask;   // [B*N, K]
+  const float* dist0;   // [B*N, K]
+  const float* nmask;   // [B*N]
+  FusedWeights<T> w;
+  // workspace, written and read inside the launch: never read through the
+  // read-only cache
+  T* hw;                // [B*N, H] h after each layer's node MLP
+  T* proj;              // [B*N, H] w_j h + b, then coord w_j h + b
+  T* wia;               // [B*N, H] w_i h, then coord w_i h (movable rows)
+  T* agg;               // [B*N, H] summed messages
+  float* xw;            // [2, B*N, 3] x between layers
+  float* hout;          // [B*N, H] f32
+  float* xout;          // [B*N, 3] f32
+  // optional: block 0's clock64() at the start and after each phase's grid
+  // barrier, [1 + kPhases * L] (phase p of layer l ends at 1 + kPhases * l + p)
+  long long* stamps;
+  int B, N, K, H, L, r_true, R;
+  float norm_constant, coords_range, norm_factor;
+  int use_tanh;
+};
+
+// bf16 products run on mma.sync from shared memory (egnn_tiles.cuh); float
+// products stay exact-float FMAs (block_gemm<float>, weights from L2).
+template <typename T>
+constexpr bool kMma = std::is_same<T, bf16>::value;
+
+// Shared memory of one block: a tile of kEdgeRows rows (the message or
+// coordinate tile, the row tile of phase A, or two node MLP tiles of
+// kNodeRows rows in phase C), the bf16 path's weight matrix [H, H], the
+// per-row partial sums of the bf16 epilogues' dot products, and the
+// per-edge arrays of one tile.
+template <typename T>
 struct FusedSmem {
-  size_t hs, buf, xs, xn, nm, ekm, escale, erad, ed0, ediff, eidx, gemm, total;
-  __host__ __device__ FusedSmem(int N, int R, int K, int H) {
-    const size_t E = (size_t)R * K;
+  size_t abuf, wsm, part, eidx, ekm, erad, ed0, escale, ediff, total;
+  __host__ __device__ explicit FusedSmem(int H) {
     const size_t ld = H + row_pad<T>();
     Carver c;
-    hs = c.take(sizeof(T) * tile_rows<T>(N) * ld);
-    buf = c.take(sizeof(T) * tile_rows<T>(E) * ld);
-    xs = c.take(4 * (size_t)N * 3);
-    xn = c.take(4 * (size_t)N * 3);
-    nm = c.take(4 * (size_t)N);
-    ekm = c.take(4 * E);
-    escale = c.take(4 * E);
-    erad = c.take(4 * E);
-    ed0 = c.take(4 * E);
-    ediff = c.take(4 * E * 3);
-    eidx = c.take(4 * E);
-    gemm = c.take(gemm_smem_bytes<T>(H));
+    abuf = c.take(sizeof(T) * kEdgeRows * ld);
+    wsm = c.take(kMma<T> ? sizeof(T) * H * ld : 0);
+    part = c.take(kMma<T> ? 4 * tiles::kWarpCols * kEdgeRows : 0);
+    eidx = c.take(4 * kEdgeRows);
+    ekm = c.take(4 * kEdgeRows);
+    erad = c.take(4 * kEdgeRows);
+    ed0 = c.take(4 * kEdgeRows);
+    escale = c.take(4 * kEdgeRows);
+    ediff = c.take(4 * 3 * kEdgeRows);
     total = c.off;
   }
 };
 
-// Rows of each of the three [rows, H] scratch arrays of one sample in
-// global memory (row count rounded up to whole 16-row tiles).
-__host__ __device__ inline size_t scratch_rows(int N) { return (N + 15) / 16 * 16; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Loads the K edges of receivers [i0, i0 + rv) into shared memory: the
-// clamped neighbor index, kmask, dist0 rounded to T, and the squared
-// distance from x -- rounded to T at every step for the GCL (the JAX
-// kernel gathers x in the compute dtype), in float for the coordinate pass
-// (which also keeps the difference vectors).
+// Loads the K edges of receivers [i0, i0 + rv) of one sample into shared
+// memory: the clamped neighbor index, kmask, dist0 rounded to T, and the
+// squared distance from the sample's x (xs) -- rounded to T at every step
+// for the GCL (the JAX kernel gathers x in the compute dtype), in float for
+// the coordinate pass (which also keeps the difference vectors).
 template <typename T>
 __device__ void load_edges(const int* idx, const float* kmask,
                            const float* dist0, const float* xs, size_t row0,
@@ -138,171 +184,432 @@ __device__ void load_edges(const int* idx, const float* kmask,
   }
 }
 
+// Stores two adjacent values rounded to T.
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The work of a phase of n items over the grid's G blocks, with its tail
+// split: the last n % G items (all n when n < G), which would run as a
+// round that leaves blocks idle, are taken as two halves each when twice as
+// many still fit in one round, so that round ends sooner. Work unit w < total
+// is item(w, half), half 0 for a whole item, 1 or 2 for its first or second
+// half (take_half).
+struct SplitTail {
+  int whole, total;
+  __device__ explicit SplitTail(int n) {
+    const int tail = n % (int)gridDim.x;
+    const int split = 2 * tail <= (int)gridDim.x ? tail : 0;
+    whole = n - split;
+    total = n + split;
+  }
+  __device__ int item(int w, int& half) const {
+    if (w < whole) {
+      half = 0;
+      return w;
+    }
+    half = 1 + (w - whole) % 2;
+    return whole + (w - whole) / 2;
+  }
+};
+
+// Narrows receivers [i0, i0 + rv) to the given half (0: all of them).
+__device__ inline void take_half(int half, int& i0, int& rv) {
+  if (half == 0) return;
+  const int first = (rv + 1) / 2;
+  if (half == 1) {
+    rv = first;
+  } else {
+    i0 += first;
+    rv -= first;
+  }
+}
+
+// Copies `rows` rows of a [*, H] array in T into dst (row stride ld) by
+// 16-byte cp.async, committed as one group: dst row m takes src row
+// row_of(m) for m < valid and row row_of(valid - 1) after it.
+template <typename T, typename RowOf>
+__device__ void load_rows(T* dst, int ld, const T* src, int H, int rows, int valid,
+                          RowOf row_of) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int per_row = H / kVec;
+  for (int p = threadIdx.x; p < rows * per_row; p += kThreads) {
+    const int m = p / per_row, q = p % per_row;
+    const size_t g = row_of(min(m, valid - 1));
+    __pipeline_memcpy_async(dst + (size_t)m * ld + q * kVec, src + g * H + q * kVec, 16);
+  }
+  __pipeline_commit();
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-egnn_fused_kernel(const T* __restrict__ h0, const float* __restrict__ x0,
-                  const int* __restrict__ idx,
-                  const float* __restrict__ kmask,
-                  const float* __restrict__ dist0,
-                  const float* __restrict__ nmask, FusedWeights<T> w,
-                  T* scratch, float* __restrict__ hout,
-                  float* __restrict__ xout, int N, int K, int H, int L,
-                  int R, int r_true, float norm_constant,
-                  float coords_range, float norm_factor, int use_tanh) {
+egnn_fused_kernel(const FusedArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   using C = Cvt<T>;
-  const FusedSmem<T> S(N, R, K, H);
-  T* hs = reinterpret_cast<T*>(smem_raw + S.hs);
-  T* buf = reinterpret_cast<T*>(smem_raw + S.buf);
-  float* xs = reinterpret_cast<float*>(smem_raw + S.xs);
-  float* xn = reinterpret_cast<float*>(smem_raw + S.xn);
-  float* nm = reinterpret_cast<float*>(smem_raw + S.nm);
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int H = a.H, N = a.N, K = a.K, R = a.R, r = a.r_true;
+  const FusedSmem<T> S(H);
+  T* abuf = reinterpret_cast<T*>(smem_raw + S.abuf);
+  int* eidx = reinterpret_cast<int*>(smem_raw + S.eidx);
   float* ekm = reinterpret_cast<float*>(smem_raw + S.ekm);
-  float* escale = reinterpret_cast<float*>(smem_raw + S.escale);
   float* erad = reinterpret_cast<float*>(smem_raw + S.erad);
   float* ed0 = reinterpret_cast<float*>(smem_raw + S.ed0);
+  float* escale = reinterpret_cast<float*>(smem_raw + S.escale);
   float* ediff = reinterpret_cast<float*>(smem_raw + S.ediff);
-  int* eidx = reinterpret_cast<int*>(smem_raw + S.eidx);
-  const GemmSmem gs{reinterpret_cast<float*>(smem_raw + S.gemm),
-                    reinterpret_cast<bf16*>(smem_raw + S.gemm + 4 * kWarps * 256)};
+  bf16* wsm = reinterpret_cast<bf16*>(smem_raw + S.wsm);
+  float* part = reinterpret_cast<float*>(smem_raw + S.part);
 
-  const int b = blockIdx.x;
-  const size_t nb = (size_t)b * N;
-  // this sample's three [N, H] arrays in global memory (L2 resident),
-  // written and read by this block only, so read with plain loads:
-  //   proj: the gathered projection (w_j h + b, then coord w_j h + b)
-  //   wia:  the receiver projection (w_i h, then coord w_i h)
-  //   aggu: the summed messages, then the node MLP's hidden layer
-  const size_t srows = scratch_rows(N);
-  T* proj = scratch + (size_t)b * 3 * srows * H;
-  T* wia = proj + srows * H;
-  T* aggu = wia + srows * H;
+  const GemmSmem gs{nullptr, nullptr};  // the float products need none
+  const bf16* resident = nullptr;       // the weight matrix wsm holds
+
+  const int ld = H + row_pad<T>();  // row stride of the tiles
+  T* const tile2 = abuf + (size_t)kNodeRows * ld;  // second node tile
+  const int BN = a.B * N;
+  const int tiles = cdiv(BN, kNodeRows);           // node MLP tiles
+  const int wtiles = cdiv(BN, kEdgeRows);          // A tiles
+  const int tps = cdiv(N, R);                      // message items per sample
+  const int cps = cdiv(r, R);                      // coordinate items per sample
   const T* none = nullptr;
-  const int ld = H + row_pad<T>();  // row stride of hs and buf
+  const bool stamp = a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+  if (stamp) a.stamps[0] = clock64();
+  auto phase_end = [&](int i) {
+    grid.sync();
+    if (stamp) a.stamps[i] = clock64();
+  };
+  auto all_rows = [](int row0) {
+    return [row0](int m) { return (size_t)(row0 + m); };
+  };
 
-  for (int p = threadIdx.x; p < N * H; p += kThreads)
-    hs[(size_t)(p / H) * ld + p % H] = h0[nb * H + p];
-  for (int p = threadIdx.x; p < N * 3; p += kThreads) xs[p] = x0[nb * 3 + p];
-  for (int i = threadIdx.x; i < N; i += kThreads) nm[i] = nmask[nb + i];
-  __syncthreads();
-
-  for (int l = 0; l < L; ++l) {
+  for (int l = 0; l < a.L; ++l) {
     const size_t oHH = (size_t)l * H * H, oH = (size_t)l * H;
-    const float* Wjb = w.wjb + oH;
-    const float* Nib = w.nib + oH;
-    const float* Nob = w.nob + oH;
-    const float* Cwjb = w.cwjb + oH;
-    const float* Cmb = w.cmb + oH;
-    const T* Cg = w.cg + oH;
+    const bool last = l == a.L - 1;
+    const T* h_in = l == 0 ? a.h0 : a.hw;
+    const float* x_in = l == 0 ? a.x0 : a.xw + (size_t)((l + 1) & 1) * BN * 3;
+    float* x_out = last ? a.xout : a.xw + (size_t)(l & 1) * BN * 3;
 
-    // ---- GCL: both projections of every node, then the messages of each
-    // receiver tile into aggu
-    block_gemm<T>(hs, ld, w.wj + oHH, none, 0, none, N, H, gs,
-                  [&](int m, int n, float acc) {
-                    proj[(size_t)m * H + n] = C::from_f(acc + Wjb[n]);
-                  });
-    block_gemm<T>(hs, ld, w.wi + oHH, none, 0, none, N, H, gs,
-                  [&](int m, int n, float acc) {
-                    wia[(size_t)m * H + n] = C::from_f(acc);
-                  });
-    for (int i0 = 0; i0 < N; i0 += R) {
-      const int rv = min(R, N - i0);
-      const int E = rv * K;
-      load_edges<T>(idx, kmask, dist0, xs, nb + i0, i0, E, K, N, false, eidx,
-                    ekm, ed0, erad, ediff);
+    // ---- A: proj = h w_j + b and wia = h w_i over every row
+    for (int it = blockIdx.x; it < 2 * wtiles; it += gridDim.x) {
+      const int row0 = (it % wtiles) * kEdgeRows;
+      const int rows = min(kEdgeRows, BN - row0);
+      const float* bias = a.w.wjb + oH;
       __syncthreads();
-      pair_layer<T>(wia + (size_t)i0 * H, proj, w.we + 2 * oH, eidx, erad, ed0,
-                    E, K, H, buf, ld);
+      load_rows(abuf, ld, h_in, H, kEdgeRows, rows, all_rows(row0));
+      if constexpr (kMma<T>) {
+        tiles::use_weights(resident, wsm, ld, (it < wtiles ? a.w.wj : a.w.wi) + oHH, H);
+        tiles::Acc<2> acc;
+        acc.zero();
+        tiles::mma_streamed<2>(acc, abuf, ld, wsm, ld, H, resident, nullptr);
+        T* out = it < wtiles ? a.proj : a.wia;
+        const bool with_bias = it < wtiles;
+        tiles::for_each_pair<2>(acc, H, [&](int m, int n, float v0, float v1) {
+          if (m < rows) {
+            if (with_bias) {
+              v0 += bias[n];
+              v1 += bias[n + 1];
+            }
+            store2(out + (size_t)(row0 + m) * H + n, v0, v1);
+          }
+        });
+        continue;
+      }
+      __pipeline_wait_prior(0);
       __syncthreads();
-      gcl_message_tile<T>(buf, ld, rv, K, H, w.w2 + oHH, w.w2b + oH,
-                          w.att + oH, w.attb + l, 1, ekm, escale, norm_factor,
-                          aggu + (size_t)i0 * H, H, gs);
+      if (it < wtiles) {
+        block_gemm<T>(abuf, ld, a.w.wj + oHH, none, 0, none, rows, H, gs,
+                      [&](int m, int n, float acc) {
+                        a.proj[(size_t)(row0 + m) * H + n] = C::from_f(acc + bias[n]);
+                      });
+      } else {
+        block_gemm<T>(abuf, ld, a.w.wi + oHH, none, 0, none, rows, H, gs,
+                      [&](int m, int n, float acc) {
+                        a.wia[(size_t)(row0 + m) * H + n] = C::from_f(acc);
+                      });
+      }
     }
-    // node MLP residual on every row; the hidden layer overwrites aggu
-    // row by row, after the product has read those rows
-    block_gemm<T>(hs, ld, w.nih + oHH, aggu, H, w.nia + oHH, N, H, gs,
-                  [&](int m, int n, float acc) {
-                    aggu[(size_t)m * H + n] = C::from_f(silu_c<T>(C::rnd(acc + Nib[n])));
-                  });
-    block_gemm<T>(aggu, H, w.no + oHH, none, 0, none, N, H, gs,
-                  [&](int m, int n, float acc) {
-                    T* hp = hs + (size_t)m * ld + n;
-                    const float hv = C::rnd(C::to_f(*hp) + C::rnd(acc + Nob[n]));
-                    *hp = C::from_f(hv * nm[m]);
-                  });
+    phase_end(1 + kPhases * l + 0);  // A
 
-    // ---- coordinate pass on the movable receivers [0, r_true)
-    block_gemm<T>(hs, ld, w.cwj + oHH, none, 0, none, N, H, gs,
-                  [&](int m, int n, float acc) {
-                    proj[(size_t)m * H + n] = C::from_f(acc + Cwjb[n]);
-                  });
-    block_gemm<T>(hs, ld, w.cwi + oHH, none, 0, none, r_true, H, gs,
-                  [&](int m, int n, float acc) {
-                    wia[(size_t)m * H + n] = C::from_f(acc);
-                  });
-    for (int i0 = 0; i0 < r_true; i0 += R) {
-      const int rv = min(R, r_true - i0);
+    // ---- B: messages of R receivers of one sample into agg
+    const SplitTail msg_items(a.B * tps);
+    for (int w = blockIdx.x; w < msg_items.total; w += gridDim.x) {
+      int half;
+      const int it = msg_items.item(w, half);
+      const size_t nb = (size_t)(it / tps) * N;
+      int i0 = (it % tps) * R;
+      int rv = min(R, N - i0);
+      take_half(half, i0, rv);
       const int E = rv * K;
-      load_edges<T>(idx, kmask, dist0, xs, nb + i0, i0, E, K, N, true, eidx,
-                    ekm, ed0, erad, ediff);
       __syncthreads();
-      pair_layer<T>(wia + (size_t)i0 * H, proj, w.cwe + 2 * oH, eidx, erad, ed0,
-                    E, K, H, buf, ld);
+      // edge_out's weights stay in shared memory for the whole phase
+      if constexpr (kMma<T>) tiles::use_weights(resident, wsm, ld, a.w.w2 + oHH, H);
+      load_edges<T>(a.idx, a.kmask, a.dist0, x_in + nb * 3, nb + i0, i0, E, K,
+                    N, false, eidx, ekm, ed0, erad, ediff);
       __syncthreads();
-      block_gemm<T>(buf, ld, w.cm + oHH, none, 0, none, E, H, gs,
+      pair_layer<T>(a.wia + (nb + i0) * H, a.proj + nb * H, a.w.we + 2 * oH,
+                    eidx, erad, ed0, E, K, H, abuf, ld);
+      if constexpr (kMma<T>) {
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        tiles::Acc<2> acc;
+        acc.zero();
+        tiles::mma_tile<2>(acc, abuf, ld, wsm, ld, H);
+        __syncthreads();  // every warp has read the edge tile
+        // m = silu(acc + b2) back into the edge tile, and its attention dot
+        const float* b2 = a.w.w2b + oH;
+        const T* att = a.w.att + oH;
+        tiles::row_partials<2>(acc, H, part, kEdgeRows, [&](int m, int n, float v0, float v1) {
+          if (m >= E) return 0.0f;  // rows past the tile's edges
+          v0 = silu_c<T>(C::rnd(v0 + b2[n]));
+          v1 = silu_c<T>(C::rnd(v1 + b2[n + 1]));
+          store2(abuf + (size_t)m * ld + n, v0, v1);
+          return v0 * C::to_f(att[n]) + v1 * C::to_f(att[n + 1]);
+        });
+        __syncthreads();
+        for (int e = threadIdx.x; e < E; e += kThreads) {
+          float d = part[e];
+          for (int w = 1; w < tiles::kWarpCols; ++w) d += part[w * kEdgeRows + e];
+          escale[e] = C::rnd(sigmoid_f(d + a.w.attb[l]) * ekm[e]);
+        }
+        __syncthreads();
+        // the K-sum in T, in k order, two columns per thread
+        const float inv = C::rnd(1.0f / a.norm_factor);
+        for (int p = threadIdx.x; p < rv * H / 2; p += kThreads) {
+          const int i = p / (H / 2), c = 2 * (p % (H / 2));
+          const T* col = abuf + (size_t)i * K * ld + c;
+          const float* sc = escale + i * K;
+          float2 v = load2(col);
+          float s0 = C::rnd(v.x * sc[0]), s1 = C::rnd(v.y * sc[0]);
+          for (int k = 1; k < K; ++k) {
+            v = load2(col + (size_t)k * ld);
+            s0 = C::rnd(s0 + C::rnd(v.x * sc[k]));
+            s1 = C::rnd(s1 + C::rnd(v.y * sc[k]));
+          }
+          store2(a.agg + (nb + i0 + i) * H + c, s0 * inv, s1 * inv);
+        }
+        continue;
+      }
+      __syncthreads();
+      gcl_message_tile<T>(abuf, ld, rv, K, H, a.w.w2 + oHH, a.w.w2b + oH,
+                          a.w.att + oH, a.w.attb + l, 1, ekm, escale,
+                          a.norm_factor, a.agg + (nb + i0) * H, H, gs);
+    }
+    phase_end(1 + kPhases * l + 1);  // B
+
+    // ---- C: node MLP residual, then the coordinate projections of the new
+    // h: proj = h coord_w_j + b, and wia = h coord_w_i on the movable rows
+    // (row g moves when g % N < r)
+    for (int it = blockIdx.x; it < tiles; it += gridDim.x) {
+      const int row0 = it * kNodeRows;
+      const int rows = min(kNodeRows, BN - row0);
+      const float* nib = a.w.nib + oH;
+      const float* nob = a.w.nob + oH;
+      const float* cwjb = a.w.cwjb + oH;
+      auto moves = [&](int m) { return m < rows && (row0 + m) % N < r; };
+      __syncthreads();
+      load_rows(abuf, ld, h_in, H, kNodeRows, rows, all_rows(row0));
+      load_rows(tile2, ld, a.agg, H, kNodeRows, rows, all_rows(row0));
+      if constexpr (kMma<T>) {
+        // node_in's halves, node_out, coord w_j and coord w_i stream through
+        // wsm, each loading while the one before it multiplies
+        const T* cwi = r > 0 ? a.w.cwi + oHH : nullptr;
+        tiles::use_weights(resident, wsm, ld, a.w.nih + oHH, H);
+        tiles::Acc<1> acc;
+        acc.zero();
+        tiles::mma_streamed<1>(acc, abuf, ld, wsm, ld, H, resident, a.w.nia + oHH);
+        tiles::mma_streamed<1>(acc, tile2, ld, wsm, ld, H, resident, a.w.no + oHH);
+        // the hidden layer replaces the h tile, which only node_in read
+        tiles::for_each_pair<1>(acc, H, [&](int m, int n, float v0, float v1) {
+          store2(abuf + (size_t)m * ld + n, silu_c<T>(C::rnd(v0 + nib[n])),
+                 silu_c<T>(C::rnd(v1 + nib[n + 1])));
+        });
+        acc.zero();
+        tiles::mma_streamed<1>(acc, abuf, ld, wsm, ld, H, resident, a.w.cwj + oHH);
+        // the new h, also into the agg tile, which only node_in read
+        tiles::for_each_pair<1>(acc, H, [&](int m, int n, float v0, float v1) {
+          const size_t g = (size_t)(row0 + min(m, rows - 1)) * H + n;
+          const float nm = a.nmask[row0 + min(m, rows - 1)];
+          const float2 hv = load2(h_in + g);
+          const float h0 = C::rnd(C::rnd(hv.x + C::rnd(v0 + nob[n])) * nm);
+          const float h1 = C::rnd(C::rnd(hv.y + C::rnd(v1 + nob[n + 1])) * nm);
+          store2(tile2 + (size_t)m * ld + n, h0, h1);
+          if (m < rows) {
+            store2(a.hw + g, h0, h1);
+            if (last) store2(a.hout + g, h0, h1);
+          }
+        });
+        acc.zero();
+        tiles::mma_streamed<1>(acc, tile2, ld, wsm, ld, H, resident, cwi);
+        tiles::for_each_pair<1>(acc, H, [&](int m, int n, float v0, float v1) {
+          if (m < rows)
+            store2(a.proj + (size_t)(row0 + m) * H + n, v0 + cwjb[n], v1 + cwjb[n + 1]);
+        });
+        if (r == 0) continue;
+        acc.zero();
+        tiles::mma_streamed<1>(acc, tile2, ld, wsm, ld, H, resident, nullptr);
+        tiles::for_each_pair<1>(acc, H, [&](int m, int n, float v0, float v1) {
+          if (moves(m)) store2(a.wia + (size_t)(row0 + m) * H + n, v0, v1);
+        });
+        continue;
+      }
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      block_gemm<T>(abuf, ld, a.w.nih + oHH, tile2, ld, a.w.nia + oHH, rows, H, gs,
                     [&](int m, int n, float acc) {
-                      buf[(size_t)m * ld + n] = C::from_f(silu_c<T>(C::rnd(acc + Cmb[n])));
+                      tile2[(size_t)m * ld + n] = C::from_f(silu_c<T>(C::rnd(acc + nib[n])));
                     });
-      const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-      for (int e = warp; e < E; e += kWarps) {
-        float g = 0.0f;
-        for (int c = lane; c < H; c += 32)
-          g = fmaf(C::to_f(buf[(size_t)e * ld + c]), C::to_f(Cg[c]), g);
-        g = warp_sum(g);
-        if (use_tanh) g = tanhf(g) * coords_range;
-        if (lane == 0) {
-          const float norm = sqrtf(erad[e] + 1e-8f);
-          for (int c = 0; c < 3; ++c)
-            ediff[e * 3 + c] = ediff[e * 3 + c] / (norm + norm_constant) * g * ekm[e];
+      // the new h replaces the hidden layer row by row, after the product
+      // has read those rows
+      block_gemm<T>(tile2, ld, a.w.no + oHH, none, 0, none, rows, H, gs,
+                    [&](int m, int n, float acc) {
+                      const size_t g = (size_t)(row0 + m) * H + n;
+                      const float hv = C::rnd(C::to_f(h_in[g]) + C::rnd(acc + nob[n]));
+                      const T hn = C::from_f(hv * a.nmask[row0 + m]);
+                      tile2[(size_t)m * ld + n] = hn;
+                      a.hw[g] = hn;
+                      if (last) a.hout[g] = C::to_f(hn);
+                    });
+      block_gemm<T>(tile2, ld, a.w.cwj + oHH, none, 0, none, rows, H, gs,
+                    [&](int m, int n, float acc) {
+                      a.proj[(size_t)(row0 + m) * H + n] = C::from_f(acc + cwjb[n]);
+                    });
+      if (r == 0) continue;
+      block_gemm<T>(tile2, ld, a.w.cwi + oHH, none, 0, none, rows, H, gs,
+                    [&](int m, int n, float acc) {
+                      if (moves(m)) a.wia[(size_t)(row0 + m) * H + n] = C::from_f(acc);
+                    });
+    }
+    phase_end(1 + kPhases * l + 2);  // C
+
+    // ---- D: coordinate pass of R movable receivers of one sample
+    const int still = N - r;
+    for (int p = blockIdx.x * kThreads + threadIdx.x; p < a.B * still * 3;
+         p += gridDim.x * kThreads) {
+      const int q = p / 3;
+      const size_t row = (size_t)(q / still) * N + r + q % still;
+      x_out[row * 3 + p % 3] = x_in[row * 3 + p % 3] * a.nmask[row];
+    }
+    const T* cg = a.w.cg + oH;
+    const float* cmb = a.w.cmb + oH;
+    const SplitTail coord_items(a.B * cps);
+    for (int w = blockIdx.x; w < coord_items.total; w += gridDim.x) {
+      int half;
+      const int it = coord_items.item(w, half);
+      const size_t nb = (size_t)(it / cps) * N;
+      int i0 = (it % cps) * R;
+      int rv = min(R, r - i0);
+      take_half(half, i0, rv);
+      const int E = rv * K;
+      __syncthreads();
+      // coord_mid's weights stay in shared memory for the whole phase
+      if constexpr (kMma<T>) tiles::use_weights(resident, wsm, ld, a.w.cm + oHH, H);
+      load_edges<T>(a.idx, a.kmask, a.dist0, x_in + nb * 3, nb + i0, i0, E, K,
+                    N, true, eidx, ekm, ed0, erad, ediff);
+      __syncthreads();
+      pair_layer<T>(a.wia + (nb + i0) * H, a.proj + nb * H, a.w.cwe + 2 * oH,
+                    eidx, erad, ed0, E, K, H, abuf, ld);
+      // edge e's gate g = silu(buf @ coord_mid + b) . coord_gate, into its
+      // translation ediff[e] (times kmask, over the normalised distance)
+      auto translate = [&](int e, float g) {
+        if (a.use_tanh) g = tanhf(g) * a.coords_range;
+        const float norm = sqrtf(erad[e] + 1e-8f);
+        for (int c = 0; c < 3; ++c)
+          ediff[e * 3 + c] = ediff[e * 3 + c] / (norm + a.norm_constant) * g * ekm[e];
+      };
+      if constexpr (kMma<T>) {
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        tiles::Acc<2> acc;
+        acc.zero();
+        tiles::mma_tile<2>(acc, abuf, ld, wsm, ld, H);
+        tiles::row_partials<2>(acc, H, part, kEdgeRows, [&](int m, int n, float v0, float v1) {
+          if (m >= E) return 0.0f;
+          return silu_c<T>(C::rnd(v0 + cmb[n])) * C::to_f(cg[n]) +
+                 silu_c<T>(C::rnd(v1 + cmb[n + 1])) * C::to_f(cg[n + 1]);
+        });
+        __syncthreads();
+        for (int e = threadIdx.x; e < E; e += kThreads) {
+          float g = part[e];
+          for (int w = 1; w < tiles::kWarpCols; ++w) g += part[w * kEdgeRows + e];
+          translate(e, g);
+        }
+      } else {
+        __syncthreads();
+        block_gemm<T>(abuf, ld, a.w.cm + oHH, none, 0, none, E, H, gs,
+                      [&](int m, int n, float acc) {
+                        abuf[(size_t)m * ld + n] = C::from_f(silu_c<T>(C::rnd(acc + cmb[n])));
+                      });
+        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+        for (int e = warp; e < E; e += kWarps) {
+          float g = 0.0f;
+          for (int c = lane; c < H; c += 32)
+            g = fmaf(C::to_f(abuf[(size_t)e * ld + c]), C::to_f(cg[c]), g);
+          g = warp_sum(g);
+          if (lane == 0) translate(e, g);
         }
       }
       __syncthreads();
       for (int p = threadIdx.x; p < rv * 3; p += kThreads) {
-        const int r = p / 3, c = p % 3;
-        float s = ediff[(r * K) * 3 + c];
-        for (int k = 1; k < K; ++k) s += ediff[(r * K + k) * 3 + c];
-        xn[(i0 + r) * 3 + c] = xs[(i0 + r) * 3 + c] + s / norm_factor;
+        const int i = p / 3, c = p % 3;
+        float s = ediff[(i * K) * 3 + c];
+        for (int k = 1; k < K; ++k) s += ediff[(i * K + k) * 3 + c];
+        const size_t row = nb + i0 + i;
+        x_out[row * 3 + c] = (x_in[row * 3 + c] + s / a.norm_factor) * a.nmask[row];
       }
-      __syncthreads();
     }
-    for (int p = threadIdx.x; p < N * 3; p += kThreads) {
-      const int i = p / 3;
-      xs[p] = (i < r_true ? xn[p] : xs[p]) * nm[i];
-    }
-    __syncthreads();
+    phase_end(1 + kPhases * l + 3);  // D
   }
-
-  for (int p = threadIdx.x; p < N * H; p += kThreads)
-    hout[nb * H + p] = C::to_f(hs[(size_t)(p / H) * ld + p % H]);
-  for (int p = threadIdx.x; p < N * 3; p += kThreads) xout[nb * 3 + p] = xs[p];
 }
 
 template <typename T>
-static int launch(const void* h0, const void* x0, const void* idx,
-                  const void* kmask, const void* dist0, const void* nmask,
-                  const void* const* wp, void* scratch, void* hout, void* xout,
-                  int B, int N, int K, int H, int L, int r_true,
-                  float norm_constant, float coords_range, float norm_factor,
-                  int use_tanh, cudaStream_t stream) {
-  int R = K >= kTileEdges ? 1 : kTileEdges / K;
-  while (R > 1 && FusedSmem<T>(N, R, K, H).total > (size_t)kMaxSmem) --R;
-  const size_t smem = FusedSmem<T>(N, R, K, H).total;
+static int launch(FusedArgs<T> a, int max_items, cudaStream_t stream,
+                  int* grid_out) {
+  if (a.L < 1 || a.R < 1 || a.R * a.K > kEdgeRows) return (int)cudaErrorInvalidValue;
+  const size_t smem = FusedSmem<T>(a.H).total;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
-      egnn_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      egnn_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  FusedWeights<T> w;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, egnn_fused_kernel<T>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int blocks = max(1, min(sms * per_sm, max_items));
+  grid_out[0] = blocks;
+  grid_out[1] = per_sm;
+  grid_out[2] = (int)smem;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(egnn_fused_kernel<T>, dim3(blocks), dim3(kThreads),
+                                    args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_typed(const void* h0, const void* x0, const void* idx,
+                        const void* kmask, const void* dist0, const void* nmask,
+                        const void* const* wp, void* work, void* coords,
+                        void* hout, void* xout, int B, int N, int K, int H,
+                        int L, int r_true, int R, int max_items,
+                        float norm_constant, float coords_range,
+                        float norm_factor, int use_tanh, void* stamps,
+                        cudaStream_t stream, int* grid_out) {
+  FusedArgs<T> a;
+  a.h0 = (const T*)h0;
+  a.x0 = (const float*)x0;
+  a.idx = (const int*)idx;
+  a.kmask = (const float*)kmask;
+  a.dist0 = (const float*)dist0;
+  a.nmask = (const float*)nmask;
+  FusedWeights<T>& w = a.w;
   w.wi = (const T*)wp[0];
   w.wj = (const T*)wp[1];
   w.wjb = (const float*)wp[2];
@@ -323,37 +630,61 @@ static int launch(const void* h0, const void* x0, const void* idx,
   w.cm = (const T*)wp[17];
   w.cmb = (const float*)wp[18];
   w.cg = (const T*)wp[19];
-  egnn_fused_kernel<T><<<B, kThreads, smem, stream>>>(
-      (const T*)h0, (const float*)x0, (const int*)idx, (const float*)kmask,
-      (const float*)dist0, (const float*)nmask, w, (T*)scratch, (float*)hout,
-      (float*)xout, N, K, H, L, R, r_true, norm_constant, coords_range,
-      norm_factor, use_tanh);
-  return (int)cudaGetLastError();
+  const size_t plane = (size_t)B * N * H;
+  a.hw = (T*)work;
+  a.proj = a.hw + plane;
+  a.wia = a.proj + plane;
+  a.agg = a.wia + plane;
+  a.xw = (float*)coords;
+  a.hout = (float*)hout;
+  a.xout = (float*)xout;
+  a.stamps = (long long*)stamps;
+  a.B = B;
+  a.N = N;
+  a.K = K;
+  a.H = H;
+  a.L = L;
+  a.r_true = r_true;
+  a.R = R;
+  a.norm_constant = norm_constant;
+  a.coords_range = coords_range;
+  a.norm_factor = norm_factor;
+  a.use_tanh = use_tanh;
+  return launch<T>(a, max_items, stream, grid_out);
 }
 
 }  // namespace egnn
 
 // dtype: 0 = float32, 1 = bfloat16. weights: the 20 device pointers of
-// FusedWeights, in its order. scratch: B * 3 * scratch_rows(N) * H elements of the
-// compute dtype. Returns a cudaError_t value (0 = ok).
+// FusedWeights, in its order. work: [4, B*N, H] in the compute dtype (h,
+// proj, wia, agg); coords: [2, B*N, 3] float. R: receivers per message tile
+// (R * K <= 128); max_items: the largest phase's work-item count, which
+// caps the grid. stamps: null, or [1 + 4 * L] int64 for block 0's clock at
+// the start and at the end of each phase. grid_out receives the grid launched: blocks, blocks per
+// SM, dynamic shared memory per block. Returns a cudaError_t value (0 = ok).
 extern "C" int egnn_fused_launch(int dtype, const void* h0, const void* x0,
                                  const void* idx, const void* kmask,
                                  const void* dist0, const void* nmask,
-                                 const void* const* weights, void* scratch,
-                                 void* hout, void* xout, int B, int N, int K,
-                                 int H, int L, int r_true, float norm_constant,
+                                 const void* const* weights, void* work,
+                                 void* coords, void* hout, void* xout, int B,
+                                 int N, int K, int H, int L, int r_true, int R,
+                                 int max_items, float norm_constant,
                                  float coords_range, float norm_factor,
-                                 int use_tanh, void* stream) {
+                                 int use_tanh, void* stamps, void* stream,
+                                 int* grid_out) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return egnn::launch<float>(h0, x0, idx, kmask, dist0, nmask, weights,
-                               scratch, hout, xout, B, N, K, H, L, r_true,
-                               norm_constant, coords_range, norm_factor,
-                               use_tanh, s);
+    return egnn::launch_typed<float>(h0, x0, idx, kmask, dist0, nmask, weights,
+                                     work, coords, hout, xout, B, N, K, H, L,
+                                     r_true, R, max_items, norm_constant,
+                                     coords_range, norm_factor, use_tanh,
+                                     stamps, s, grid_out);
   if (dtype == 1)
-    return egnn::launch<egnn::bf16>(h0, x0, idx, kmask, dist0, nmask,
-                                       weights, scratch, hout, xout, B, N, K,
-                                       H, L, r_true, norm_constant,
-                                       coords_range, norm_factor, use_tanh, s);
+    return egnn::launch_typed<egnn::bf16>(h0, x0, idx, kmask, dist0, nmask,
+                                          weights, work, coords, hout, xout, B,
+                                          N, K, H, L, r_true, R, max_items,
+                                          norm_constant, coords_range,
+                                          norm_factor, use_tanh, stamps, s,
+                                          grid_out);
   return (int)cudaErrorInvalidValue;
 }

@@ -147,14 +147,63 @@ def _layers_plain(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
     return h.float(), x
 
 
+# rows of one message tile (R receivers x K edges, R * K <= 128), also the
+# row tile of phase A, and of one node MLP tile (csrc/egnn_fused.cu:
+# kEdgeRows, kNodeRows)
+EDGE_ROWS = 128
+NODE_ROWS = 64
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(b: int, n: int, k: int, hdim: int, r_true: int) -> Dict[str, object]:
+    """The kernel's work decomposition, computed here and passed to it.
+
+    Each layer runs as four phases over the whole batch (csrc/egnn_fused.cu),
+    each a list of work items that the blocks of one cooperative grid take
+    in a strided loop: A, the node projections w_j, w_i (one item per
+    EDGE_ROWS-row tile and matrix); B, the GCL messages (one item per R
+    receivers of one sample); C, the node MLP and then the coordinate
+    projections of the new h (one item per NODE_ROWS-row tile); D, the
+    coordinate pass (one item per R movable receivers of one sample). In B
+    and D the kernel takes a last, partial round of items as half items
+    where twice as many still fit in the grid. The grid is capped at the
+    largest phase's item count. Workspace: the four [B*N, H] arrays (h,
+    proj, wia, agg) and two [B*N, 3] coordinate buffers.
+    """
+    if not 1 <= k <= EDGE_ROWS:
+        raise ValueError(f"neighbor_k {k} outside [1, {EDGE_ROWS}]")
+    if not 0 <= r_true <= n:
+        raise ValueError(f"update_rows {r_true} outside [0, {n}]")
+    rcv = EDGE_ROWS // k
+    wide = _cdiv(b * n, EDGE_ROWS)
+    items = {
+        "A": 2 * wide,
+        "B": b * _cdiv(n, rcv),
+        "C": _cdiv(b * n, NODE_ROWS),
+        "D": b * _cdiv(r_true, rcv),
+    }
+    return {"receivers": rcv, "items": items, "max_items": max(items.values()),
+            "work": (4, b * n, hdim), "coords": (2, b * n, 3)}
+
+
 def _layers_kernel(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
-                   norm_constant, coords_range, norm_factor, tanh, cdt):
-    """Launch csrc/egnn_fused.cu on CUDA tensors, or raise."""
+                   norm_constant, coords_range, norm_factor, tanh, cdt, *,
+                   stamps: Optional[torch.Tensor] = None):
+    """Launch csrc/egnn_fused.cu on CUDA tensors, or raise. ``stamps``: an
+    int64 CUDA tensor of 1 + len(PHASES) * n_layers elements, or None; the
+    kernel then writes one block's SM clock at its start and after each
+    phase (:func:`phase_shares`)."""
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"unsupported compute dtype {cdt}")
     b, n, hdim = h0.shape
     k = idx.shape[-1]
     _check_width(hdim, cdt)
+    if cdt == torch.bfloat16 and hdim > 256:
+        raise ValueError(f"hidden width {hdim} unsupported by the fused bf16 kernel (<= 256)")
+    plan = launch_plan(b, n, k, hdim, int(r_true))
     dev = h0.device
     h0 = h0.to(cdt).contiguous()
     x = x.to(torch.float32).contiguous()
@@ -178,44 +227,51 @@ def _layers_kernel(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
     for name in WEIGHT_NAMES:
         dt = torch.float32 if name in _F32_NAMES else cdt
         _check(p[name], name, shapes.get(name, (L, hdim, hdim)), dt)
-    if not 0 <= r_true <= n:
-        raise ValueError(f"update_rows {r_true} outside [0, {n}]")
-    # three [N, H] arrays per sample, rows rounded up to whole 16-row tiles
-    scratch = torch.empty((b, 3 * (-(-n // 16) * 16), hdim), dtype=cdt, device=dev)
+    work = torch.empty(plan["work"], dtype=cdt, device=dev)
+    coords = torch.empty(plan["coords"], dtype=torch.float32, device=dev)
     hout = torch.empty((b, n, hdim), dtype=torch.float32, device=dev)
     xout = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
     wptrs = (ctypes.c_void_p * len(WEIGHT_NAMES))(
         *[p[name].data_ptr() for name in WEIGHT_NAMES]
     )
+    if stamps is not None:
+        _check(stamps, "stamps", (1 + len(PHASES) * L,), torch.int64)
+    grid = (ctypes.c_int * 3)()
     lib = _build.load("egnn_fused")
     fn = lib.egnn_fused_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(
         _DTYPE_CODE[cdt], h0.data_ptr(), x.data_ptr(), idx.data_ptr(),
         kmask.data_ptr(), dist0.data_ptr(), nmask.data_ptr(),
-        ctypes.cast(wptrs, ctypes.c_void_p), scratch.data_ptr(),
+        ctypes.cast(wptrs, ctypes.c_void_p), work.data_ptr(), coords.data_ptr(),
         hout.data_ptr(), xout.data_ptr(), b, n, k, hdim, L, int(r_true),
+        plan["receivers"], plan["max_items"],
         float(norm_constant), float(coords_range), float(norm_factor),
-        int(bool(tanh)), stream,
+        int(bool(tanh)), None if stamps is None else stamps.data_ptr(), stream,
+        ctypes.cast(grid, ctypes.c_void_p),
     )
     if rc != 0:
-        raise RuntimeError(f"egnn_fused kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"egnn_fused cooperative launch failed: cudaError {rc}")
     egnn_forward_fused.launches += 1
+    egnn_forward_fused.last_grid = {"blocks": grid[0], "blocks_per_sm": grid[1],
+                                    "smem_bytes": grid[2]}
     return hout, xout
 
 
-def _forward(layers, params, h, x, edge_mask, node_mask, update_coords_mask,
-             n_layers, neighbor_k, norm_constant, coords_range,
-             normalization_factor, tanh, update_rows, compute_dtype):
+def layer_args(params, h, x, edge_mask, node_mask, n_layers, neighbor_k,
+               norm_constant, coords_range, normalization_factor, tanh,
+               update_rows, compute_dtype):
+    """The layer stack's arguments (for ``_layers_kernel`` or
+    ``_layers_plain``): the neighbor list and dist0 from the entry
+    coordinates and the input embedding, computed in PyTorch."""
     b, n, _ = h.shape
     kk = min(neighbor_k, n)
     x = x.float()
-    # neighbor list from the entry coordinates
     d2 = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
     score = torch.where(edge_mask > 0, -d2, torch.full_like(d2, float("-inf")))
     idx = torch.topk(score, kk, dim=-1).indices
@@ -223,11 +279,34 @@ def _forward(layers, params, h, x, edge_mask, node_mask, update_coords_mask,
     dist0k = torch.gather(d2, -1, idx)
     h0 = (h.float() @ params["emb_w"] + params["emb_b"]).to(compute_dtype)
     r_true = update_rows if update_rows is not None else n
-    hout, xout = layers(
-        params, h0, x, idx, kmask, dist0k, node_mask, r_true, n_layers,
-        norm_constant, coords_range, normalization_factor, tanh,
-        compute_dtype,
-    )
+    return (params, h0, x, idx, kmask, dist0k, node_mask, r_true, n_layers,
+            norm_constant, coords_range, normalization_factor, tanh,
+            compute_dtype)
+
+
+PHASES = ("A node projections", "B messages",
+          "C node MLP and coordinate projections", "D coordinate pass")
+
+
+def phase_shares(stamps: torch.Tensor) -> Dict[str, float]:
+    """Each phase's share of a launch's clock, summed over the layers, from
+    the ``stamps`` that ``_layers_kernel`` filled (each share includes the
+    phase's closing grid barrier)."""
+    t = stamps.cpu().double()
+    span = t[1:] - t[:-1]
+    total = span.sum().item()
+    return {name: span[i::len(PHASES)].sum().item() / total
+            for i, name in enumerate(PHASES)}
+
+
+def _forward(layers, params, h, x, edge_mask, node_mask, update_coords_mask,
+             n_layers, neighbor_k, norm_constant, coords_range,
+             normalization_factor, tanh, update_rows, compute_dtype):
+    args = layer_args(params, h, x, edge_mask, node_mask, n_layers, neighbor_k,
+                      norm_constant, coords_range, normalization_factor, tanh,
+                      update_rows, compute_dtype)
+    hout, xout = layers(*args)
+    x = args[2]
     if update_coords_mask is not None:
         xout = x + (xout - x) * update_coords_mask[..., None]
     hfin = hout @ params["out_w"] + params["out_b"]
@@ -264,6 +343,8 @@ def egnn_forward_fused(
 
 
 egnn_forward_fused.launches = 0
+# the grid of the last launch: blocks, blocks per SM, shared memory per block
+egnn_forward_fused.last_grid = None
 
 
 def egnn_forward_fused_plain(params, h, x, edge_mask, node_mask,

@@ -21,9 +21,12 @@ from cmdgen_tpu_torch.models.dynamics import DynamicsConfig as TDynamicsConfig
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics as TEGNNDynamics
 from cmdgen_tpu_torch.models.dynamics import make_fused_apply
 from cmdgen_tpu_torch.ops.egnn_fused import (
+    EDGE_ROWS,
+    NODE_ROWS,
     egnn_forward_fused,
     egnn_forward_fused_plain,
     fused_params,
+    launch_plan,
 )
 
 torch.set_num_threads(1)
@@ -143,3 +146,59 @@ def test_fused_apply_rejects_unsupported_configs():
         cfg, egnn=dataclasses.replace(cfg.egnn, neighbor_k=None)), params)
     with pytest.raises(ValueError, match="neighbor_k"):
         make_fused_apply(dyn)
+
+
+@pytest.mark.parametrize("b,n,k,h,r", [
+    (48, 118, 12, 256, 8),   # the flagship shape
+    (1, 37, 12, 256, 0),     # no movable rows
+    (3, 130, 16, 128, 130),  # every row moves
+    (160, 100, 12, 256, 8),
+    (2, 12, 5, 32, 4),
+    (2, 130, 128, 64, 3),    # one receiver per message tile
+])
+def test_launch_plan_covers_every_row_once(b, n, k, h, r):
+    """The fused kernel's work items, from the wrapper's plan, cover each
+    row, receiver and movable receiver exactly once at ragged shapes."""
+    plan = launch_plan(b, n, k, h, r)
+    rcv, items = plan["receivers"], plan["items"]
+    assert rcv * k <= EDGE_ROWS < (rcv + 1) * k
+    for rows, n_tiles in ((NODE_ROWS, items["C"]), (EDGE_ROWS, items["A"] // 2)):
+        tiles = [list(range(t * rows, min((t + 1) * rows, b * n))) for t in range(n_tiles)]
+        assert all(tiles) and sorted(sum(tiles, [])) == list(range(b * n))
+    assert items["A"] % 2 == 0
+
+    def receivers(n_items, rows, size):
+        per = -(-rows // size) if rows else 0
+        assert n_items == b * per
+        out = []
+        for it in range(n_items):
+            i0 = (it % per) * size
+            out += [(it // per, i) for i in range(i0, min(i0 + size, rows))]
+        return out
+
+    assert receivers(items["B"], n, rcv) == [(s, i) for s in range(b) for i in range(n)]
+    assert receivers(items["D"], r, rcv) == [(s, i) for s in range(b) for i in range(r)]
+    # the kernel's half items (SplitTail, take_half): any item's receivers
+    # split in two cover it
+    for it in range(items["B"]):
+        i0 = (it % (items["B"] // b)) * rcv
+        rv = min(rcv, n - i0)
+        first = (rv + 1) // 2
+        assert list(range(i0, i0 + first)) + list(range(i0 + first, i0 + rv)) == list(
+            range(i0, i0 + rv))
+    assert plan["max_items"] == max(items.values())
+    assert plan["work"] == (4, b * n, h) and plan["coords"] == (2, b * n, 3)
+
+
+def test_launch_plan_rejects_what_the_kernel_cannot_tile():
+    with pytest.raises(ValueError, match="neighbor_k"):
+        launch_plan(1, 200, EDGE_ROWS + 1, 64, 0)
+    with pytest.raises(ValueError, match="update_rows"):
+        launch_plan(1, 10, 4, 64, 11)
+
+
+def test_launch_plan_of_the_wrapping_card_case():
+    """tests/test_torch_kernels_cuda.py's (160, 100, ...) case gives every
+    phase more work items than the H100's 132 SMs, so each strided item
+    loop wraps."""
+    assert min(launch_plan(160, 100, 12, 256, 8)["items"].values()) > 132
