@@ -10,10 +10,11 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
 2. holds each kernel's wrapper against its plain PyTorch version at the
    flagship shape (B=48, N=8+110, K=12, H=256, 5 layers), in float32 and
    bfloat16, and times both (CUDA events) beside the card's bound for the
-   work; for K2 also the kernel alone (``kernel_ms``, without the wrapper's
-   neighbor list and embeddings), the grid it launched, its phases' shares
-   of one launch, the bf16 versions' distance from the float32 one, and a
-   bf16 run at B=132;
+   work; for each also the kernel alone (``kernel_ms``: for K1 without the
+   wrapper's checks and casts, for K2 without its neighbor list and
+   embeddings), the grid it launched, and a bf16 run at B=132; K1's
+   stages' shares of block 0's clock over its tiles, K2's phases' shares of
+   one launch and the bf16 versions' distance from the float32 one;
 3. samples pharmacophores at the flagship CA configuration (hidden 256,
    5 layers, K=12, bf16, random weights from a seed) through
    ``ConditionalDDPM.sample_given_pocket`` with the msgpass engine (K1 in
@@ -170,44 +171,68 @@ def timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes):
                 bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
 
 
-def check_k1(dev, dtype_name):
-    """K1's wrapper at the flagship shape on layer-0 weights: kernel vs
-    plain, on a radial from moved coordinates and dist0 from the entry
-    ones (so the two edge-feature rows are told apart)."""
+def check_k1(dev, dtype_name, b=B):
+    """K1's wrapper at the flagship shape (batch b) on layer-0 weights,
+    called as the msgpass engine calls it (``models/egnn.py: GCL``): the
+    transposed ``nn.Linear`` weights as they lie, radial and dist0 as slices
+    of the edge features in the compute dtype, kmask in it too, int64
+    neighbor indices; the radial from moved coordinates and dist0 from the
+    entry ones, so the two edge-feature rows are told apart. Kernel vs
+    plain; times the wrapper (``ms``) and the kernel alone on prepared
+    arguments (``kernel_ms``), reports the grid and each stage's share of
+    block 0's clock."""
     import torch
 
     from cmdgen_tpu_torch.models.egnn import build_neighbor_list
     from cmdgen_tpu_torch.ops.egnn_msgpass import (
-        gather_rows, gcl_message_agg, gcl_message_agg_plain)
+        STAGES, gather_rows, gcl_message_agg, gcl_message_agg_plain, prepare_launch,
+        stage_shares)
 
     cdt = getattr(torch, dtype_name)
     _, dyn = flagship_dynamics(dev, cdt)
     gcl = dyn.egnn.e_block_0.gcl_0
-    _, x0, edge_mask = flagship_geometry(1, B, dev)
+    _, x0, edge_mask = flagship_geometry(1, b, dev)
     g = torch.Generator(device=dev).manual_seed(2)
     kmask, idx = build_neighbor_list(x0, edge_mask, K)
     x = x0 + 0.5 * torch.randn(x0.shape, generator=g, device=dev)
-    radial = ((x[:, :, None] - gather_rows(x, idx)) ** 2).sum(-1)
-    dist0 = ((x0[:, :, None] - gather_rows(x0, idx)) ** 2).sum(-1)
-    h = torch.randn(B, N_P + N_Q, H, generator=g, device=dev)
+    radial = ((x[:, :, None] - gather_rows(x, idx)) ** 2).sum(-1, keepdim=True)
+    dist0 = ((x0[:, :, None] - gather_rows(x0, idx)) ** 2).sum(-1, keepdim=True)
+    edge_attr = torch.cat([radial.to(cdt), dist0.to(cdt)], dim=-1)
+    h = torch.randn(b, N_P + N_Q, H, generator=g, device=dev)
     wi, wj = gcl.edge_in.project(h, cdt)
-    args = (wi, wj, idx.int(), radial, dist0, kmask,
-            gcl.edge_in.w_e.weight.t().contiguous(), gcl.edge_out.weight.t().contiguous(),
+    args = (wi, wj, idx, edge_attr[..., 0], edge_attr[..., 1], kmask.to(cdt),
+            gcl.edge_in.w_e.weight.t(), gcl.edge_out.weight.t(),
             gcl.edge_out.bias, (gcl.att.weight.reshape(H), gcl.att.bias), 100.0, cdt)
-    log(f"K1 {dtype_name}:")
+    log(f"K1 {dtype_name} B={b}:")
     with torch.no_grad():
         out = gcl_message_agg(*args)
         ref = gcl_message_agg_plain(*args)
         torch.cuda.synchronize()
         checks = [compare("agg", out, ref, TOL_REL[dtype_name])]
         ms = cuda_ms(lambda: gcl_message_agg(*args), 50)
+        run = prepare_launch(*args)
+        kernel_ms = cuda_ms(run, 100)
+        stamps = torch.zeros(len(STAGES) + 1, dtype=torch.int64, device=dev)
+        run(stamps)
+        stages = stage_shares(stamps)
         plain_ms = cuda_ms(lambda: gcl_message_agg_plain(*args), 10)
+    plan = run.plan
+    grid = {"blocks": plan["grid"], "threads": 512, "route": plan["route"],
+            "receivers_per_item": plan["receivers"], "items": plan["items"],
+            "units": plan["units"]}
+    log(f"  grid: {grid}")
     es = 4 if dtype_name == "float32" else 2
     n = N_P + N_Q
-    edges = B * n * K
+    edges = b * n * K
     flops = 2 * edges * H * H + 2 * edges * H
-    nbytes = 3 * B * n * H * es + 4 * edges * 4 + (H * H + 2 * H + H) * es + (H + 1) * 4
-    return timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
+    nbytes = 3 * b * n * H * es + 4 * edges * 4 + (H * H + 2 * H + H) * es + (H + 1) * 4
+    out = timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
+    log(f"  kernel alone: kernel_ms={kernel_ms:.4f} ({kernel_ms / out['bound_ms']:.1f}x its bound)")
+    log(f"  stages, share of block 0's clock over its {stages['tiles']} tiles "
+        f"(ms at kernel_ms): " + ", ".join(
+            f"{name} {stages[name]:.1%} ({stages[name] * kernel_ms:.4f})" for name in STAGES))
+    out.update(kernel_ms=kernel_ms, grid=grid, batch=b, stage_shares=stages)
+    return out
 
 
 def check_k2(dev, dtype_name, b=B):
@@ -480,6 +505,7 @@ def main():
                 log(f"  ptxas {name}: {line.strip()}")
 
     k1 = [check_k1(dev, d) for d in ("float32", "bfloat16")]
+    k1_wide = check_k1(dev, "bfloat16", b=132)  # 12 rounds of whole items
     k2 = [check_k2(dev, d) for d in ("float32", "bfloat16")]
     k2_wide = check_k2(dev, "bfloat16", b=132)  # one sample per SM
 
@@ -509,6 +535,10 @@ def main():
               "cmdgen_tpu/ops/egnn_fused.py:209", k2,
               sampling["fused"][2]["egnn_forward_fused"]),
     ]
+    kernels[0]["grid"] = k1[-1]["grid"]
+    kernels[0]["stage_shares"] = k1[-1]["stage_shares"]
+    kernels[0]["batch_132"] = {key: k1_wide[key] for key in (
+        "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "stage_shares", "comparisons")}
     kernels[1]["grid"] = k2[-1]["grid"]
     kernels[1]["batch_132"] = {key: k2_wide[key] for key in (
         "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "phases", "comparisons")}

@@ -69,18 +69,6 @@ __host__ __device__ constexpr int row_pad() {
   return std::is_same<T, float>::value ? 0 : 8;
 }
 
-// Four consecutive values (16-byte aligned for float, 8 for bf16) as float.
-__device__ __forceinline__ void load4(const float* p, float o[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const bf16* p, float o[4]) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(q[0]);
-  const float2 b = __bfloat1622float2(q[1]);
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
 // SiLU written as v / (1 + exp(-v)) with each step rounded to T, as the JAX
 // kernels' _silu computes it in the compute dtype.
 template <typename T>
@@ -286,82 +274,6 @@ __device__ void block_gemm(const T* A1, int lda1, const T* W1, const T* A2,
   } else {
     gemm_bf16(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.stage, gs.wslab);
   }
-}
-
-// The first pair layer of E edges, silu'd into buf (row stride ldb):
-// silu(wi_r + proj_j + radial * we0 + dist0 * we1) for edge e = r * K + k
-// and j = eidx[e], each add rounded to T as the JAX kernels do.
-template <typename T>
-__device__ void pair_layer(const T* wi, const T* proj, const T* we,
-                           const int* eidx, const float* erad,
-                           const float* ed0, int E, int K, int H, T* buf,
-                           int ldb) {
-  using C = Cvt<T>;
-  // four consecutive channels per thread: one vector load per operand
-  for (int p = threadIdx.x * 4; p < E * H; p += kThreads * 4) {
-    const int e = p / H, c = p % H;
-    float a[4], g[4], w0[4], w1[4];
-    load4(wi + (size_t)(e / K) * H + c, a);
-    load4(proj + (size_t)eidx[e] * H + c, g);
-    load4(we + c, w0);
-    load4(we + H + c, w1);
-    const float rad = C::rnd(erad[e]);
-    const float d0 = ed0[e];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v = C::rnd(a[j] + g[j]);
-      v = C::rnd(v + C::rnd(rad * w0[j]));
-      v = C::rnd(v + C::rnd(d0 * w1[j]));
-      buf[(size_t)e * ldb + c + j] = C::from_f(silu_c<T>(v));
-    }
-  }
-}
-
-// The GCL message tile, shared by both kernels. R receivers with K edges
-// each, edge e = r * K + k; ldb and ldg are the row strides of buf and agg.
-//   buf   [R*K, H]: in: silu of the first pair layer (T);
-//                   out: m = silu(buf @ W2 + b2) (T).
-//   scale [R*K]   : out: sigmoid(m . att_k + att_b) * kmask, or kmask.
-//   agg   [R, H]  : out: (sum over k of m * scale) * (1 / norm_factor),
-//                   summed in T in k order, as the JAX kernels do.
-template <typename T>
-__device__ void gcl_message_tile(T* buf, int ldb, int R, int K, int H, const T* W2,
-                                 const float* b2, const T* att_k,
-                                 const float* att_b, int attention,
-                                 const float* kmask, float* scale,
-                                 float norm_factor, T* agg, int ldg,
-                                 const GemmSmem& gs) {
-  using C = Cvt<T>;
-  const int E = R * K;
-  block_gemm<T>(buf, ldb, W2, (const T*)nullptr, 0, (const T*)nullptr, E, H,
-                gs, [&](int m, int n, float acc) {
-                  buf[(size_t)m * ldb + n] = C::from_f(silu_c<T>(C::rnd(acc + b2[n])));
-                });
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int e = warp; e < E; e += kWarps) {
-    float s;
-    if (attention) {
-      float d = 0.0f;
-      for (int c = lane; c < H; c += 32)
-        d = fmaf(C::to_f(buf[(size_t)e * ldb + c]), C::to_f(att_k[c]), d);
-      d = warp_sum(d);
-      s = C::rnd(sigmoid_f(d + att_b[0]) * kmask[e]);
-    } else {
-      s = C::rnd(kmask[e]);
-    }
-    if (lane == 0) scale[e] = s;
-  }
-  __syncthreads();
-  const float inv = C::rnd(1.0f / norm_factor);
-  for (int p = threadIdx.x; p < R * H; p += kThreads) {
-    const int r = p / H, c = p % H;
-    const T* col = buf + (size_t)r * K * ldb + c;
-    float a = C::rnd(C::to_f(col[0]) * scale[r * K]);
-    for (int k = 1; k < K; ++k)
-      a = C::rnd(a + C::rnd(C::to_f(col[(size_t)k * ldb]) * scale[r * K + k]));
-    agg[(size_t)r * ldg + c] = C::from_f(C::rnd(a * inv));
-  }
-  __syncthreads();
 }
 
 // Bytes of GemmSmem for width H (the float path needs none).

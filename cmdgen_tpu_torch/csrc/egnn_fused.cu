@@ -57,6 +57,7 @@
 #include <cooperative_groups.h>
 
 #include "egnn_common.cuh"
+#include "egnn_message.cuh"
 #include "egnn_tiles.cuh"
 
 namespace egnn {
@@ -127,18 +128,20 @@ constexpr bool kMma = std::is_same<T, bf16>::value;
 // Shared memory of one block: a tile of kEdgeRows rows (the message or
 // coordinate tile, the row tile of phase A, or two node MLP tiles of
 // kNodeRows rows in phase C), the bf16 path's weight matrix [H, H], the
-// per-row partial sums of the bf16 epilogues' dot products, and the
-// per-edge arrays of one tile.
+// per-row partial sums of the bf16 epilogues' dot products, the vectors of
+// the phase's pair MLP (GclVecs) and the per-edge arrays of one tile.
 template <typename T>
 struct FusedSmem {
-  size_t abuf, wsm, part, eidx, ekm, erad, ed0, escale, ediff, total;
+  size_t abuf, wsm, part, vec, eidx, ercv, ekm, erad, ed0, escale, ediff, total;
   __host__ __device__ explicit FusedSmem(int H) {
     const size_t ld = H + row_pad<T>();
     Carver c;
     abuf = c.take(sizeof(T) * kEdgeRows * ld);
     wsm = c.take(kMma<T> ? sizeof(T) * H * ld : 0);
     part = c.take(kMma<T> ? 4 * tiles::kWarpCols * kEdgeRows : 0);
+    vec = c.take(4 * 4 * (size_t)H);
     eidx = c.take(4 * kEdgeRows);
+    ercv = c.take(4 * kEdgeRows);
     ekm = c.take(4 * kEdgeRows);
     erad = c.take(4 * kEdgeRows);
     ed0 = c.take(4 * kEdgeRows);
@@ -151,22 +154,25 @@ struct FusedSmem {
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Loads the K edges of receivers [i0, i0 + rv) of one sample into shared
-// memory: the clamped neighbor index, kmask, dist0 rounded to T, and the
-// squared distance from the sample's x (xs) -- rounded to T at every step
-// for the GCL (the JAX kernel gathers x in the compute dtype), in float for
-// the coordinate pass (which also keeps the difference vectors).
+// memory: the clamped neighbor index, the receiver within the tile, kmask,
+// dist0 rounded to T, and the squared distance from the sample's x (xs) --
+// rounded to T at every step for the GCL (the JAX kernel gathers x in the
+// compute dtype), in float for the coordinate pass (which also keeps the
+// difference vectors).
 template <typename T>
 __device__ void load_edges(const int* idx, const float* kmask,
                            const float* dist0, const float* xs, size_t row0,
                            int i0, int E, int K, int N, bool coord_pass,
-                           int* eidx, float* ekm, float* ed0, float* erad,
-                           float* ediff) {
+                           const EdgeTile& et, float* ediff) {
   using C = Cvt<T>;
+  int* eidx = et.eidx;
+  float *ekm = et.ekm, *ed0 = et.ed0, *erad = et.erad;
   for (int e = threadIdx.x; e < E; e += kThreads) {
     const size_t off = row0 * K + e;
     const int i = i0 + e / K;
     const int j = min(max(idx[off], 0), N - 1);
     eidx[e] = j;
+    et.ercv[e] = e / K;
     ekm[e] = kmask[off];
     ed0[e] = C::rnd(dist0[off]);
     float s = 0.0f;
@@ -182,17 +188,6 @@ __device__ void load_edges(const int* idx, const float* kmask,
     }
     erad[e] = coord_pass ? s : C::rnd(s);
   }
-}
-
-// Stores two adjacent values rounded to T.
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // The work of a phase of n items over the grid's G blocks, with its tail
@@ -219,18 +214,6 @@ struct SplitTail {
   }
 };
 
-// Narrows receivers [i0, i0 + rv) to the given half (0: all of them).
-__device__ inline void take_half(int half, int& i0, int& rv) {
-  if (half == 0) return;
-  const int first = (rv + 1) / 2;
-  if (half == 1) {
-    rv = first;
-  } else {
-    i0 += first;
-    rv -= first;
-  }
-}
-
 // Copies `rows` rows of a [*, H] array in T into dst (row stride ld) by
 // 16-byte cp.async, committed as one group: dst row m takes src row
 // row_of(m) for m < valid and row row_of(valid - 1) after it.
@@ -256,19 +239,45 @@ egnn_fused_kernel(const FusedArgs<T> a) {
   const int H = a.H, N = a.N, K = a.K, R = a.R, r = a.r_true;
   const FusedSmem<T> S(H);
   T* abuf = reinterpret_cast<T*>(smem_raw + S.abuf);
-  int* eidx = reinterpret_cast<int*>(smem_raw + S.eidx);
-  float* ekm = reinterpret_cast<float*>(smem_raw + S.ekm);
-  float* erad = reinterpret_cast<float*>(smem_raw + S.erad);
-  float* ed0 = reinterpret_cast<float*>(smem_raw + S.ed0);
-  float* escale = reinterpret_cast<float*>(smem_raw + S.escale);
   float* ediff = reinterpret_cast<float*>(smem_raw + S.ediff);
   bf16* wsm = reinterpret_cast<bf16*>(smem_raw + S.wsm);
   float* part = reinterpret_cast<float*>(smem_raw + S.part);
+  const int ld = H + row_pad<T>();  // row stride of the tiles
 
   const GemmSmem gs{nullptr, nullptr};  // the float products need none
   const bf16* resident = nullptr;       // the weight matrix wsm holds
+  // the message and coordinate tiles (egnn_message.cuh)
+  MsgSmem<T> sm;
+  sm.buf = abuf;
+  sm.ld = ld;
+  sm.rows = kEdgeRows;
+  sm.wsm = wsm;
+  sm.part = part;
+  sm.gs = gs;
+  float* vec = reinterpret_cast<float*>(smem_raw + S.vec);
+  sm.vec = GclVecs{vec, vec + H, vec + 2 * H, vec + 3 * H};
+  sm.carry = nullptr;  // K <= kEdgeRows: one tile per receiver
+  EdgeTile& et = sm.et;
+  et.eidx = reinterpret_cast<int*>(smem_raw + S.eidx);
+  et.ercv = reinterpret_cast<int*>(smem_raw + S.ercv);
+  et.ekm = reinterpret_cast<float*>(smem_raw + S.ekm);
+  et.erad = reinterpret_cast<float*>(smem_raw + S.erad);
+  et.ed0 = reinterpret_cast<float*>(smem_raw + S.ed0);
+  et.escale = reinterpret_cast<float*>(smem_raw + S.escale);
+  float* const ekm = et.ekm;
+  float* const erad = et.erad;
+  StageClock no_clock(nullptr);
+  // a phase's pair-MLP vectors into sm.vec (the first item's barrier
+  // orders them before their use)
+  auto use_vecs = [&](const T* we, const float* b2, const T* att) {
+    for (int c = threadIdx.x; c < H; c += kThreads) {
+      sm.vec.we0[c] = C::to_f(we[c]);
+      sm.vec.we1[c] = C::to_f(we[H + c]);
+      if (b2 != nullptr) sm.vec.b2[c] = b2[c];
+      if (att != nullptr) sm.vec.att[c] = C::to_f(att[c]);
+    }
+  };
 
-  const int ld = H + row_pad<T>();  // row stride of the tiles
   T* const tile2 = abuf + (size_t)kNodeRows * ld;  // second node tile
   const int BN = a.B * N;
   const int tiles = cdiv(BN, kNodeRows);           // node MLP tiles
@@ -335,6 +344,8 @@ egnn_fused_kernel(const FusedArgs<T> a) {
     phase_end(1 + kPhases * l + 0);  // A
 
     // ---- B: messages of R receivers of one sample into agg
+    use_vecs(a.w.we + 2 * oH, a.w.w2b + oH, a.w.att + oH);
+    const float inv = C::rnd(1.0f / a.norm_factor);
     const SplitTail msg_items(a.B * tps);
     for (int w = blockIdx.x; w < msg_items.total; w += gridDim.x) {
       int half;
@@ -348,55 +359,11 @@ egnn_fused_kernel(const FusedArgs<T> a) {
       // edge_out's weights stay in shared memory for the whole phase
       if constexpr (kMma<T>) tiles::use_weights(resident, wsm, ld, a.w.w2 + oHH, H);
       load_edges<T>(a.idx, a.kmask, a.dist0, x_in + nb * 3, nb + i0, i0, E, K,
-                    N, false, eidx, ekm, ed0, erad, ediff);
+                    N, false, et, ediff);
       __syncthreads();
-      pair_layer<T>(a.wia + (nb + i0) * H, a.proj + nb * H, a.w.we + 2 * oH,
-                    eidx, erad, ed0, E, K, H, abuf, ld);
-      if constexpr (kMma<T>) {
-        __pipeline_wait_prior(0);
-        __syncthreads();
-        tiles::Acc<2> acc;
-        acc.zero();
-        tiles::mma_tile<2>(acc, abuf, ld, wsm, ld, H);
-        __syncthreads();  // every warp has read the edge tile
-        // m = silu(acc + b2) back into the edge tile, and its attention dot
-        const float* b2 = a.w.w2b + oH;
-        const T* att = a.w.att + oH;
-        tiles::row_partials<2>(acc, H, part, kEdgeRows, [&](int m, int n, float v0, float v1) {
-          if (m >= E) return 0.0f;  // rows past the tile's edges
-          v0 = silu_c<T>(C::rnd(v0 + b2[n]));
-          v1 = silu_c<T>(C::rnd(v1 + b2[n + 1]));
-          store2(abuf + (size_t)m * ld + n, v0, v1);
-          return v0 * C::to_f(att[n]) + v1 * C::to_f(att[n + 1]);
-        });
-        __syncthreads();
-        for (int e = threadIdx.x; e < E; e += kThreads) {
-          float d = part[e];
-          for (int w = 1; w < tiles::kWarpCols; ++w) d += part[w * kEdgeRows + e];
-          escale[e] = C::rnd(sigmoid_f(d + a.w.attb[l]) * ekm[e]);
-        }
-        __syncthreads();
-        // the K-sum in T, in k order, two columns per thread
-        const float inv = C::rnd(1.0f / a.norm_factor);
-        for (int p = threadIdx.x; p < rv * H / 2; p += kThreads) {
-          const int i = p / (H / 2), c = 2 * (p % (H / 2));
-          const T* col = abuf + (size_t)i * K * ld + c;
-          const float* sc = escale + i * K;
-          float2 v = load2(col);
-          float s0 = C::rnd(v.x * sc[0]), s1 = C::rnd(v.y * sc[0]);
-          for (int k = 1; k < K; ++k) {
-            v = load2(col + (size_t)k * ld);
-            s0 = C::rnd(s0 + C::rnd(v.x * sc[k]));
-            s1 = C::rnd(s1 + C::rnd(v.y * sc[k]));
-          }
-          store2(a.agg + (nb + i0 + i) * H + c, s0 * inv, s1 * inv);
-        }
-        continue;
-      }
-      __syncthreads();
-      gcl_message_tile<T>(abuf, ld, rv, K, H, a.w.w2 + oHH, a.w.w2b + oH,
-                          a.w.att + oH, a.w.attb + l, 1, ekm, escale,
-                          a.norm_factor, a.agg + (nb + i0) * H, H, gs);
+      message_tile<T, kMma<T>, false>(sm, a.wia + (nb + i0) * H, a.proj + nb * H,
+                                      a.w.w2 + oHH, a.w.attb[l], true, E, rv, K, H, true,
+                                      true, inv, a.agg + (nb + i0) * H, no_clock);
     }
     phase_end(1 + kPhases * l + 1);  // B
 
@@ -495,6 +462,7 @@ egnn_fused_kernel(const FusedArgs<T> a) {
     }
     const T* cg = a.w.cg + oH;
     const float* cmb = a.w.cmb + oH;
+    use_vecs(a.w.cwe + 2 * oH, nullptr, nullptr);
     const SplitTail coord_items(a.B * cps);
     for (int w = blockIdx.x; w < coord_items.total; w += gridDim.x) {
       int half;
@@ -508,10 +476,9 @@ egnn_fused_kernel(const FusedArgs<T> a) {
       // coord_mid's weights stay in shared memory for the whole phase
       if constexpr (kMma<T>) tiles::use_weights(resident, wsm, ld, a.w.cm + oHH, H);
       load_edges<T>(a.idx, a.kmask, a.dist0, x_in + nb * 3, nb + i0, i0, E, K,
-                    N, true, eidx, ekm, ed0, erad, ediff);
+                    N, true, et, ediff);
       __syncthreads();
-      pair_layer<T>(a.wia + (nb + i0) * H, a.proj + nb * H, a.w.cwe + 2 * oH,
-                    eidx, erad, ed0, E, K, H, abuf, ld);
+      pair_layer<T>(a.wia + (nb + i0) * H, a.proj + nb * H, sm.vec, et, E, H, abuf, ld);
       // edge e's gate g = silu(buf @ coord_mid + b) . coord_gate, into its
       // translation ediff[e] (times kmask, over the normalised distance)
       auto translate = [&](int e, float g) {

@@ -16,139 +16,216 @@
 // 8.9 GFLOP, 9.0 us at 989 TFLOP/s, against ~10 MB of inputs and outputs
 // (~3 us at 3.35 TB/s). The kernel is bound by operations.
 //
-// Design: one block per (sample, tile of R receivers), R * K <= 64 edges,
-// three blocks per SM. The block loads its own neighbor indices and
-// gathers the wj rows by address (no one-hot gather matrix, which was a
-// TPU device). The R*K x H pair tile lives in shared memory in the compute
-// dtype; the W2 product runs on the tensor cores for bf16 (WMMA, float
-// accumulators, W2 streamed through shared memory by cp.async) and as
-// float FMAs for float; the epilogue applies bias, SiLU, the attention
-// gate (one warp per edge) and the K-sum. Measured far from its bound
-// (PERF.md): the kernel's time is about the waves of blocks times one
-// block's latency, which more resident blocks hide only in part; what sets
-// that latency is not yet measured (no instruction-level profiler runs on
-// the card's machine). wgmma with TMA-fed tiles comes after that is known.
+// Design: a persistent grid of one 512-thread block per SM, capped at the
+// number of work units, walks a list of work items in a strided loop. An
+// item is R receivers of one sample with all their K edges, R * K <= rows
+// (128 rows: R = 10 at K = 12, 576 items at the flagship shape); a last
+// round that would leave blocks idle is taken as half items. The plan
+// (R, the split, the grid) is computed by the wrapper (ops/egnn_msgpass.py:
+// launch_plan). Each item runs the message tile of egnn_message.cuh, the
+// same routine as K2's message phase: the neighbor indices and edge
+// scalars into shared memory, the pair layer gathering wj rows by address,
+// the edge_out product, the SiLU epilogue and attention gate, and the
+// K-sum in k order inside the block (no atomics). bf16 with H <= 256 runs
+// the product on mma.sync with W2 loaded into shared memory once per block
+// and launch (135 KB at H = 256) and epilogues from the accumulators;
+// float keeps exact-float FMAs (block_gemm, weights from L2), and bf16
+// wider than 256 streams W2 through WMMA slabs (block_gemm). A receiver
+// with more than `rows` edges takes them in chunks, its running K-sum
+// carried from one to the next. The weights may come as the transpose of
+// an nn.Linear weight ([out, in] in memory): the mma route reads them as
+// they lie, so the wrapper copies nothing. With `stamps`, block 0 records
+// its clock at each stage of its tiles (StageClock).
+#define EGNN_THREADS 512
+
 #include "egnn_common.cuh"
+#include "egnn_message.cuh"
+#include "egnn_tiles.cuh"
+
+// The launch's arguments, as the wrapper's ctypes structure lays them out
+// (ops/egnn_msgpass.py: _Params).
+struct K1Params {
+  int dtype;            // 0 float32, 1 bfloat16 (T)
+  int mma;              // 1: mma.sync route (bf16, H <= 256); 0: block_gemm
+  int w2_t;             // mma route: w2 lies as [out, in] (an nn.Linear weight)
+  const void* wi;       // [B*N, H] T
+  const void* wj;       // [B*N, H] T
+  const void* idx;      // [B*N*K] int32, or int64 with idx64
+  int idx64;
+  const void* radial;   // [B*N*K] at element strides s_rad, s_d0, s_km:
+  const void* dist0;    //   float32 with edge_f32, else T
+  const void* kmask;
+  int edge_f32, s_rad, s_d0, s_km;
+  const void* we;       // [2, H] at strides (we_s0, we_s1), float32 with we_f32, else T
+  int we_s0, we_s1, we_f32;
+  const void* w2;       // [H, H] T, [in, out] (or [out, in] with w2_t)
+  const float* b2;      // [H]
+  const void* att;      // [H] float32 with att_f32, else T; unused without attention
+  int att_f32;
+  const float* att_b;   // [1]
+  int attention;
+  float norm_factor;
+  void* out;            // [B*N, H] T
+  long long* stamps;    // null, or [kStages + 1] (StageClock)
+  int B, N, K, H;
+  int R;                // receivers per item
+  int rows;             // rows of the edge tile
+  int kc, chunks;       // edges per tile, tiles per item (K = kc when chunks = 1)
+  int whole, units;     // items [0, whole) whole, then half items; units of work
+  int grid;
+};
 
 namespace egnn {
 
 template <typename T>
-struct MsgpassSmem {
-  size_t buf, agg, ekm, escale, erad, ed0, eidx, gemm, total;
-  __host__ __device__ MsgpassSmem(int R, int K, int H) {
+struct K1Smem {
+  size_t buf, wsm, part, gemm, vec, carry, eidx, ercv, ekm, erad, ed0, escale, total;
+  __host__ __device__ K1Smem(int H, int rows, bool mma) {
+    const size_t ld = H + row_pad<T>();
     Carver c;
-    buf = c.take(sizeof(T) * tile_rows<T>((size_t)R * K) * (H + row_pad<T>()));
-    agg = c.take(sizeof(T) * (size_t)R * H);
-    ekm = c.take(4 * (size_t)R * K);
-    escale = c.take(4 * (size_t)R * K);
-    erad = c.take(4 * (size_t)R * K);
-    ed0 = c.take(4 * (size_t)R * K);
-    eidx = c.take(4 * (size_t)R * K);
-    gemm = c.take(gemm_smem_bytes<T>(H));
+    buf = c.take(sizeof(T) * tile_rows<T>(rows) * ld);
+    wsm = c.take(mma ? sizeof(bf16) * H * ld : 0);
+    part = c.take(mma ? 4 * tiles::kWarpCols * (size_t)rows : 0);
+    gemm = c.take(mma ? 0 : gemm_smem_bytes<T>(H));
+    vec = c.take(4 * 4 * (size_t)H);
+    carry = c.take(4 * (size_t)H);
+    eidx = c.take(4 * (size_t)rows);
+    ercv = c.take(4 * (size_t)rows);
+    ekm = c.take(4 * (size_t)rows);
+    erad = c.take(4 * (size_t)rows);
+    ed0 = c.take(4 * (size_t)rows);
+    escale = c.take(4 * (size_t)rows);
     total = c.off;
   }
 };
 
-constexpr int kTileEdges = 64;  // edges per block: R * K <= kTileEdges
-
-// Three resident blocks per SM (registers capped to fit): a block's
-// phases are latency-bound, and a tuning sweep (PERF.md) found three
-// blocks per SM faster than two or four.
+// Element i of a float32 array (rounded to T when round_t) or of a T array.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 3)
-gcl_message_agg_kernel(const T* __restrict__ wi, const T* __restrict__ wj,
-                       const int* __restrict__ idx,
-                       const float* __restrict__ radial,
-                       const float* __restrict__ dist0,
-                       const float* __restrict__ kmask,
-                       const T* __restrict__ we, const T* __restrict__ W2,
-                       const float* __restrict__ b2,
-                       const T* __restrict__ att_k,
-                       const float* __restrict__ att_b, int attention,
-                       float norm_factor, int N, int K, int H, int R,
-                       T* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  using C = Cvt<T>;
-  const MsgpassSmem<T> L(R, K, H);
-  T* buf = reinterpret_cast<T*>(smem_raw + L.buf);
-  T* agg = reinterpret_cast<T*>(smem_raw + L.agg);
-  float* ekm = reinterpret_cast<float*>(smem_raw + L.ekm);
-  float* escale = reinterpret_cast<float*>(smem_raw + L.escale);
-  float* erad = reinterpret_cast<float*>(smem_raw + L.erad);
-  float* ed0 = reinterpret_cast<float*>(smem_raw + L.ed0);
-  int* eidx = reinterpret_cast<int*>(smem_raw + L.eidx);
-  const GemmSmem gs{reinterpret_cast<float*>(smem_raw + L.gemm),
-                    reinterpret_cast<bf16*>(smem_raw + L.gemm + 4 * kWarps * 256)};
-
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * R;
-  const int rv = min(R, N - i0);
-  const int E = rv * K;
-  const int ldb = H + row_pad<T>();
-  const size_t row0 = (size_t)b * N + i0;
-
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    const size_t off = row0 * K + e;
-    eidx[e] = min(max(idx[off], 0), N - 1);
-    ekm[e] = kmask[off];
-    erad[e] = C::rnd(radial[off]);
-    ed0[e] = C::rnd(dist0[off]);
+__device__ __forceinline__ float read_as_float(const void* p, size_t i, int f32, bool round_t) {
+  if (f32) {
+    const float v = static_cast<const float*>(p)[i];
+    return round_t ? Cvt<T>::rnd(v) : v;
   }
-  __syncthreads();
-
-  pair_layer<T>(wi + row0 * H, wj + (size_t)b * N * H, we, eidx, erad, ed0, E, K,
-                H, buf, ldb);
-  __syncthreads();
-
-  gcl_message_tile<T>(buf, ldb, rv, K, H, W2, b2, att_k, att_b, attention,
-                      ekm, escale, norm_factor, agg, H, gs);
-
-  for (int p = threadIdx.x; p < rv * H; p += kThreads) out[row0 * H + p] = agg[p];
+  return Cvt<T>::to_f(static_cast<const T*>(p)[i]);
 }
 
-template <typename T>
-static int launch(const void* wi, const void* wj, const void* idx,
-                  const void* radial, const void* dist0, const void* kmask,
-                  const void* we, const void* W2, const void* b2,
-                  const void* att_k, const void* att_b, int attention,
-                  float norm_factor, void* out, int B, int N, int K, int H,
-                  cudaStream_t stream) {
-  int R = K >= kTileEdges ? 1 : kTileEdges / K;
-  while (R > 1 && MsgpassSmem<T>(R, K, H).total > (size_t)kMaxSmem) --R;
-  const size_t smem = MsgpassSmem<T>(R, K, H).total;
+template <typename T, bool kMma, bool WT>
+__global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Params a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  using C = Cvt<T>;
+  const int H = a.H, N = a.N, K = a.K, R = a.R;
+  const K1Smem<T> L(H, a.rows, kMma);
+  MsgSmem<T> sm;
+  sm.buf = reinterpret_cast<T*>(smem_raw + L.buf);
+  sm.ld = H + row_pad<T>();
+  sm.rows = a.rows;
+  sm.wsm = reinterpret_cast<bf16*>(smem_raw + L.wsm);
+  sm.part = reinterpret_cast<float*>(smem_raw + L.part);
+  sm.gs = GemmSmem{reinterpret_cast<float*>(smem_raw + L.gemm),
+                   reinterpret_cast<bf16*>(smem_raw + L.gemm + 4 * kWarps * 256)};
+  float* vec = reinterpret_cast<float*>(smem_raw + L.vec);
+  sm.vec = GclVecs{vec, vec + H, vec + 2 * H, vec + 3 * H};
+  sm.carry = reinterpret_cast<float*>(smem_raw + L.carry);
+  EdgeTile& et = sm.et;
+  et.eidx = reinterpret_cast<int*>(smem_raw + L.eidx);
+  et.ercv = reinterpret_cast<int*>(smem_raw + L.ercv);
+  et.ekm = reinterpret_cast<float*>(smem_raw + L.ekm);
+  et.erad = reinterpret_cast<float*>(smem_raw + L.erad);
+  et.ed0 = reinterpret_cast<float*>(smem_raw + L.ed0);
+  et.escale = reinterpret_cast<float*>(smem_raw + L.escale);
+
+  const T* W2 = static_cast<const T*>(a.w2);
+  const T* wi = static_cast<const T*>(a.wi);
+  const T* wj = static_cast<const T*>(a.wj);
+  T* out = static_cast<T*>(a.out);
+  StageClock clk(a.stamps);
+
+  // the GCL's vectors, as float rounded to T where the kernel rounds them
+  for (int c = threadIdx.x; c < H; c += kThreads) {
+    sm.vec.we0[c] = read_as_float<T>(a.we, (size_t)c * a.we_s1, a.we_f32, true);
+    sm.vec.we1[c] = read_as_float<T>(a.we, a.we_s0 + (size_t)c * a.we_s1, a.we_f32, true);
+    sm.vec.b2[c] = a.b2[c];
+    sm.vec.att[c] = a.attention ? read_as_float<T>(a.att, c, a.att_f32, true) : 0.0f;
+  }
+  const float att_b = a.attention ? a.att_b[0] : 0.0f;
+  const float inv = C::rnd(1.0f / a.norm_factor);
+  const int per_sample = (N + R - 1) / R;
+  const bf16* resident = nullptr;  // what sm.wsm holds
+
+  for (int w = blockIdx.x; w < a.units; w += gridDim.x) {
+    int it = w, half = 0;
+    if (w >= a.whole) {
+      it = a.whole + (w - a.whole) / 2;
+      half = 1 + (w - a.whole) % 2;
+    }
+    const int b = it / per_sample;
+    int i0 = (it % per_sample) * R;
+    int rv = min(R, N - i0);
+    take_half(half, i0, rv);
+    const size_t row0 = (size_t)b * N + i0;
+    for (int ch = 0; ch < a.chunks; ++ch) {
+      const int k0 = ch * a.kc;
+      const int kc = min(a.kc, K - k0);
+      const int E = rv * kc;
+      __syncthreads();  // the previous tile is done with shared memory
+      clk.tick(kKsum);
+      // edge_out's weights stay in shared memory for the whole launch
+      if constexpr (kMma)
+        tiles::use_weights(resident, sm.wsm, sm.ld, reinterpret_cast<const bf16*>(W2), H);
+      for (int e = threadIdx.x; e < E; e += kThreads) {
+        const int r = e / kc;
+        const size_t off = (row0 + r) * K + k0 + (e - r * kc);
+        const long long j = a.idx64 ? static_cast<const long long*>(a.idx)[off]
+                                    : (long long)static_cast<const int*>(a.idx)[off];
+        et.eidx[e] = (int)min(max(j, 0LL), (long long)N - 1);
+        et.ercv[e] = r;
+        et.ekm[e] = read_as_float<T>(a.kmask, off * a.s_km, a.edge_f32, false);
+        et.erad[e] = C::rnd(read_as_float<T>(a.radial, off * a.s_rad, a.edge_f32, false));
+        et.ed0[e] = C::rnd(read_as_float<T>(a.dist0, off * a.s_d0, a.edge_f32, false));
+      }
+      __syncthreads();
+      clk.tick(kEdgeLoad);
+      message_tile<T, kMma, WT>(sm, wi + row0 * H, wj + (size_t)b * N * H, W2, att_b,
+                                a.attention != 0, E, rv, kc, H, ch == 0,
+                                ch == a.chunks - 1, inv, out + row0 * H, clk);
+    }
+  }
+  __syncthreads();
+  clk.tick(kKsum);
+  clk.write();
+}
+
+template <typename T, bool kMma, bool WT>
+static int launch(const K1Params& a, cudaStream_t stream) {
+  const size_t smem = K1Smem<T>(a.H, a.rows, kMma).total;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      gcl_message_agg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(gcl_message_agg_kernel<T, kMma, WT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + R - 1) / R, B);
-  gcl_message_agg_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)wi, (const T*)wj, (const int*)idx, (const float*)radial,
-      (const float*)dist0, (const float*)kmask, (const T*)we, (const T*)W2,
-      (const float*)b2, (const T*)att_k, (const float*)att_b, attention,
-      norm_factor, N, K, H, R, (T*)out);
+  gcl_message_agg_kernel<T, kMma, WT><<<a.grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace egnn
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value (0 = ok).
-extern "C" int egnn_msgpass_launch(int dtype, const void* wi, const void* wj,
-                                   const void* idx, const void* radial,
-                                   const void* dist0, const void* kmask,
-                                   const void* we, const void* W2,
-                                   const void* b2, const void* att_k,
-                                   const void* att_b, int attention,
-                                   float norm_factor, void* out, int B, int N,
-                                   int K, int H, void* stream) {
+// Launches K1 with the wrapper's arguments and plan. Returns a cudaError_t
+// value (0 = ok); cudaErrorInvalidValue for a plan or shape the kernel
+// does not take.
+extern "C" int egnn_msgpass_launch(const K1Params* p, void* stream) {
+  const K1Params& a = *p;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return egnn::launch<float>(wi, wj, idx, radial, dist0, kmask, we, W2, b2,
-                               att_k, att_b, attention, norm_factor, out, B, N,
-                               K, H, s);
-  if (dtype == 1)
-    return egnn::launch<egnn::bf16>(wi, wj, idx, radial, dist0, kmask, we,
-                                       W2, b2, att_k, att_b, attention,
-                                       norm_factor, out, B, N, K, H, s);
-  return (int)cudaErrorInvalidValue;
+  const bool shape_ok = a.B >= 1 && a.N >= 1 && a.K >= 1 && a.R >= 1 && a.kc >= 1 &&
+                        a.R * a.kc <= a.rows && a.rows <= 128 && a.chunks * a.kc >= a.K &&
+                        a.grid >= 1 && a.units >= a.whole && a.whole >= 0;
+  if (!shape_ok) return (int)cudaErrorInvalidValue;
+  if (a.dtype == 0) {
+    if (a.mma || a.w2_t || a.H % 4 || 256 % (a.H / 4)) return (int)cudaErrorInvalidValue;
+    return egnn::launch<float, false, false>(a, s);
+  }
+  if (a.dtype != 1 || a.H % 32 || a.H > 512) return (int)cudaErrorInvalidValue;
+  if (!a.mma) return a.w2_t ? (int)cudaErrorInvalidValue
+                            : egnn::launch<egnn::bf16, false, false>(a, s);
+  if (a.H > 256 || a.rows != 128) return (int)cudaErrorInvalidValue;
+  return a.w2_t ? egnn::launch<egnn::bf16, true, true>(a, s)
+                : egnn::launch<egnn::bf16, true, false>(a, s);
 }

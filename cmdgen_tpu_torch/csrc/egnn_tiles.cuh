@@ -10,8 +10,11 @@
 // tile of MI m16 tiles x H / 32 n8 tiles of float accumulators (32 x 64 at
 // MI = 2, H = 256). Each 16-deep step loads A by ldmatrix.x4 and W by
 // ldmatrix.x4.trans (W is [k, n] row-major, mma wants it column-major) and
-// runs mma.sync.m16n8k16 with float accumulation. Epilogues read the
-// accumulators in registers (for_each_pair, row_partials).
+// runs mma.sync.m16n8k16 with float accumulation. A matrix held as [n, k]
+// row-major (WT: the transpose of an nn.Linear weight, as PyTorch stores
+// it) is already column-major for mma and loads by ldmatrix.x4 without
+// .trans. Epilogues read the accumulators in registers (for_each_pair,
+// row_partials).
 //
 // Weights reach shared memory by 16-byte cp.async in chunks of kChunk rows,
 // one commit group per chunk. A resident matrix (loaded once per phase) is
@@ -40,6 +43,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_n(uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
                : "r"(smem_u32(p)));
 }
 
@@ -125,15 +141,20 @@ __device__ __forceinline__ void use_weights(const bf16*& resident, bf16* wsm, in
 }
 
 // acc += A[warp rows, k0:k1] . W[k0:k1, warp columns], all in shared memory
-// (row strides lda, ldw); k0, k1 multiples of 16. No barrier.
-template <int MI>
+// (row strides lda, ldw); k0, k1 multiples of 16. W is [k, n] row-major, or
+// [n, k] row-major with WT. No barrier.
+template <int MI, bool WT = false>
 __device__ __forceinline__ void mma_range(Acc<MI>& acc, const bf16* A, int lda,
                                           const bf16* W, int ldw, int H, int k0, int k1) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = warp / kWarpCols, wc = warp % kWarpCols;
   const int nt = H / 32;
   const bf16* arow = A + (size_t)(wr * 16 * MI + lane % 16) * lda + (lane / 16) * 8;
-  const bf16* wcol = W + (size_t)(lane % 16) * ldw + wc * nt * 8 + (lane / 16) * 8;
+  // the x4 load's matrices are n8 tiles j, j+1 times k halves 0..7, 8..15:
+  // lane l addresses row l % 8 of matrix l / 8
+  const bf16* wcol =
+      WT ? W + (size_t)(wc * nt * 8 + lane % 8 + (lane / 16) * 8) * ldw + ((lane / 8) % 2) * 8
+         : W + (size_t)(lane % 16) * ldw + wc * nt * 8 + (lane / 16) * 8;
   for (int k = k0; k < k1; k += 16) {
     uint32_t a[MI][4];
 #pragma unroll
@@ -142,12 +163,20 @@ __device__ __forceinline__ void mma_range(Acc<MI>& acc, const bf16* A, int lda,
 #pragma unroll
     for (int j = 0; j < kMaxNT; j += 2) {
       if (j < nt) {
-        const bf16* p = wcol + (size_t)k * ldw + j * 8;
         uint32_t b0, b1, b2 = 0, b3 = 0;
-        if (j + 1 < nt)
-          ldsm_x4_t(b0, b1, b2, b3, p);
-        else
-          ldsm_x2_t(b0, b1, p);
+        if (WT) {
+          const bf16* p = wcol + (size_t)j * 8 * ldw + k;
+          if (j + 1 < nt)
+            ldsm_x4_n(b0, b1, b2, b3, p);
+          else
+            ldsm_x2(b0, b1, p);
+        } else {
+          const bf16* p = wcol + (size_t)k * ldw + j * 8;
+          if (j + 1 < nt)
+            ldsm_x4_t(b0, b1, b2, b3, p);
+          else
+            ldsm_x2_t(b0, b1, p);
+        }
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi) {
           mma_16816(acc.v[mi][j], a[mi], b0, b1);
@@ -159,10 +188,10 @@ __device__ __forceinline__ void mma_range(Acc<MI>& acc, const bf16* A, int lda,
 }
 
 // acc += A . W over the full depth H, W resident and visible in wsm.
-template <int MI>
+template <int MI, bool WT = false>
 __device__ __forceinline__ void mma_tile(Acc<MI>& acc, const bf16* A, int lda,
                                          const bf16* wsm, int ldw, int H) {
-  mma_range<MI>(acc, A, lda, wsm, ldw, H, 0, H);
+  mma_range<MI, WT>(acc, A, lda, wsm, ldw, H, 0, H);
 }
 
 // acc += A . W, W's chunks arriving in wsm: its nchunks(H) groups were the

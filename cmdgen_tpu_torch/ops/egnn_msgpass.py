@@ -5,12 +5,15 @@ list (counterpart of ``cmdgen_tpu/ops/egnn_msgpass.py:gcl_message_agg``).
 (``csrc/egnn_msgpass.cu``) on CUDA tensors and raises if it cannot; on CPU
 tensors it runs ``gcl_message_agg_plain``, the same function in plain
 PyTorch with the kernel's casts. Weights come in the JAX kernel's layout:
-``we`` [2, H] and ``w2`` [H, H] as [in, out].
+``we`` [2, H] and ``w2`` [H, H] as [in, out]; the kernel reads the
+transposed views of ``nn.Linear`` weights that the model passes as they
+lie, and the edge scalars as strided views of the model's edge features.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -98,71 +101,237 @@ def _check_width(h: int, cdt: torch.dtype) -> None:
         raise ValueError(f"hidden width {h} unsupported by the {cdt} kernels")
 
 
-def gcl_message_agg(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
-                    norm_factor: float,
-                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """GCL message pass + sum aggregation. Same arguments and result as
-    :func:`gcl_message_agg_plain`. On CUDA tensors this launches the kernel
-    (and counts the launch in ``gcl_message_agg.launches``) or raises."""
-    fn = gcl_message_agg_plain if wi.device.type == "cpu" else _launch
-    return fn(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
-              norm_factor, compute_dtype)
+# rows of one message tile: R receivers x K edges, R * K <= EDGE_ROWS
+# (csrc/egnn_msgpass.cu); float32 tiles wider than 256 hold fewer rows
+EDGE_ROWS = 128
+# the stages of a tile that the kernel's clock separates (StageClock in
+# csrc/egnn_message.cuh); the block_gemm route counts its SiLU epilogue in
+# the product
+STAGES = ("edge load", "pair layer", "product", "epilogue and attention", "K-sum")
 
 
-gcl_message_agg.launches = 0
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def _launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_factor,
-            compute_dtype):
-    """Launch csrc/egnn_msgpass.cu on CUDA tensors, or raise."""
+def launch_plan(b: int, n: int, k: int, h: int, cdt: torch.dtype, sms: int) -> Dict[str, object]:
+    """The kernel's work decomposition, computed here and passed to it.
+
+    Route: ``mma`` (mma.sync, W2 resident in shared memory) for bf16 with
+    H <= 256, else ``block_gemm`` (exact-float FMAs for float32; WMMA with
+    W2 streamed for wider bf16). A work item is ``receivers`` receivers of
+    one sample with all their edges, ``receivers * k <= rows``; a receiver
+    with more than ``rows`` edges is one item of ``chunks`` tiles of
+    ``chunk`` edges each. The grid, one block per SM, walks the units of
+    work in a strided loop: items ``[0, whole)`` whole, then the rest as two
+    half items each (a last round that would leave blocks idle, split when
+    twice as many still fit in one round and an item has two receivers to
+    split). The grid is capped at the number of units.
+    """
+    if b < 1 or n < 1 or k < 1:
+        raise ValueError(f"empty message pass: B={b}, N={n}, K={k}")
+    mma = cdt == torch.bfloat16 and h <= 256
+    rows = EDGE_ROWS if cdt == torch.bfloat16 or h <= 256 else EDGE_ROWS * 256 // h
+    if k <= rows:
+        rcv, chunks, chunk = rows // k, 1, k
+    else:
+        rcv, chunks = 1, _cdiv(k, rows)
+        chunk = _cdiv(k, chunks)
+    items = b * _cdiv(n, rcv)
+    tail = items % sms
+    split = tail if rcv >= 2 and 2 * tail <= sms else 0
+    units = items + split
+    return {"route": "mma" if mma else "block_gemm", "rows": rows, "receivers": rcv,
+            "chunk": chunk, "chunks": chunks, "items": items, "whole": items - split,
+            "units": units, "grid": min(sms, units)}
+
+
+def plan_tiles(plan: Dict[str, object], n: int, k: int) -> Iterator[Tuple[int, int, int, int, int]]:
+    """The tiles the kernel's loop takes, in unit order (a Python mirror of
+    its item loop): (sample, first receiver, receivers, first edge, edges)."""
+    rcv, whole, chunk = plan["receivers"], plan["whole"], plan["chunk"]
+    per_sample = _cdiv(n, rcv)
+    for w in range(plan["units"]):
+        it, half = (w, 0) if w < whole else (whole + (w - whole) // 2, 1 + (w - whole) % 2)
+        i0 = (it % per_sample) * rcv
+        rv = min(rcv, n - i0)
+        if half:
+            first = (rv + 1) // 2
+            i0, rv = (i0, first) if half == 1 else (i0 + first, rv - first)
+        for c in range(plan["chunks"]):
+            k0 = c * chunk
+            yield it // per_sample, i0, rv, k0, min(chunk, k - k0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stage_shares(stamps: torch.Tensor) -> Dict[str, float]:
+    """Each stage's share of block 0's clock over its tiles, from the
+    ``stamps`` a launch filled (:func:`prepare_launch`); ``tiles`` is the
+    number of tiles block 0 took."""
+    t = stamps.cpu().tolist()
+    total = sum(t[:len(STAGES)])
+    out = {name: t[i] / total for i, name in enumerate(STAGES)}
+    out["tiles"] = t[len(STAGES)]
+    return out
+
+
+class _Params(ctypes.Structure):
+    """csrc/egnn_msgpass.cu: K1Params, field for field."""
+
+    _fields_ = [
+        ("dtype", ctypes.c_int), ("mma", ctypes.c_int), ("w2_t", ctypes.c_int),
+        ("wi", ctypes.c_void_p), ("wj", ctypes.c_void_p),
+        ("idx", ctypes.c_void_p), ("idx64", ctypes.c_int),
+        ("radial", ctypes.c_void_p), ("dist0", ctypes.c_void_p), ("kmask", ctypes.c_void_p),
+        ("edge_f32", ctypes.c_int), ("s_rad", ctypes.c_int), ("s_d0", ctypes.c_int),
+        ("s_km", ctypes.c_int),
+        ("we", ctypes.c_void_p), ("we_s0", ctypes.c_int), ("we_s1", ctypes.c_int),
+        ("we_f32", ctypes.c_int),
+        ("w2", ctypes.c_void_p), ("b2", ctypes.c_void_p), ("att", ctypes.c_void_p),
+        ("att_f32", ctypes.c_int), ("att_b", ctypes.c_void_p), ("attention", ctypes.c_int),
+        ("norm_factor", ctypes.c_float),
+        ("out", ctypes.c_void_p), ("stamps", ctypes.c_void_p),
+        ("B", ctypes.c_int), ("N", ctypes.c_int), ("K", ctypes.c_int), ("H", ctypes.c_int),
+        ("R", ctypes.c_int), ("rows", ctypes.c_int), ("kc", ctypes.c_int),
+        ("chunks", ctypes.c_int), ("whole", ctypes.c_int), ("units", ctypes.c_int),
+        ("grid", ctypes.c_int),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel() -> Callable:
+    fn = _build.load("egnn_msgpass").egnn_msgpass_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    return fn
+
+
+def _edge_view(t: torch.Tensor, name: str, shape, cdt: torch.dtype) -> Tuple[torch.Tensor, int]:
+    """An edge scalar [B, N, K] as the kernel reads it: a row-major array
+    at one element stride s (a slice of the model's [B, N, K, 2] edge
+    features qualifies), in float32 or the compute dtype. Returns the
+    tensor (copied only where it is not so) and s."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dtype not in (torch.float32, cdt):
+        t = t.float()
+    s = t.stride(-1)
+    _, n, k = shape
+    if s < 1 or t.stride() != (n * k * s, k * s, s):
+        t, s = t.contiguous(), 1
+    return t, s
+
+
+def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_factor,
+                   compute_dtype=None) -> Callable[..., torch.Tensor]:
+    """Everything :func:`gcl_message_agg` does on CUDA tensors before the
+    launch: checks, the few casts the kernel cannot read through, the plan
+    and the output. Returns ``run(stamps=None)``, which launches the kernel
+    on those arguments (counted in ``gcl_message_agg.launches``) and
+    returns agg [B, N, H]; ``stamps``, an int64 CUDA tensor of
+    ``len(STAGES) + 1`` elements, receives block 0's stage clock
+    (:func:`stage_shares`). Raises where the kernel cannot run."""
     cdt = compute_dtype or wi.dtype
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"unsupported compute dtype {cdt}")
     b, n, h = wi.shape
     k = idx.shape[-1]
     _check_width(h, cdt)
+    dev = wi.device
+    if dev.type != "cuda":
+        raise ValueError(f"wi must be a CUDA tensor, got {dev}")
+    plan = launch_plan(b, n, k, h, cdt, _sm_count(dev.index if dev.index is not None
+                                                  else torch.cuda.current_device()))
+    mma = plan["route"] == "mma"
     wi, wj = wi.to(cdt).contiguous(), wj.to(cdt).contiguous()
-    idx = idx.to(torch.int32).contiguous()
-    radial = radial.to(torch.float32).contiguous()
-    dist0 = dist0.to(torch.float32).contiguous()
-    kmask = kmask.to(torch.float32).contiguous()
-    we = we.to(cdt).contiguous()
-    w2 = w2.to(cdt).contiguous()
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.to(torch.int32)
+    idx = idx.contiguous()
+    radial, s_rad = _edge_view(radial, "radial", (b, n, k), cdt)
+    dist0, s_d0 = _edge_view(dist0, "dist0", (b, n, k), cdt)
+    kmask, s_km = _edge_view(kmask, "kmask", (b, n, k), cdt)
+    if not radial.dtype == dist0.dtype == kmask.dtype:
+        (radial, s_rad), (dist0, s_d0), (kmask, s_km) = (
+            _edge_view(t.float(), name, (b, n, k), torch.float32)
+            for t, name in ((radial, "radial"), (dist0, "dist0"), (kmask, "kmask")))
+    if we.dtype not in (torch.float32, cdt):
+        we = we.float()
+    w2 = w2.to(cdt)  # a cast keeps a transposed view's layout
+    w2_t = mma and w2.stride() == (1, h)
+    if not w2_t:
+        w2 = w2.contiguous()
     w2b = w2b.to(torch.float32).reshape(h).contiguous()
-    if att is not None:
-        atk = att[0].to(cdt).reshape(h).contiguous()
+    attention = att is not None
+    if attention:
+        atk = att[0].reshape(h)
+        if atk.dtype not in (torch.float32, cdt):
+            atk = atk.float()
+        atk = atk.contiguous()
         atb = att[1].to(torch.float32).reshape(1).contiguous()
-    else:
-        atk = torch.zeros(h, dtype=cdt, device=wi.device)
-        atb = torch.zeros(1, dtype=torch.float32, device=wi.device)
     for t, name, shape, dt in (
         (wi, "wi", (b, n, h), cdt), (wj, "wj", (b, n, h), cdt),
-        (idx, "idx", (b, n, k), torch.int32),
-        (radial, "radial", (b, n, k), torch.float32),
-        (dist0, "dist0", (b, n, k), torch.float32),
-        (kmask, "kmask", (b, n, k), torch.float32),
-        (we, "we", (2, h), cdt), (w2, "w2", (h, h), cdt),
-        (w2b, "w2b", (h,), torch.float32), (atk, "att kernel", (h,), cdt),
-        (atb, "att bias", (1,), torch.float32),
-    ):
+        (idx, "idx", (b, n, k), idx.dtype),
+        (w2.t() if w2_t else w2, "w2", (h, h), cdt), (w2b, "w2b", (h,), torch.float32),
+    ) + (((atk, "att kernel", (h,), atk.dtype), (atb, "att bias", (1,), torch.float32))
+         if attention else ()):
         _check(t, name, shape, dt)
-    out = torch.empty((b, n, h), dtype=cdt, device=wi.device)
-    lib = _build.load("egnn_msgpass")
-    fn = lib.egnn_msgpass_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    stream = torch.cuda.current_stream(wi.device).cuda_stream
-    rc = fn(
-        _DTYPE_CODE[cdt], wi.data_ptr(), wj.data_ptr(), idx.data_ptr(),
-        radial.data_ptr(), dist0.data_ptr(), kmask.data_ptr(), we.data_ptr(),
-        w2.data_ptr(), w2b.data_ptr(), atk.data_ptr(), atb.data_ptr(),
-        int(att is not None), float(norm_factor), out.data_ptr(),
-        b, n, k, h, stream,
+    if we.device.type != "cuda" or tuple(we.shape) != (2, h):
+        raise ValueError(f"we: expected a CUDA tensor of shape (2, {h}), got "
+                         f"{tuple(we.shape)} on {we.device}")
+    out = torch.empty((b, n, h), dtype=cdt, device=dev)
+    p = _Params(
+        dtype=_DTYPE_CODE[cdt], mma=int(mma), w2_t=int(w2_t),
+        wi=wi.data_ptr(), wj=wj.data_ptr(), idx=idx.data_ptr(),
+        idx64=int(idx.dtype == torch.int64),
+        radial=radial.data_ptr(), dist0=dist0.data_ptr(), kmask=kmask.data_ptr(),
+        edge_f32=int(radial.dtype == torch.float32), s_rad=s_rad, s_d0=s_d0, s_km=s_km,
+        we=we.data_ptr(), we_s0=we.stride(0), we_s1=we.stride(1),
+        we_f32=int(we.dtype == torch.float32),
+        w2=w2.data_ptr(), b2=w2b.data_ptr(),
+        att=atk.data_ptr() if attention else None,
+        att_f32=int(attention and atk.dtype == torch.float32),
+        att_b=atb.data_ptr() if attention else None, attention=int(attention),
+        norm_factor=float(norm_factor), out=out.data_ptr(),
+        B=b, N=n, K=k, H=h, R=plan["receivers"], rows=plan["rows"], kc=plan["chunk"],
+        chunks=plan["chunks"], whole=plan["whole"], units=plan["units"], grid=plan["grid"],
     )
-    if rc != 0:
-        raise RuntimeError(f"egnn_msgpass kernel launch failed: cudaError {rc}")
-    gcl_message_agg.launches += 1
-    return out
+    fn = _kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the tensors the kernel reads stay alive with the closure
+    keep = (wi, wj, idx, radial, dist0, kmask, we, w2, w2b) + ((atk, atb) if attention else ())
+
+    def run(stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if stamps is not None:
+            _check(stamps, "stamps", (len(STAGES) + 1,), torch.int64)
+        p.stamps = None if stamps is None else stamps.data_ptr()
+        rc = fn(ctypes.byref(p), stream)
+        if rc != 0:
+            raise RuntimeError(f"egnn_msgpass kernel launch failed: cudaError {rc}")
+        gcl_message_agg.launches += 1
+        return out
+
+    run.plan = plan
+    run.keep = keep
+    return run
+
+
+def gcl_message_agg(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
+                    norm_factor: float,
+                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """GCL message pass + sum aggregation. Same arguments and result as
+    :func:`gcl_message_agg_plain`. On CUDA tensors this launches the kernel
+    (and counts the launch in ``gcl_message_agg.launches``) or raises."""
+    if wi.device.type == "cpu":
+        return gcl_message_agg_plain(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
+                                     norm_factor, compute_dtype)
+    return prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
+                          norm_factor, compute_dtype)()
+
+
+gcl_message_agg.launches = 0

@@ -4,6 +4,8 @@ against the JAX package's Pallas kernel in interpret mode, at f32, with the
 JAX suite's tolerances (atol 2e-4 / rtol 1e-4; 5e-4 at the flagship-like
 shape). The same numpy-seeded inputs and the same flax params drive both."""
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,16 @@ from cmdgen_tpu_torch.config import from_dict
 from cmdgen_tpu_torch.convert import load_flax_params
 from cmdgen_tpu_torch.models.dynamics import DynamicsConfig as TDynamicsConfig
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics as TEGNNDynamics
-from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg, gcl_message_agg_plain
+from cmdgen_tpu_torch.ops import egnn_msgpass
+from cmdgen_tpu_torch.ops.egnn_msgpass import (
+    EDGE_ROWS,
+    STAGES,
+    gcl_message_agg,
+    gcl_message_agg_plain,
+    launch_plan,
+    plan_tiles,
+    stage_shares,
+)
 
 torch.set_num_threads(1)
 
@@ -117,3 +128,77 @@ def test_msgpass_flagship_like_shape_matches_jax():
     cfg, params, inputs = _setup(b=2, n_p=8, n_q=130, hidden=64, layers=3,
                                  cutoff=6.0, seed=7, k=12)
     _check_dynamics(cfg, params, inputs, 5e-4, 5e-4)
+
+
+@pytest.mark.parametrize("b,n,k,h,cdt", [
+    (48, 118, 12, 256, torch.bfloat16),   # the flagship shape: a split last round
+    (132, 118, 12, 256, torch.bfloat16),  # 12 whole rounds, no split
+    (24, 69, 16, 128, torch.float32),     # the qrun_aa widths (trained run, f32)
+    (24, 69, 16, 128, torch.bfloat16),
+    (3, 5, 12, 64, torch.bfloat16),       # N < R: one item per sample
+    (1, 118, 12, 256, torch.bfloat16),    # B = 1: every item split in halves
+    (2, 9, 200, 256, torch.bfloat16),     # K past one tile: chunks of edges
+    (2, 40, 70, 512, torch.float32),      # float32 wider than 256: 64-row tiles
+    (1, 3, 1, 32, torch.bfloat16),        # K = 1
+])
+def test_launch_plan_covers_every_edge_once(b, n, k, h, cdt):
+    """K1's work plan (``launch_plan``, walked as the kernel's item loop
+    walks it) takes every (sample, receiver, edge) exactly once, each
+    receiver's edges in k order, in tiles that fit the kernel's rows."""
+    sms = 132
+    plan = launch_plan(b, n, k, h, cdt, sms)
+    rows, rcv = plan["rows"], plan["receivers"]
+    assert plan["route"] == ("mma" if cdt == torch.bfloat16 and h <= 256 else "block_gemm")
+    assert plan["chunk"] * plan["chunks"] >= k and rcv * plan["chunk"] <= rows <= EDGE_ROWS
+    assert rcv == 1 or rcv * k <= rows < (rcv + 1) * k
+    assert plan["grid"] == min(sms, plan["units"])
+    split = plan["units"] - plan["items"]
+    assert plan["whole"] == plan["items"] - split and split in (0, plan["items"] % sms)
+    seen = np.zeros((b, n, k), dtype=int)
+    next_k = np.zeros((b, n), dtype=int)
+    for s, i0, rv, k0, kc in plan_tiles(plan, n, k):
+        assert rv * kc <= rows and 0 <= i0 and i0 + rv <= n
+        seen[s, i0:i0 + rv, k0:k0 + kc] += 1
+        if rv:
+            assert (next_k[s, i0:i0 + rv] == k0).all()  # chunks in k order
+            next_k[s, i0:i0 + rv] = k0 + kc
+    assert (seen == 1).all()
+
+
+def test_launch_plan_splits_the_last_round():
+    """At the flagship shape 576 items leave 48 for a fifth round of 132
+    blocks: they run as 96 half items; at B=132 the rounds are whole."""
+    plan = launch_plan(48, 118, 12, 256, torch.bfloat16, 132)
+    assert (plan["receivers"], plan["items"], plan["whole"], plan["units"]) == (10, 576, 528, 624)
+    plan = launch_plan(132, 118, 12, 256, torch.bfloat16, 132)
+    assert plan["units"] == plan["items"] == 1584
+
+
+def test_kernel_params_match_the_cuda_struct():
+    """The wrapper's ctypes structure lists K1Params's fields in the
+    source's order with the same C types."""
+    src = (Path(egnn_msgpass.__file__).resolve().parent.parent / "csrc"
+           / "egnn_msgpass.cu").read_text()
+    body = re.search(r"struct K1Params \{(.*?)\n\};", src, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if not decl:
+            continue
+        ctype, names = re.match(r"((?:const )?\w+\*?(?: long\*)?)\s+(.*)", decl).groups()
+        for name in names.split(","):
+            name = name.strip()
+            ptr = "*" in ctype or name.startswith("*")
+            fields.append((name.lstrip("*"), "void_p" if ptr else ctype))
+    want = {"int": "c_int", "float": "c_float", "void_p": "c_void_p"}
+    got = [(name, t.__name__) for name, t in egnn_msgpass._Params._fields_]
+    assert got == [(name, want[t]) for name, t in fields]
+
+
+def test_stage_shares_from_stamps():
+    stamps = torch.tensor([10, 30, 20, 25, 15, 7])
+    shares = stage_shares(stamps)
+    assert shares["tiles"] == 7
+    assert list(shares)[:len(STAGES)] == list(STAGES)
+    assert sum(shares[s] for s in STAGES) == pytest.approx(1.0)
+    assert shares["pair layer"] == pytest.approx(0.3)

@@ -8,8 +8,9 @@ no CPU mode). On a machine with the card, from the repository root:
 
   python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-(``-k fused`` runs K2's cases alone. K2 is one cooperative launch over
-every SM: it needs the whole card.)
+(``-k msgpass`` runs K1's cases alone, ``-k fused`` K2's. K2 is one
+cooperative launch over every SM: it needs the whole card. K1 is an
+ordinary launch of at most one block per SM.)
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX, which this file
 does not need.)
@@ -28,6 +29,7 @@ import pytest
 import torch
 
 from cmdgen_tpu_torch.config import ca_config
+from cmdgen_tpu_torch.models import egnn as egnn_module
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
 from cmdgen_tpu_torch.ops import egnn_fused as ef
 from cmdgen_tpu_torch.ops import egnn_msgpass as mp
@@ -75,6 +77,10 @@ def _k1_args(dev, cdt, b, n, k, h, attention, seed):
     (1, 37, 12, 256, True),
     (3, 9, 9, 128, True),     # K = N
     (2, 130, 16, 32, True),   # N past one 128-row tile, the narrowest width
+    (1, 20, 12, 512, True),   # H = 512: bf16 streams W2 (block_gemm), f32 64-row tiles
+    (2, 9, 200, 256, True),   # K past one tile: each receiver's edges in two chunks
+    (2, 9, 150, 64, False),   # the same without attention
+    (5, 37, 12, 128, True),   # 20 items on 132 SMs: every item split in halves
 ])
 def test_gcl_message_agg_kernel_matches_plain(dev, cdt, b, n, k, h, attention):
     args = _k1_args(dev, cdt, b, n, k, h, attention, seed=n * k + h)
@@ -120,13 +126,12 @@ def _k2_args(dev, cdt, b, n, k, h, n_layers, r_true, tanh, seed):
             nmask.to(dev), r_true, n_layers, 1.0, 15.0, 100.0, tanh, cdt)
 
 
-def _k2_pocket_args(dev, cdt, b, seed):
-    """The layer stack's arguments on the fused engine's own inputs at the
-    flagship configuration, built as ``chip_smoke.py``'s K2 check builds
-    them: ``ca_config`` widths (H=256, 5 layers) with K=12, CA pockets of
-    110 residues and 8 pharmacophore points near their centre, the 6 Å
-    cutoff, type encoders and embedding, weights of std 1/sqrt(fan_in)
-    from a seed, pocket rows held."""
+def _flagship_model(dev, cdt, b, seed):
+    """The flagship configuration's dynamics and inputs, built as
+    ``chip_smoke.py`` builds them: ``ca_config`` widths (H=256, 5 layers)
+    with K=12, CA pockets of 110 residues and 8 pharmacophore points near
+    their centre, weights of std 1/sqrt(fan_in) from a seed. Returns
+    (dynamics, its EGNN config, its five inputs)."""
     cfg = ca_config()
     ecfg = dataclasses.replace(cfg.dynamics.egnn, compute_dtype=cdt, neighbor_k=12)
     dyn = EGNNDynamics(dataclasses.replace(cfg.dynamics, egnn=ecfg))
@@ -148,6 +153,15 @@ def _k2_pocket_args(dev, cdt, b, seed):
     xh_q = np.concatenate([pocket, np.eye(20)[rng.randint(0, 20, (b, n_q))]], -1)
     inputs = [torch.tensor(v, dtype=torch.float32, device=dev) for v in
               (xh_p, xh_q, rng.rand(b, 1), np.ones((b, n_p)), np.ones((b, n_q)))]
+    return dyn, ecfg, inputs
+
+
+def _k2_pocket_args(dev, cdt, b, seed):
+    """The layer stack's arguments on the fused engine's own inputs at the
+    flagship configuration (``_flagship_model``): the 6 Å cutoff, type
+    encoders and embedding, pocket rows held."""
+    dyn, ecfg, inputs = _flagship_model(dev, cdt, b, seed)
+    n_p = 8
     with torch.no_grad():
         h, x, mask, edge_mask, _ = dyn._inputs(*inputs, lambda mlp, v: mlp.forward_f32(v))
         return ef.layer_args(ef.fused_params(dyn.egnn, cdt), h, x, edge_mask, mask,
@@ -207,6 +221,50 @@ def test_egnn_fused_kernel_matches_plain_on_pocket_inputs(dev, cdt, b):
     # the bf16 plain version in dx by more than TOL_K2 at this shape; both
     # bf16 versions stray from float32 alike there (PERF.md, Accuracy)
     _check_k2(dev, _k2_pocket_args(dev, cdt, b, seed=3))
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("b", [
+    48,   # the flagship shape: 576 items, the last round as 96 half items
+    1,    # one sample: 12 items as 24 halves, a grid of 24 blocks
+    132,  # 12 whole rounds
+])
+def test_msgpass_kernel_matches_plain_on_engine_inputs(dev, monkeypatch, cdt, b):
+    """K1 on the arguments the msgpass engine gives it at the flagship
+    configuration, every layer: the transposed nn.Linear weights as they
+    lie, the edge features' strided slices, int64 neighbor indices. The
+    calls are recorded from one denoiser evaluation run on the plain
+    version, then each is held kernel against plain; block 0's stage clock
+    covers its tiles."""
+    dyn, _, inputs = _flagship_model(dev, cdt, b, seed=5)
+    calls = []
+
+    def record(*args, **kw):
+        args = args + (kw.get("compute_dtype"),)
+        calls.append(args)
+        return mp.gcl_message_agg_plain(*args)
+
+    monkeypatch.setattr(egnn_module, "gcl_message_agg", record)
+    with torch.no_grad():
+        dyn(*inputs)
+        assert len(calls) == 5
+        for args in calls:
+            before = mp.gcl_message_agg.launches
+            out = mp.gcl_message_agg(*args).float()
+            ref = mp.gcl_message_agg_plain(*args).float()
+            assert mp.gcl_message_agg.launches == before + 1
+            assert torch.isfinite(out).all()
+            tol = TOL_K1[cdt] * ref.abs().max().item()
+            assert (out - ref).abs().max().item() <= tol
+        run = mp.prepare_launch(*calls[0])
+        assert run.plan["route"] == ("mma" if cdt == torch.bfloat16 else "block_gemm")
+        assert run.plan["grid"] == min(torch.cuda.get_device_properties(dev).multi_processor_count,
+                                       run.plan["units"])
+        stamps = torch.zeros(len(mp.STAGES) + 1, dtype=torch.int64, device=dev)
+        torch.testing.assert_close(run(stamps).float(), mp.gcl_message_agg(*calls[0]).float(),
+                                   rtol=0, atol=0)
+    shares = mp.stage_shares(stamps)
+    assert shares["tiles"] >= 1 and sum(shares[s] for s in mp.STAGES) == pytest.approx(1.0)
 
 
 def test_kernels_raise_on_unsupported_input(dev):
