@@ -10,9 +10,9 @@
 //
 // Products: block_gemm runs bf16 products on the tensor cores (WMMA
 // 16x16x16, float accumulators, weights staged through shared memory by
-// cp.async) and float products as plain FMAs reading weights from global
-// memory (the float path must stay exact float, which the tensor cores'
-// TF32 is not).
+// cp.async) and float products as plain FMAs, the weights also staged
+// through shared memory by cp.async (the float path must stay exact float,
+// which the tensor cores' TF32 is not).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -88,23 +88,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---- float products: plain FMAs, a kTM x kTN register tile per thread.
+// W reaches shared memory in chunks of rows by cp.async, kF32Stages chunks
+// in flight, so the FMA loop reads it from there instead of waiting on L2.
 
-// Adds A[m, :] . W[:, n0..n0+3] over k < H into acc for the TM rows this
-// thread owns. A is float in shared memory (row stride lda, a multiple of
-// 4), W is float in global memory, row-major [H, H].
+constexpr int kF32Stages = 3;      // W chunks in the ring
+constexpr int kF32Chunk = 4096;    // floats per W chunk (16 KB)
+
+// W rows per chunk of the float ring (H is a power of two, 4 <= H <= 1024).
+__host__ __device__ inline int f32_chunk_rows(int H) { return min(H, kF32Chunk / H); }
+
+// Adds A[m, k0:k1] . W[k0:k1, n0..n0+3] into acc for the TM rows this
+// thread owns (arow[i]: its rows of A, float in shared memory). W points at
+// row k0, row stride ldw; k0, k1 are multiples of 4.
 template <int TM>
-__device__ __forceinline__ void accumulate_f32(float (&acc)[TM][kTN],
-                                               const float* A, int lda,
-                                               const float* W, int H,
-                                               int base, int rg, int rg_count,
-                                               int M, int n0) {
-  const float* arow[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = min(base + rg + i * rg_count, M - 1);
-    arow[i] = A + (size_t)m * lda;
-  }
-  for (int k = 0; k < H; k += 4) {
+__device__ __forceinline__ void accumulate_f32(float (&acc)[TM][kTN], const float* const (&arow)[TM],
+                                               const float* W, int ldw, int k0, int k1, int n0) {
+  for (int k = k0; k < k1; k += 4) {
     float a[TM][4];
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -113,7 +112,7 @@ __device__ __forceinline__ void accumulate_f32(float (&acc)[TM][kTN],
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float4 w = *reinterpret_cast<const float4*>(W + (size_t)(k + kk) * H + n0);
+      const float4 w = *reinterpret_cast<const float4*>(W + (size_t)(k - k0 + kk) * ldw + n0);
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         acc[i][0] = fmaf(a[i][kk], w.x, acc[i][0]);
@@ -125,25 +124,55 @@ __device__ __forceinline__ void accumulate_f32(float (&acc)[TM][kTN],
   }
 }
 
+// A pass covers rg_count * TM rows; W1's chunks, then W2's, stream through
+// the ring (`ring`: kF32Stages * f32_chunk_rows(H) * H floats), each waited
+// for and made visible by one barrier, after which the slot of the chunk
+// before it is refilled. The sums run in k order, W1 then W2.
 template <int TM, typename Epi>
 __device__ void gemm_f32(const float* A1, int lda1, const float* W1,
                          const float* A2, int lda2, const float* W2, int M,
-                         int H, Epi& epi) {
+                         int H, Epi& epi, float* ring) {
   const int cg_count = H / kTN;
   const int rg_count = kThreads / cg_count;
   const int cg = threadIdx.x % cg_count;
   const int rg = threadIdx.x / cg_count;
   const int n0 = cg * kTN;
   const int rows_per_pass = rg_count * TM;
+  const int kr = f32_chunk_rows(H);
+  const int per_op = H / kr;
+  const int nq = (A2 != nullptr ? 2 : 1) * per_op;
+  auto issue = [&](int q) {
+    if (q < nq) {
+      const float* src = (q < per_op ? W1 : W2) + (size_t)(q % per_op) * kr * H;
+      float* dst = ring + (size_t)(q % kF32Stages) * kr * H;
+      for (int o = threadIdx.x * 4; o < kr * H; o += kThreads * 4)
+        __pipeline_memcpy_async(dst + o, src + o, 16);
+    }
+    __pipeline_commit();
+  };
   for (int base = 0; base < M; base += rows_per_pass) {
     float acc[TM][kTN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-    accumulate_f32<TM>(acc, A1, lda1, W1, H, base, rg, rg_count, M, n0);
-    if (A2 != nullptr)
-      accumulate_f32<TM>(acc, A2, lda2, W2, H, base, rg, rg_count, M, n0);
+    const float* arow1[TM];
+    const float* arow2[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = min(base + rg + i * rg_count, M - 1);
+      arow1[i] = A1 + (size_t)m * lda1;
+      arow2[i] = A2 + (size_t)m * lda2;
+    }
+    for (int q = 0; q < kF32Stages - 1; ++q) issue(q);
+    for (int q = 0; q < nq; ++q) {
+      __pipeline_wait_prior(kF32Stages - 2);  // chunk q is here
+      __syncthreads();  // ... for every thread; every warp is done with chunk q - 1
+      issue(q + kF32Stages - 1);
+      const int k0 = (q % per_op) * kr;
+      accumulate_f32<TM>(acc, q < per_op ? arow1 : arow2,
+                         ring + (size_t)(q % kF32Stages) * kr * H, H, k0, k0 + kr, n0);
+    }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -251,10 +280,13 @@ __device__ void gemm_bf16(const bf16* A1, int lda1, const bf16* W1,
 // multiple of 16 must lie inside the allocation (tile_rows; their values
 // are ignored).
 // Requires, for float, H % 4 == 0 and (H / 4) dividing kThreads; for bf16,
-// H % 32 == 0 and H <= 512. GemmSmem holds the bf16 path's shared memory.
+// H % 32 == 0 and H <= 512. GemmSmem holds the products' shared memory.
+// The float path commits cp.async groups of its own: the caller's older
+// groups are complete once it returns.
 struct GemmSmem {
-  float* stage;  // kWarps * 256 floats
-  bf16* wslab;   // 2 * kSlabK * (H + 8) bf16
+  float* stage;  // bf16: kWarps * 256 floats
+  bf16* wslab;   // bf16: 2 * kSlabK * (H + 8) bf16
+  float* ring;   // float: the W ring of gemm_f32
 };
 
 template <typename T, typename Epi>
@@ -264,23 +296,23 @@ __device__ void block_gemm(const T* A1, int lda1, const T* W1, const T* A2,
   if constexpr (std::is_same<T, float>::value) {
     const int rg_count = kThreads / (H / kTN);
     if (M <= rg_count)
-      gemm_f32<1>(A1, lda1, W1, A2, lda2, W2, M, H, epi);
+      gemm_f32<1>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
     else if (M <= 2 * rg_count)
-      gemm_f32<2>(A1, lda1, W1, A2, lda2, W2, M, H, epi);
+      gemm_f32<2>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
     else if (M <= 4 * rg_count)
-      gemm_f32<4>(A1, lda1, W1, A2, lda2, W2, M, H, epi);
+      gemm_f32<4>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
     else
-      gemm_f32<kTM>(A1, lda1, W1, A2, lda2, W2, M, H, epi);
+      gemm_f32<kTM>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
   } else {
     gemm_bf16(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.stage, gs.wslab);
   }
 }
 
-// Bytes of GemmSmem for width H (the float path needs none).
+// Bytes of GemmSmem for width H.
 template <typename T>
 __host__ __device__ inline size_t gemm_smem_bytes(int H) {
   return std::is_same<T, float>::value
-             ? 0
+             ? 4 * (size_t)kF32Stages * f32_chunk_rows(H) * H
              : 4 * (size_t)kWarps * 256 + 2 * (size_t)2 * kSlabK * (H + row_pad<T>());
 }
 

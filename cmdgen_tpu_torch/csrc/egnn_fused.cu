@@ -52,7 +52,8 @@
 // resident beside the 128-row edge tile; the node phases stream each
 // matrix through the same buffer in 64-row chunks, the next matrix loading
 // while the current one multiplies. float products stay exact-float FMAs
-// (block_gemm<float>, weights read from L2), in the same phases.
+// (block_gemm<float>, weights through a ring of shared-memory chunks), in
+// the same phases.
 #define EGNN_THREADS 512
 #include <cooperative_groups.h>
 
@@ -121,24 +122,26 @@ struct FusedArgs {
 };
 
 // bf16 products run on mma.sync from shared memory (egnn_tiles.cuh); float
-// products stay exact-float FMAs (block_gemm<float>, weights from L2).
+// products stay exact-float FMAs (block_gemm<float>).
 template <typename T>
 constexpr bool kMma = std::is_same<T, bf16>::value;
 
 // Shared memory of one block: a tile of kEdgeRows rows (the message or
 // coordinate tile, the row tile of phase A, or two node MLP tiles of
 // kNodeRows rows in phase C), the bf16 path's weight matrix [H, H], the
-// per-row partial sums of the bf16 epilogues' dot products, the vectors of
+// per-row partial sums of the bf16 epilogues' dot products or the float
+// products' weight ring, the vectors of
 // the phase's pair MLP (GclVecs) and the per-edge arrays of one tile.
 template <typename T>
 struct FusedSmem {
-  size_t abuf, wsm, part, vec, eidx, ercv, ekm, erad, ed0, escale, ediff, total;
+  size_t abuf, wsm, part, ring, vec, eidx, ercv, ekm, erad, ed0, escale, ediff, total;
   __host__ __device__ explicit FusedSmem(int H) {
     const size_t ld = H + row_pad<T>();
     Carver c;
     abuf = c.take(sizeof(T) * kEdgeRows * ld);
     wsm = c.take(kMma<T> ? sizeof(T) * H * ld : 0);
     part = c.take(kMma<T> ? 4 * tiles::kWarpCols * kEdgeRows : 0);
+    ring = c.take(kMma<T> ? 0 : gemm_smem_bytes<T>(H));
     vec = c.take(4 * 4 * (size_t)H);
     eidx = c.take(4 * kEdgeRows);
     ercv = c.take(4 * kEdgeRows);
@@ -244,7 +247,8 @@ egnn_fused_kernel(const FusedArgs<T> a) {
   float* part = reinterpret_cast<float*>(smem_raw + S.part);
   const int ld = H + row_pad<T>();  // row stride of the tiles
 
-  const GemmSmem gs{nullptr, nullptr};  // the float products need none
+  // the float products' weight ring
+  const GemmSmem gs{nullptr, nullptr, reinterpret_cast<float*>(smem_raw + S.ring)};
   const bf16* resident = nullptr;       // the weight matrix wsm holds
   // the message and coordinate tiles (egnn_message.cuh)
   MsgSmem<T> sm;

@@ -13,8 +13,8 @@
 // Two routes for the product: bf16 tiles of at most 128 rows with H <= 256
 // run on mma.sync with W2 resident in shared memory and epilogues from the
 // accumulators (egnn_tiles.cuh); float, and bf16 wider than 256, run
-// block_gemm (exact-float FMAs with the weights from L2; WMMA with the
-// weights streamed in slabs) and one warp per edge for the attention dot.
+// block_gemm (exact-float FMAs; WMMA for bf16), the weights streamed
+// through shared memory, and one warp per edge for the attention dot.
 //
 // A receiver with more edges than a tile holds is taken in chunks of kc
 // edges, one tile each, in k order: the K-sum carries its running sum from

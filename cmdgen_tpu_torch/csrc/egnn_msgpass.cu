@@ -29,10 +29,10 @@
 // K-sum in k order inside the block (no atomics). bf16 with H <= 256 runs
 // the product on mma.sync with W2 loaded into shared memory once per block
 // and launch (135 KB at H = 256) and epilogues from the accumulators;
-// float keeps exact-float FMAs (block_gemm, weights from L2), and bf16
-// wider than 256 streams W2 through WMMA slabs (block_gemm). A receiver
-// with more than `rows` edges takes them in chunks, its running K-sum
-// carried from one to the next. The weights may come as the transpose of
+// float keeps exact-float FMAs (block_gemm, W2 streamed through a ring of
+// shared-memory chunks), and bf16 wider than 256 streams W2 through WMMA
+// slabs (block_gemm). A receiver with more than `rows` edges takes them in
+// chunks, its running K-sum carried from one to the next. The weights may come as the transpose of
 // an nn.Linear weight ([out, in] in memory): the mma route reads them as
 // they lie, so the wrapper copies nothing. With `stamps`, block 0 records
 // its clock at each stage of its tiles (StageClock).
@@ -122,7 +122,8 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
   sm.wsm = reinterpret_cast<bf16*>(smem_raw + L.wsm);
   sm.part = reinterpret_cast<float*>(smem_raw + L.part);
   sm.gs = GemmSmem{reinterpret_cast<float*>(smem_raw + L.gemm),
-                   reinterpret_cast<bf16*>(smem_raw + L.gemm + 4 * kWarps * 256)};
+                   reinterpret_cast<bf16*>(smem_raw + L.gemm + 4 * kWarps * 256),
+                   reinterpret_cast<float*>(smem_raw + L.gemm)};
   float* vec = reinterpret_cast<float*>(smem_raw + L.vec);
   sm.vec = GclVecs{vec, vec + H, vec + 2 * H, vec + 3 * H};
   sm.carry = reinterpret_cast<float*>(smem_raw + L.carry);
