@@ -129,6 +129,21 @@ __device__ __forceinline__ void storev(float* p, const float (&v)[V]) {
     *reinterpret_cast<float4*>(p + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
 }
 
+// The message tile's SiLU: silu_c's steps and roundings, with the
+// exponential and the quotient from the hardware's fast approximations
+// where T is bf16 (about 2 float ulps each, under the bf16 rounding that
+// follows; d >= 1). float keeps silu_c.
+template <typename T>
+__device__ __forceinline__ float silu_m(float v) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const float e = Cvt<T>::rnd(__expf(-v));
+    const float d = Cvt<T>::rnd(1.0f + e);
+    return Cvt<T>::rnd(__fdividef(v, d));
+  } else {
+    return silu_c<T>(v);
+  }
+}
+
 // Two adjacent values, rounded to T on the store.
 __device__ __forceinline__ void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
@@ -174,7 +189,7 @@ __device__ void pair_layer_v(const T* wi, const T* proj, const GclVecs& g,
       float v = C::rnd(a[j] + p[j]);
       v = C::rnd(v + C::rnd(rad * w0[j]));
       v = C::rnd(v + C::rnd(d0 * w1[j]));
-      o[j] = silu_c<T>(v);
+      o[j] = silu_m<T>(v);
     }
     storev<V>(buf + (size_t)e * ldb + c, o);
   }
@@ -237,16 +252,16 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     if (attention) {
       tiles::row_partials<2>(acc, H, sm.part, sm.rows, [&](int m, int n, float v0, float v1) {
         if (m >= E) return 0.0f;  // rows past the tile's edges
-        v0 = silu_c<T>(C::rnd(v0 + b2[n]));
-        v1 = silu_c<T>(C::rnd(v1 + b2[n + 1]));
+        v0 = silu_m<T>(C::rnd(v0 + b2[n]));
+        v1 = silu_m<T>(C::rnd(v1 + b2[n + 1]));
         store2(buf + (size_t)m * ld + n, v0, v1);
         return v0 * att[n] + v1 * att[n + 1];
       });
     } else {
       tiles::for_each_pair<2>(acc, H, [&](int m, int n, float v0, float v1) {
         if (m < E)
-          store2(buf + (size_t)m * ld + n, silu_c<T>(C::rnd(v0 + b2[n])),
-                 silu_c<T>(C::rnd(v1 + b2[n + 1])));
+          store2(buf + (size_t)m * ld + n, silu_m<T>(C::rnd(v0 + b2[n])),
+                 silu_m<T>(C::rnd(v1 + b2[n + 1])));
       });
     }
     __syncthreads();
@@ -263,7 +278,7 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     const float* b2 = sm.vec.b2;
     block_gemm<T>(buf, ld, W2, (const T*)nullptr, 0, (const T*)nullptr, E, H, sm.gs,
                   [&](int m, int n, float acc) {
-                    buf[(size_t)m * ld + n] = C::from_f(silu_c<T>(C::rnd(acc + b2[n])));
+                    buf[(size_t)m * ld + n] = C::from_f(silu_m<T>(C::rnd(acc + b2[n])));
                   });
     clk.tick(kProduct);  // this route's SiLU epilogue runs inside block_gemm
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
