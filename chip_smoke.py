@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``cmdgen_tpu_torch``) on one GPU.
 
-  python3 chip_smoke.py [--timesteps 500]
+  python3 chip_smoke.py [--timesteps 500] [--kernels-only]
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 ``nvcc``. It
@@ -28,6 +28,8 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
 Prints the card, a ``kernels`` JSON line, the throughput, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
+``--kernels-only`` stops after step 2 and prints the checks as one JSON
+line (no ``ok`` line): the quick way to compare two trees' kernels.
 """
 from __future__ import annotations
 
@@ -479,6 +481,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--timesteps", type=int, default=500,
                     help="reverse steps of the flagship sampling runs (default 500)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and check the kernels, print the checks and stop")
     args = ap.parse_args()
 
     import torch
@@ -508,6 +512,10 @@ def main():
     k1_wide = check_k1(dev, "bfloat16", b=132)  # 12 rounds of whole items
     k2 = [check_k2(dev, d) for d in ("float32", "bfloat16")]
     k2_wide = check_k2(dev, "bfloat16", b=132)  # one sample per SM
+    if args.kernels_only:
+        log(json.dumps({"kernel_checks": {"k1": k1, "k1_b132": k1_wide, "k2": k2,
+                                          "k2_b132": k2_wide}, "card": card}))
+        return 0
 
     sampling = flagship_sampling(dev, args.timesteps)
     trained = trained_run(dev, repo)
