@@ -179,19 +179,10 @@ __device__ void pair_layer_v(const T* wi, const T* proj, const GclVecs& g,
     w0[j] = g.we0[c + j];
     w1[j] = g.we1[c + j];
   }
-  // the next row's gathers are in flight while this row computes
-  int e = threadIdx.x / cpr;
-  float a[V], p[V];
-  if (e < E) {
+  for (int e = threadIdx.x / cpr; e < E; e += step) {
+    float a[V], p[V], o[V];
     loadv<V>(wi + (size_t)et.ercv[e] * H + c, a);
     loadv<V>(proj + (size_t)et.eidx[e] * H + c, p);
-  }
-  for (; e < E; e += step) {
-    float an[V], pn[V], o[V];
-    if (e + step < E) {
-      loadv<V>(wi + (size_t)et.ercv[e + step] * H + c, an);
-      loadv<V>(proj + (size_t)et.eidx[e + step] * H + c, pn);
-    }
     const float rad = C::rnd(et.erad[e]), d0 = et.ed0[e];
 #pragma unroll
     for (int j = 0; j < V; ++j) {
@@ -201,11 +192,6 @@ __device__ void pair_layer_v(const T* wi, const T* proj, const GclVecs& g,
       o[j] = silu_m<T>(v);
     }
     storev<V>(buf + (size_t)e * ldb + c, o);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      a[j] = an[j];
-      p[j] = pn[j];
-    }
   }
 }
 
