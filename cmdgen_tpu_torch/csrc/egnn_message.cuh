@@ -129,18 +129,46 @@ __device__ __forceinline__ void storev(float* p, const float (&v)[V]) {
     *reinterpret_cast<float4*>(p + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
 }
 
+// Rounds two values to T at once (bf16: one cvt.rn.bf16x2.f32).
+template <typename T>
+__device__ __forceinline__ void rnd2(float& a, float& b) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    a = __low2float(h);
+    b = __high2float(h);
+  }
+}
+
 // The message tile's SiLU: silu_c's steps and roundings, with the
 // exponential and the quotient from the hardware's fast approximations
 // where T is bf16 (about 2 float ulps each, under the bf16 rounding that
-// follows; d >= 1). float keeps silu_c.
-template <typename T>
+// follows; d >= 1). kRound = false leaves the last rounding to the
+// caller's store. float keeps silu_c.
+template <typename T, bool kRound = true>
 __device__ __forceinline__ float silu_m(float v) {
   if constexpr (std::is_same<T, bf16>::value) {
     const float e = Cvt<T>::rnd(__expf(-v));
-    const float d = Cvt<T>::rnd(1.0f + e);
-    return Cvt<T>::rnd(__fdividef(v, d));
+    const float q = __fdividef(v, Cvt<T>::rnd(1.0f + e));
+    return kRound ? Cvt<T>::rnd(q) : q;
   } else {
     return silu_c<T>(v);
+  }
+}
+
+// silu_m of two values, each rounding taken for both at once.
+template <typename T, bool kRound = true>
+__device__ __forceinline__ void silu_m2(float& v0, float& v1) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    float e0 = __expf(-v0), e1 = __expf(-v1);
+    rnd2<T>(e0, e1);
+    float d0 = 1.0f + e0, d1 = 1.0f + e1;
+    rnd2<T>(d0, d1);
+    v0 = __fdividef(v0, d0);
+    v1 = __fdividef(v1, d1);
+    if (kRound) rnd2<T>(v0, v1);
+  } else {
+    v0 = silu_c<T>(v0);
+    v1 = silu_c<T>(v1);
   }
 }
 
@@ -185,11 +213,23 @@ __device__ void pair_layer_v(const T* wi, const T* proj, const GclVecs& g,
     loadv<V>(proj + (size_t)et.eidx[e] * H + c, p);
     const float rad = C::rnd(et.erad[e]), d0 = et.ed0[e];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float v = C::rnd(a[j] + p[j]);
-      v = C::rnd(v + C::rnd(rad * w0[j]));
-      v = C::rnd(v + C::rnd(d0 * w1[j]));
-      o[j] = silu_m<T>(v);
+    for (int j = 0; j < V; j += 2) {  // two channels per rounding
+      float v0 = a[j] + p[j], v1 = a[j + 1] + p[j + 1];
+      rnd2<T>(v0, v1);
+      float t0 = rad * w0[j], t1 = rad * w0[j + 1];
+      rnd2<T>(t0, t1);
+      v0 += t0;
+      v1 += t1;
+      rnd2<T>(v0, v1);
+      t0 = d0 * w1[j];
+      t1 = d0 * w1[j + 1];
+      rnd2<T>(t0, t1);
+      v0 += t0;
+      v1 += t1;
+      rnd2<T>(v0, v1);
+      silu_m2<T, false>(v0, v1);  // storev rounds
+      o[j] = v0;
+      o[j + 1] = v1;
     }
     storev<V>(buf + (size_t)e * ldb + c, o);
   }
@@ -252,16 +292,21 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     if (attention) {
       tiles::row_partials<2>(acc, H, sm.part, sm.rows, [&](int m, int n, float v0, float v1) {
         if (m >= E) return 0.0f;  // rows past the tile's edges
-        v0 = silu_m<T>(C::rnd(v0 + b2[n]));
-        v1 = silu_m<T>(C::rnd(v1 + b2[n + 1]));
+        v0 += b2[n];
+        v1 += b2[n + 1];
+        rnd2<T>(v0, v1);
+        silu_m2<T>(v0, v1);
         store2(buf + (size_t)m * ld + n, v0, v1);
         return v0 * att[n] + v1 * att[n + 1];
       });
     } else {
       tiles::for_each_pair<2>(acc, H, [&](int m, int n, float v0, float v1) {
-        if (m < E)
-          store2(buf + (size_t)m * ld + n, silu_m<T>(C::rnd(v0 + b2[n])),
-                 silu_m<T>(C::rnd(v1 + b2[n + 1])));
+        if (m >= E) return;
+        v0 += b2[n];
+        v1 += b2[n + 1];
+        rnd2<T>(v0, v1);
+        silu_m2<T, false>(v0, v1);  // store2 rounds
+        store2(buf + (size_t)m * ld + n, v0, v1);
       });
     }
     __syncthreads();
@@ -278,7 +323,8 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     const float* b2 = sm.vec.b2;
     block_gemm<T>(buf, ld, W2, (const T*)nullptr, 0, (const T*)nullptr, E, H, sm.gs,
                   [&](int m, int n, float acc) {
-                    buf[(size_t)m * ld + n] = C::from_f(silu_m<T>(C::rnd(acc + b2[n])));
+                    // from_f rounds
+                    buf[(size_t)m * ld + n] = C::from_f(silu_m<T, false>(C::rnd(acc + b2[n])));
                   });
     clk.tick(kProduct);  // this route's SiLU epilogue runs inside block_gemm
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -308,8 +354,9 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     int k = 0;
     if (first) {
       const float2 v = load2(col);
-      s0 = C::rnd(v.x * sc[0]);
-      s1 = C::rnd(v.y * sc[0]);
+      s0 = v.x * sc[0];
+      s1 = v.y * sc[0];
+      rnd2<T>(s0, s1);
       k = 1;
     } else {
       s0 = sm.carry[c];
@@ -317,8 +364,11 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     }
     for (; k < kc; ++k) {
       const float2 v = load2(col + (size_t)k * ld);
-      s0 = C::rnd(s0 + C::rnd(v.x * sc[k]));
-      s1 = C::rnd(s1 + C::rnd(v.y * sc[k]));
+      float t0 = v.x * sc[k], t1 = v.y * sc[k];
+      rnd2<T>(t0, t1);
+      s0 += t0;
+      s1 += t1;
+      rnd2<T>(s0, s1);
     }
     if (last) {
       store2(out + (size_t)i * H + c, s0 * inv, s1 * inv);
