@@ -362,7 +362,6 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
       s0 = sm.carry[c];
       s1 = sm.carry[c + 1];
     }
-#pragma unroll 4
     for (; k < kc; ++k) {
       const float2 v = load2(col + (size_t)k * ld);
       float t0 = v.x * sc[k], t1 = v.y * sc[k];
