@@ -88,11 +88,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---- float products: plain FMAs, a kTM x kTN register tile per thread.
-// W reaches shared memory in chunks of rows by cp.async, kF32Stages chunks
-// in flight, so the FMA loop reads it from there instead of waiting on L2.
+// W reaches shared memory in chunks of rows by cp.async, the next chunk
+// loading while the current one multiplies, so the FMA loop reads it from there instead of waiting on L2.
 
-constexpr int kF32Stages = 3;      // W chunks in the ring
-constexpr int kF32Chunk = 4096;    // floats per W chunk (16 KB)
+constexpr int kF32Stages = 2;      // W chunks in the ring
+constexpr int kF32Chunk = 8192;    // floats per W chunk (32 KB)
 
 // W rows per chunk of the float ring (H is a power of two, 4 <= H <= 1024).
 __host__ __device__ inline int f32_chunk_rows(int H) { return min(H, kF32Chunk / H); }
