@@ -32,7 +32,8 @@ namespace egnn {
 #endif
 constexpr int kThreads = EGNN_THREADS;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTM = 8;         // float path: most output rows per thread per pass
+constexpr int kTM = 8;         // float path: output rows per thread per pass
+constexpr int kTN = 4;         // float path: output columns per thread
 // bf16 path: 16x16 output tiles per warp per pass, 64 per block
 constexpr int kMaxTiles = 64 / kWarps;
 constexpr int kSlabK = 16;     // bf16 path: weight rows per shared-memory slab
@@ -86,10 +87,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- float products: plain FMAs, a register tile of up to kTM rows x 8
-// columns per thread. W reaches shared memory in chunks of rows by
-// cp.async, the next chunk loading while the current one multiplies, so the
-// FMA loop reads it from there instead of waiting on L2.
+// ---- float products: plain FMAs, a kTM x kTN register tile per thread.
+// W reaches shared memory in chunks of rows by cp.async, the next chunk
+// loading while the current one multiplies, so the FMA loop reads it from there instead of waiting on L2.
 
 constexpr int kF32Stages = 2;      // W chunks in the ring
 constexpr int kF32Chunk = 8192;    // floats per W chunk (32 KB)
@@ -97,55 +97,46 @@ constexpr int kF32Chunk = 8192;    // floats per W chunk (32 KB)
 // W rows per chunk of the float ring (H is a power of two, 4 <= H <= 1024).
 __host__ __device__ inline int f32_chunk_rows(int H) { return min(H, kF32Chunk / H); }
 
-// Adds A[m, k0:k1] . W[k0:k1, n] into acc for the TM rows this thread owns
-// (row offsets aoff[i] into A, float in shared memory) and its TN columns,
-// TN / 4 groups of 4 at n0 + q * nstep (lanes 16 bytes apart: no bank
-// conflicts). W points at row k0, row stride ldw; k0, k1 are multiples of
-// 2. A is read two k at a time, which keeps the 8 x 8 tile in registers.
-template <int TM, int TN>
-__device__ __forceinline__ void accumulate_f32(float (&acc)[TM][TN], const float* A,
-                                               const int (&aoff)[TM], const float* W, int ldw,
-                                               int k0, int k1, int n0, int nstep) {
-  for (int k = k0; k < k1; k += 2) {
-    float a[TM][2];
+// Adds A[m, k0:k1] . W[k0:k1, n0..n0+3] into acc for the TM rows this
+// thread owns (arow[i]: its rows of A, float in shared memory). W points at
+// row k0, row stride ldw; k0, k1 are multiples of 4.
+template <int TM>
+__device__ __forceinline__ void accumulate_f32(float (&acc)[TM][kTN], const float* const (&arow)[TM],
+                                               const float* W, int ldw, int k0, int k1, int n0) {
+  for (int k = k0; k < k1; k += 4) {
+    float a[TM][4];
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const float2 v = *reinterpret_cast<const float2*>(A + aoff[i] + k);
-      a[i][0] = v.x; a[i][1] = v.y;
+      const float4 v = *reinterpret_cast<const float4*>(arow[i] + k);
+      a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
     }
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const float* wrow = W + (size_t)(k - k0 + kk) * ldw + n0;
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 w = *reinterpret_cast<const float4*>(W + (size_t)(k - k0 + kk) * ldw + n0);
 #pragma unroll
-      for (int q = 0; q < TN; q += 4) {
-        const float4 w = *reinterpret_cast<const float4*>(wrow + q / 4 * nstep);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          acc[i][q] = fmaf(a[i][kk], w.x, acc[i][q]);
-          acc[i][q + 1] = fmaf(a[i][kk], w.y, acc[i][q + 1]);
-          acc[i][q + 2] = fmaf(a[i][kk], w.z, acc[i][q + 2]);
-          acc[i][q + 3] = fmaf(a[i][kk], w.w, acc[i][q + 3]);
-        }
+      for (int i = 0; i < TM; ++i) {
+        acc[i][0] = fmaf(a[i][kk], w.x, acc[i][0]);
+        acc[i][1] = fmaf(a[i][kk], w.y, acc[i][1]);
+        acc[i][2] = fmaf(a[i][kk], w.z, acc[i][2]);
+        acc[i][3] = fmaf(a[i][kk], w.w, acc[i][3]);
       }
     }
   }
 }
 
-// Each thread owns TM rows x TN columns (accumulate_f32); a pass covers
-// rg_count * TM rows.
-// W1's chunks, then W2's, stream through the ring (`ring`: kF32Stages *
-// f32_chunk_rows(H) * H floats), each waited for and made visible by one
-// barrier, after which the slot of the chunk before it is refilled. The
-// sums run in k order, W1 then W2.
-template <int TM, int TN, typename Epi>
+// A pass covers rg_count * TM rows; W1's chunks, then W2's, stream through
+// the ring (`ring`: kF32Stages * f32_chunk_rows(H) * H floats), each waited
+// for and made visible by one barrier, after which the slot of the chunk
+// before it is refilled. The sums run in k order, W1 then W2.
+template <int TM, typename Epi>
 __device__ void gemm_f32(const float* A1, int lda1, const float* W1,
                          const float* A2, int lda2, const float* W2, int M,
                          int H, Epi& epi, float* ring) {
-  const int cg_count = H / TN;
+  const int cg_count = H / kTN;
   const int rg_count = kThreads / cg_count;
   const int cg = threadIdx.x % cg_count;
   const int rg = threadIdx.x / cg_count;
-  const int n0 = cg * 4, nstep = cg_count * 4;
+  const int n0 = cg * kTN;
   const int rows_per_pass = rg_count * TM;
   const int kr = f32_chunk_rows(H);
   const int per_op = H / kr;
@@ -160,27 +151,27 @@ __device__ void gemm_f32(const float* A1, int lda1, const float* W1,
     __pipeline_commit();
   };
   for (int base = 0; base < M; base += rows_per_pass) {
-    float acc[TM][TN];
+    float acc[TM][kTN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-    int row[TM];
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+    const float* arow1[TM];
+    const float* arow2[TM];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) row[i] = min(base + rg + i * rg_count, M - 1);
+    for (int i = 0; i < TM; ++i) {
+      const int m = min(base + rg + i * rg_count, M - 1);
+      arow1[i] = A1 + (size_t)m * lda1;
+      arow2[i] = A2 + (size_t)m * lda2;
+    }
     for (int q = 0; q < kF32Stages - 1; ++q) issue(q);
     for (int q = 0; q < nq; ++q) {
       __pipeline_wait_prior(kF32Stages - 2);  // chunk q is here
       __syncthreads();  // ... for every thread; every warp is done with chunk q - 1
       issue(q + kF32Stages - 1);
-      const bool first = q < per_op;
-      int aoff[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) aoff[i] = row[i] * (first ? lda1 : lda2);
       const int k0 = (q % per_op) * kr;
-      accumulate_f32<TM, TN>(acc, first ? A1 : A2, aoff,
-                             ring + (size_t)(q % kF32Stages) * kr * H, H, k0, k0 + kr, n0,
-                             nstep);
+      accumulate_f32<TM>(acc, q < per_op ? arow1 : arow2,
+                         ring + (size_t)(q % kF32Stages) * kr * H, H, k0, k0 + kr, n0);
     }
     __syncthreads();
 #pragma unroll
@@ -188,27 +179,11 @@ __device__ void gemm_f32(const float* A1, int lda1, const float* W1,
       const int m = base + rg + i * rg_count;
       if (m < M) {
 #pragma unroll
-        for (int j = 0; j < TN; ++j) epi(m, n0 + j / 4 * nstep + j % 4, acc[i][j]);
+        for (int j = 0; j < kTN; ++j) epi(m, n0 + j, acc[i][j]);
       }
     }
     __syncthreads();
   }
-}
-
-// The float product with its thread tile: TN columns (8, or 4 where H % 8
-// != 0), TM rows, the fewest that cover M in one pass (at most kTM).
-template <int TN, typename Epi>
-__device__ void gemm_f32_tn(const float* A1, int lda1, const float* W1, const float* A2,
-                            int lda2, const float* W2, int M, int H, Epi& epi, float* ring) {
-  const int rg_count = kThreads / (H / TN);
-  if (M <= rg_count)
-    gemm_f32<1, TN>(A1, lda1, W1, A2, lda2, W2, M, H, epi, ring);
-  else if (M <= 2 * rg_count)
-    gemm_f32<2, TN>(A1, lda1, W1, A2, lda2, W2, M, H, epi, ring);
-  else if (M <= 4 * rg_count)
-    gemm_f32<4, TN>(A1, lda1, W1, A2, lda2, W2, M, H, epi, ring);
-  else
-    gemm_f32<kTM, TN>(A1, lda1, W1, A2, lda2, W2, M, H, epi, ring);
 }
 
 // ---- bf16 products: WMMA 16x16x16 on the tensor cores, float accumulators.
@@ -304,7 +279,7 @@ __device__ void gemm_bf16(const bf16* A1, int lda1, const bf16* W1,
 // The bf16 path reads A in whole 16-row tiles: the rows up to the next
 // multiple of 16 must lie inside the allocation (tile_rows; their values
 // are ignored).
-// Requires, for float, H % 4 == 0 and H / 4 dividing kThreads; for bf16,
+// Requires, for float, H % 4 == 0 and (H / 4) dividing kThreads; for bf16,
 // H % 32 == 0 and H <= 512. GemmSmem holds the products' shared memory.
 // The float path commits cp.async groups of its own: the caller's older
 // groups are complete once it returns.
@@ -319,10 +294,15 @@ __device__ void block_gemm(const T* A1, int lda1, const T* W1, const T* A2,
                            int lda2, const T* W2, int M, int H,
                            const GemmSmem& gs, Epi epi) {
   if constexpr (std::is_same<T, float>::value) {
-    if (H % 8 == 0)
-      gemm_f32_tn<8>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
+    const int rg_count = kThreads / (H / kTN);
+    if (M <= rg_count)
+      gemm_f32<1>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
+    else if (M <= 2 * rg_count)
+      gemm_f32<2>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
+    else if (M <= 4 * rg_count)
+      gemm_f32<4>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
     else
-      gemm_f32_tn<4>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
+      gemm_f32<kTM>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
   } else {
     gemm_bf16(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.stage, gs.wslab);
   }
