@@ -359,9 +359,8 @@ egnn_fused_kernel(const FusedArgs<T> a) {
       int rv = min(R, N - i0);
       take_half(half, i0, rv);
       const int E = rv * K;
-      // edge_out's weights stay in shared memory for the whole phase; the
-      // edges load beside the previous item's K-sum, which reads only the
-      // edge tile and escale
+      __syncthreads();
+      // edge_out's weights stay in shared memory for the whole phase
       if constexpr (kMma<T>) tiles::use_weights(resident, wsm, ld, a.w.w2 + oHH, H);
       load_edges<T>(a.idx, a.kmask, a.dist0, x_in + nb * 3, nb + i0, i0, E, K,
                     N, false, et, ediff);

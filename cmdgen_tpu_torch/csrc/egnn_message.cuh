@@ -45,9 +45,7 @@ struct GclVecs {
 
 // Block 0's clock (clock64, thread 0) summed over the stages of its tiles:
 // stamps[s] for stage s, stamps[kStages] the number of tiles. A stage ends
-// at the block barrier that closes it, the K-sum where thread 0 finishes
-// its share (the next tile's edge load overlaps the rest); a disabled
-// clock does nothing.
+// at the block barrier that closes it; a disabled clock does nothing.
 enum Stage { kEdgeLoad, kPairLayer, kProduct, kEpilogue, kKsum, kStages };
 
 struct StageClock {
@@ -280,10 +278,8 @@ struct MsgSmem {
 // block_gemm route reads it from there); att_b: the attention bias.
 // first / last: this tile is its receivers' first / last chunk of edges.
 // out: agg row of the tile's first receiver (row stride H). Ends without a
-// barrier after the K-sum, which reads only buf and et.escale: the caller
-// may fill the other edge arrays for the next tile before its next
-// barrier. The clock ticks at every stage but the K-sum, whose end the
-// caller marks.
+// barrier after the K-sum; the clock ticks at every stage but the K-sum,
+// whose end the caller marks at its next barrier.
 template <typename T, bool kMma, bool WT>
 __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, const T* W2,
                              float att_b, bool attention, int E, int rv, int kc, int H,

@@ -168,8 +168,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
       const int k0 = ch * a.kc;
       const int kc = min(a.kc, K - k0);
       const int E = rv * kc;
-      // the previous tile's K-sum reads only the edge tile and escale, so
-      // this tile's edges load beside it (thread 0's clock: its own K-sum)
+      __syncthreads();  // the previous tile is done with shared memory
       clk.tick(kKsum);
       // edge_out's weights stay in shared memory for the whole launch
       if constexpr (kMma)
