@@ -189,10 +189,9 @@ __device__ __forceinline__ float2 load2(const float* p) {
 // The pair layer of E edges into buf (row stride ldb), V channels per
 // thread: each thread keeps one group of V columns, so its we values stay
 // in registers and no index is divided inside the loop. wi holds the tile's
-// receiver rows, proj the sample's rows (both [*, H] in T, never read
-// through the read-only cache: K2 writes them earlier in the same launch).
-// Each add is rounded to T as the JAX kernels do. Completes every cp.async
-// group the thread has in flight.
+// receiver rows, proj the sample's rows (both [*, H] in T, read with plain
+// loads: K2 writes them earlier in the same launch). Each add is rounded to
+// T as the JAX kernels do.
 template <typename T, int V>
 __device__ void pair_layer_v(const T* wi, const T* proj, const GclVecs& g,
                              const EdgeTile& et, int E, int H, T* __restrict__ buf,
@@ -208,22 +207,10 @@ __device__ void pair_layer_v(const T* wi, const T* proj, const GclVecs& g,
     w0[j] = g.we0[c + j];
     w1[j] = g.we1[c + j];
   }
-  // this thread's wj vectors, gathered by cp.async into the tile's slots
-  // that it transforms below, all in flight at once
-  constexpr int kBytes = V * (int)sizeof(T);
-  constexpr int kCopy = kBytes < 16 ? kBytes : 16;
-  for (int e = threadIdx.x / cpr; e < E; e += step) {
-    char* dst = reinterpret_cast<char*>(buf + (size_t)e * ldb + c);
-    const char* src = reinterpret_cast<const char*>(proj + (size_t)et.eidx[e] * H + c);
-#pragma unroll
-    for (int q = 0; q < kBytes; q += kCopy) __pipeline_memcpy_async(dst + q, src + q, kCopy);
-  }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
   for (int e = threadIdx.x / cpr; e < E; e += step) {
     float a[V], p[V], o[V];
     loadv<V>(wi + (size_t)et.ercv[e] * H + c, a);
-    loadv<V>(buf + (size_t)e * ldb + c, p);
+    loadv<V>(proj + (size_t)et.eidx[e] * H + c, p);
     const float rad = C::rnd(et.erad[e]), d0 = et.ed0[e];
 #pragma unroll
     for (int j = 0; j < V; j += 2) {  // two channels per rounding
@@ -288,7 +275,8 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
   T* const buf = sm.buf;
   const int ld = sm.ld;
   const EdgeTile& et = sm.et;
-  pair_layer<T>(wi, proj, sm.vec, et, E, H, buf, ld);  // W2's copies complete too
+  pair_layer<T>(wi, proj, sm.vec, et, E, H, buf, ld);
+  if constexpr (kMma) __pipeline_wait_prior(0);
   __syncthreads();
   clk.tick(kPairLayer);
 
