@@ -25,12 +25,7 @@
 
 namespace egnn {
 
-// threads per block; a kernel's source may set EGNN_THREADS before
-// including this header
-#ifndef EGNN_THREADS
-#define EGNN_THREADS 256
-#endif
-constexpr int kThreads = EGNN_THREADS;
+constexpr int kThreads = 512;  // threads per block: 16 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 8;         // float path: output rows per thread per pass
 constexpr int kTN = 4;         // float path: output columns per thread

@@ -54,7 +54,6 @@
 // while the current one multiplies. float products stay exact-float FMAs
 // (block_gemm<float>, weights through a ring of shared-memory chunks), in
 // the same phases.
-#define EGNN_THREADS 512
 #include <cooperative_groups.h>
 
 #include "egnn_common.cuh"

@@ -36,7 +36,6 @@
 // an nn.Linear weight ([out, in] in memory): the mma route reads them as
 // they lie, so the wrapper copies nothing. With `stamps`, block 0 records
 // its clock at each stage of its tiles (StageClock).
-#define EGNN_THREADS 512
 
 #include "egnn_common.cuh"
 #include "egnn_message.cuh"
@@ -50,18 +49,16 @@ struct K1Params {
   int w2_t;             // mma route: w2 lies as [out, in] (an nn.Linear weight)
   const void* wi;       // [B*N, H] T
   const void* wj;       // [B*N, H] T
-  const void* idx;      // [B*N*K] int32, or int64 with idx64
-  int idx64;
+  const long long* idx; // [B*N*K]
   const void* radial;   // [B*N*K] at element strides s_rad, s_d0, s_km:
   const void* dist0;    //   float32 with edge_f32, else T
   const void* kmask;
   int edge_f32, s_rad, s_d0, s_km;
-  const void* we;       // [2, H] at strides (we_s0, we_s1), float32 with we_f32, else T
-  int we_s0, we_s1, we_f32;
+  const float* we;      // [2, H] at strides (we_s0, we_s1)
+  int we_s0, we_s1;
   const void* w2;       // [H, H] T, [in, out] (or [out, in] with w2_t)
   const float* b2;      // [H]
-  const void* att;      // [H] float32 with att_f32, else T; unused without attention
-  int att_f32;
+  const float* att;     // [H]; unused without attention
   const float* att_b;   // [1]
   int attention;
   float norm_factor;
@@ -99,14 +96,10 @@ struct K1Smem {
   }
 };
 
-// Element i of a float32 array (rounded to T when round_t) or of a T array.
+// Element i of an edge scalar, float32 with f32, else T.
 template <typename T>
-__device__ __forceinline__ float read_as_float(const void* p, size_t i, int f32, bool round_t) {
-  if (f32) {
-    const float v = static_cast<const float*>(p)[i];
-    return round_t ? Cvt<T>::rnd(v) : v;
-  }
-  return Cvt<T>::to_f(static_cast<const T*>(p)[i]);
+__device__ __forceinline__ float edge_value(const void* p, size_t i, int f32) {
+  return f32 ? static_cast<const float*>(p)[i] : Cvt<T>::to_f(static_cast<const T*>(p)[i]);
 }
 
 template <typename T, bool kMma, bool WT>
@@ -141,12 +134,12 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
   T* out = static_cast<T*>(a.out);
   StageClock clk(a.stamps);
 
-  // the GCL's vectors, as float rounded to T where the kernel rounds them
+  // the GCL's vectors, w_e and att rounded to T as the JAX kernel casts them
   for (int c = threadIdx.x; c < H; c += kThreads) {
-    sm.vec.we0[c] = read_as_float<T>(a.we, (size_t)c * a.we_s1, a.we_f32, true);
-    sm.vec.we1[c] = read_as_float<T>(a.we, a.we_s0 + (size_t)c * a.we_s1, a.we_f32, true);
+    sm.vec.we0[c] = C::rnd(a.we[(size_t)c * a.we_s1]);
+    sm.vec.we1[c] = C::rnd(a.we[a.we_s0 + (size_t)c * a.we_s1]);
     sm.vec.b2[c] = a.b2[c];
-    sm.vec.att[c] = a.attention ? read_as_float<T>(a.att, c, a.att_f32, true) : 0.0f;
+    sm.vec.att[c] = a.attention ? C::rnd(a.att[c]) : 0.0f;
   }
   const float att_b = a.attention ? a.att_b[0] : 0.0f;
   const float inv = C::rnd(1.0f / a.norm_factor);
@@ -176,13 +169,11 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
       for (int e = threadIdx.x; e < E; e += kThreads) {
         const int r = e / kc;
         const size_t off = (row0 + r) * K + k0 + (e - r * kc);
-        const long long j = a.idx64 ? static_cast<const long long*>(a.idx)[off]
-                                    : (long long)static_cast<const int*>(a.idx)[off];
-        et.eidx[e] = (int)min(max(j, 0LL), (long long)N - 1);
+        et.eidx[e] = (int)min(max(a.idx[off], 0LL), (long long)N - 1);
         et.ercv[e] = r;
-        et.ekm[e] = read_as_float<T>(a.kmask, off * a.s_km, a.edge_f32, false);
-        et.erad[e] = C::rnd(read_as_float<T>(a.radial, off * a.s_rad, a.edge_f32, false));
-        et.ed0[e] = C::rnd(read_as_float<T>(a.dist0, off * a.s_d0, a.edge_f32, false));
+        et.ekm[e] = edge_value<T>(a.kmask, off * a.s_km, a.edge_f32);
+        et.erad[e] = C::rnd(edge_value<T>(a.radial, off * a.s_rad, a.edge_f32));
+        et.ed0[e] = C::rnd(edge_value<T>(a.dist0, off * a.s_d0, a.edge_f32));
       }
       __syncthreads();
       clk.tick(kEdgeLoad);

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -146,23 +146,6 @@ def launch_plan(b: int, n: int, k: int, h: int, cdt: torch.dtype, sms: int) -> D
             "units": units, "grid": min(sms, units)}
 
 
-def plan_tiles(plan: Dict[str, object], n: int, k: int) -> Iterator[Tuple[int, int, int, int, int]]:
-    """The tiles the kernel's loop takes, in unit order (a Python mirror of
-    its item loop): (sample, first receiver, receivers, first edge, edges)."""
-    rcv, whole, chunk = plan["receivers"], plan["whole"], plan["chunk"]
-    per_sample = _cdiv(n, rcv)
-    for w in range(plan["units"]):
-        it, half = (w, 0) if w < whole else (whole + (w - whole) // 2, 1 + (w - whole) % 2)
-        i0 = (it % per_sample) * rcv
-        rv = min(rcv, n - i0)
-        if half:
-            first = (rv + 1) // 2
-            i0, rv = (i0, first) if half == 1 else (i0 + first, rv - first)
-        for c in range(plan["chunks"]):
-            k0 = c * chunk
-            yield it // per_sample, i0, rv, k0, min(chunk, k - k0)
-
-
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -185,14 +168,13 @@ class _Params(ctypes.Structure):
     _fields_ = [
         ("dtype", ctypes.c_int), ("mma", ctypes.c_int), ("w2_t", ctypes.c_int),
         ("wi", ctypes.c_void_p), ("wj", ctypes.c_void_p),
-        ("idx", ctypes.c_void_p), ("idx64", ctypes.c_int),
+        ("idx", ctypes.c_void_p),
         ("radial", ctypes.c_void_p), ("dist0", ctypes.c_void_p), ("kmask", ctypes.c_void_p),
         ("edge_f32", ctypes.c_int), ("s_rad", ctypes.c_int), ("s_d0", ctypes.c_int),
         ("s_km", ctypes.c_int),
         ("we", ctypes.c_void_p), ("we_s0", ctypes.c_int), ("we_s1", ctypes.c_int),
-        ("we_f32", ctypes.c_int),
         ("w2", ctypes.c_void_p), ("b2", ctypes.c_void_p), ("att", ctypes.c_void_p),
-        ("att_f32", ctypes.c_int), ("att_b", ctypes.c_void_p), ("attention", ctypes.c_int),
+        ("att_b", ctypes.c_void_p), ("attention", ctypes.c_int),
         ("norm_factor", ctypes.c_float),
         ("out", ctypes.c_void_p), ("stamps", ctypes.c_void_p),
         ("B", ctypes.c_int), ("N", ctypes.c_int), ("K", ctypes.c_int), ("H", ctypes.c_int),
@@ -250,9 +232,7 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
                                                   else torch.cuda.current_device()))
     mma = plan["route"] == "mma"
     wi, wj = wi.to(cdt).contiguous(), wj.to(cdt).contiguous()
-    if idx.dtype not in (torch.int32, torch.int64):
-        idx = idx.to(torch.int32)
-    idx = idx.contiguous()
+    idx = idx.to(torch.int64).contiguous()
     radial, s_rad = _edge_view(radial, "radial", (b, n, k), cdt)
     dist0, s_d0 = _edge_view(dist0, "dist0", (b, n, k), cdt)
     kmask, s_km = _edge_view(kmask, "kmask", (b, n, k), cdt)
@@ -260,8 +240,7 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
         (radial, s_rad), (dist0, s_d0), (kmask, s_km) = (
             _edge_view(t.float(), name, (b, n, k), torch.float32)
             for t, name in ((radial, "radial"), (dist0, "dist0"), (kmask, "kmask")))
-    if we.dtype not in (torch.float32, cdt):
-        we = we.float()
+    we = we.float()
     w2 = w2.to(cdt)  # a cast keeps a transposed view's layout
     w2_t = mma and w2.stride() == (1, h)
     if not w2_t:
@@ -269,16 +248,13 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
     w2b = w2b.to(torch.float32).reshape(h).contiguous()
     attention = att is not None
     if attention:
-        atk = att[0].reshape(h)
-        if atk.dtype not in (torch.float32, cdt):
-            atk = atk.float()
-        atk = atk.contiguous()
+        atk = att[0].to(torch.float32).reshape(h).contiguous()
         atb = att[1].to(torch.float32).reshape(1).contiguous()
     for t, name, shape, dt in (
         (wi, "wi", (b, n, h), cdt), (wj, "wj", (b, n, h), cdt),
-        (idx, "idx", (b, n, k), idx.dtype),
+        (idx, "idx", (b, n, k), torch.int64),
         (w2.t() if w2_t else w2, "w2", (h, h), cdt), (w2b, "w2b", (h,), torch.float32),
-    ) + (((atk, "att kernel", (h,), atk.dtype), (atb, "att bias", (1,), torch.float32))
+    ) + (((atk, "att kernel", (h,), torch.float32), (atb, "att bias", (1,), torch.float32))
          if attention else ()):
         _check(t, name, shape, dt)
     if we.device.type != "cuda" or tuple(we.shape) != (2, h):
@@ -288,14 +264,11 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
     p = _Params(
         dtype=_DTYPE_CODE[cdt], mma=int(mma), w2_t=int(w2_t),
         wi=wi.data_ptr(), wj=wj.data_ptr(), idx=idx.data_ptr(),
-        idx64=int(idx.dtype == torch.int64),
         radial=radial.data_ptr(), dist0=dist0.data_ptr(), kmask=kmask.data_ptr(),
         edge_f32=int(radial.dtype == torch.float32), s_rad=s_rad, s_d0=s_d0, s_km=s_km,
         we=we.data_ptr(), we_s0=we.stride(0), we_s1=we.stride(1),
-        we_f32=int(we.dtype == torch.float32),
         w2=w2.data_ptr(), b2=w2b.data_ptr(),
         att=atk.data_ptr() if attention else None,
-        att_f32=int(attention and atk.dtype == torch.float32),
         att_b=atb.data_ptr() if attention else None, attention=int(attention),
         norm_factor=float(norm_factor), out=out.data_ptr(),
         B=b, N=n, K=k, H=h, R=plan["receivers"], rows=plan["rows"], kc=plan["chunk"],

@@ -28,7 +28,6 @@ from cmdgen_tpu_torch.ops.egnn_msgpass import (
     gcl_message_agg,
     gcl_message_agg_plain,
     launch_plan,
-    plan_tiles,
     stage_shares,
 )
 
@@ -128,6 +127,23 @@ def test_msgpass_flagship_like_shape_matches_jax():
     cfg, params, inputs = _setup(b=2, n_p=8, n_q=130, hidden=64, layers=3,
                                  cutoff=6.0, seed=7, k=12)
     _check_dynamics(cfg, params, inputs, 5e-4, 5e-4)
+
+
+def plan_tiles(plan, n, k):
+    """The tiles K1's item loop takes (csrc/egnn_msgpass.cu), in unit order:
+    (sample, first receiver, receivers, first edge, edges)."""
+    rcv, whole, chunk = plan["receivers"], plan["whole"], plan["chunk"]
+    per_sample = -(-n // rcv)
+    for w in range(plan["units"]):
+        it, half = (w, 0) if w < whole else (whole + (w - whole) // 2, 1 + (w - whole) % 2)
+        i0 = (it % per_sample) * rcv
+        rv = min(rcv, n - i0)
+        if half:
+            first = (rv + 1) // 2
+            i0, rv = (i0, first) if half == 1 else (i0 + first, rv - first)
+        for c in range(plan["chunks"]):
+            k0 = c * chunk
+            yield it // per_sample, i0, rv, k0, min(chunk, k - k0)
 
 
 @pytest.mark.parametrize("b,n,k,h,cdt", [
