@@ -8,7 +8,7 @@ no CPU mode). On a machine with the card, from the repository root:
 
   python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-(``-k msgpass`` runs K1's cases alone, ``-k fused`` K2's. K2 is one
+(``-k "gcl or msgpass"`` runs K1's cases alone, ``-k fused`` K2's. K2 is one
 cooperative launch over every SM: it needs the whole card. K1 is an
 ordinary launch of at most one block per SM.)
 
