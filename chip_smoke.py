@@ -29,7 +29,9 @@ Prints the card, a ``kernels`` JSON line, the throughput, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
 ``--kernels-only`` stops after step 2 and prints the checks as one JSON
-line (no ``ok`` line): the quick way to compare two trees' kernels.
+line (no ``ok`` line): the quick way to compare two trees' kernels. Such
+a run drives no main path and counts no launches, so it never stands for
+the full run.
 """
 from __future__ import annotations
 

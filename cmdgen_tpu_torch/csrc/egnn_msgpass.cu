@@ -32,10 +32,11 @@
 // float keeps exact-float FMAs (block_gemm, W2 streamed through a ring of
 // shared-memory chunks), and bf16 wider than 256 streams W2 through WMMA
 // slabs (block_gemm). A receiver with more than `rows` edges takes them in
-// chunks, its running K-sum carried from one to the next. The weights may come as the transpose of
-// an nn.Linear weight ([out, in] in memory): the mma route reads them as
-// they lie, so the wrapper copies nothing. With `stamps`, block 0 records
-// its clock at each stage of its tiles (StageClock).
+// chunks, its running K-sum carried from one to the next. The mma route
+// reads W2 as [out, in] in memory, the layout of the nn.Linear weight whose
+// transpose the model passes, so the model's calls copy nothing;
+// block_gemm reads it as [in, out]. With `stamps`, block 0 records its
+// clock at each stage of its tiles (StageClock).
 
 #include "egnn_common.cuh"
 #include "egnn_message.cuh"
@@ -46,17 +47,16 @@
 struct K1Params {
   int dtype;            // 0 float32, 1 bfloat16 (T)
   int mma;              // 1: mma.sync route (bf16, H <= 256); 0: block_gemm
-  int w2_t;             // mma route: w2 lies as [out, in] (an nn.Linear weight)
   const void* wi;       // [B*N, H] T
   const void* wj;       // [B*N, H] T
   const long long* idx; // [B*N*K]
-  const void* radial;   // [B*N*K] at element strides s_rad, s_d0, s_km:
-  const void* dist0;    //   float32 with edge_f32, else T
+  const void* radial;   // [B*N*K] T at element strides s_rad, s_d0, s_km
+  const void* dist0;
   const void* kmask;
-  int edge_f32, s_rad, s_d0, s_km;
+  int s_rad, s_d0, s_km;
   const float* we;      // [2, H] at strides (we_s0, we_s1)
   int we_s0, we_s1;
-  const void* w2;       // [H, H] T, [in, out] (or [out, in] with w2_t)
+  const void* w2;       // [H, H] T: [out, in] in memory with mma, else [in, out]
   const float* b2;      // [H]
   const float* att;     // [H]; unused without attention
   const float* att_b;   // [1]
@@ -96,13 +96,7 @@ struct K1Smem {
   }
 };
 
-// Element i of an edge scalar, float32 with f32, else T.
-template <typename T>
-__device__ __forceinline__ float edge_value(const void* p, size_t i, int f32) {
-  return f32 ? static_cast<const float*>(p)[i] : Cvt<T>::to_f(static_cast<const T*>(p)[i]);
-}
-
-template <typename T, bool kMma, bool WT>
+template <typename T, bool kMma>
 __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Params a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   using C = Cvt<T>;
@@ -131,6 +125,9 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
   const T* W2 = static_cast<const T*>(a.w2);
   const T* wi = static_cast<const T*>(a.wi);
   const T* wj = static_cast<const T*>(a.wj);
+  const T* radial = static_cast<const T*>(a.radial);
+  const T* dist0 = static_cast<const T*>(a.dist0);
+  const T* kmask = static_cast<const T*>(a.kmask);
   T* out = static_cast<T*>(a.out);
   StageClock clk(a.stamps);
 
@@ -146,6 +143,9 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
   const int per_sample = (N + R - 1) / R;
   const bf16* resident = nullptr;  // what sm.wsm holds
 
+  // unit w -> (sample, receivers, chunks of edges); the tests walk the
+  // plan the same way (tests/test_torch_egnn_msgpass.py: plan_tiles), so
+  // a change here is made there too
   for (int w = blockIdx.x; w < a.units; w += gridDim.x) {
     int it = w, half = 0;
     if (w >= a.whole) {
@@ -171,13 +171,13 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
         const size_t off = (row0 + r) * K + k0 + (e - r * kc);
         et.eidx[e] = (int)min(max(a.idx[off], 0LL), (long long)N - 1);
         et.ercv[e] = r;
-        et.ekm[e] = edge_value<T>(a.kmask, off * a.s_km, a.edge_f32);
-        et.erad[e] = C::rnd(edge_value<T>(a.radial, off * a.s_rad, a.edge_f32));
-        et.ed0[e] = C::rnd(edge_value<T>(a.dist0, off * a.s_d0, a.edge_f32));
+        et.ekm[e] = C::to_f(kmask[off * a.s_km]);
+        et.erad[e] = C::to_f(radial[off * a.s_rad]);
+        et.ed0[e] = C::to_f(dist0[off * a.s_d0]);
       }
       __syncthreads();
       clk.tick(kEdgeLoad);
-      message_tile<T, kMma, WT>(sm, wi + row0 * H, wj + (size_t)b * N * H, W2, att_b,
+      message_tile<T, kMma, kMma>(sm, wi + row0 * H, wj + (size_t)b * N * H, W2, att_b,
                                 a.attention != 0, E, rv, kc, H, ch == 0,
                                 ch == a.chunks - 1, inv, out + row0 * H, clk);
     }
@@ -187,14 +187,14 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
   clk.write();
 }
 
-template <typename T, bool kMma, bool WT>
+template <typename T, bool kMma>
 static int launch(const K1Params& a, cudaStream_t stream) {
   const size_t smem = K1Smem<T>(a.H, a.rows, kMma).total;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(gcl_message_agg_kernel<T, kMma, WT>,
+  cudaError_t err = cudaFuncSetAttribute(gcl_message_agg_kernel<T, kMma>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gcl_message_agg_kernel<T, kMma, WT><<<a.grid, kThreads, smem, stream>>>(a);
+  gcl_message_agg_kernel<T, kMma><<<a.grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -211,13 +211,11 @@ extern "C" int egnn_msgpass_launch(const K1Params* p, void* stream) {
                         a.grid >= 1 && a.units >= a.whole && a.whole >= 0;
   if (!shape_ok) return (int)cudaErrorInvalidValue;
   if (a.dtype == 0) {
-    if (a.mma || a.w2_t || a.H % 4 || 256 % (a.H / 4)) return (int)cudaErrorInvalidValue;
-    return egnn::launch<float, false, false>(a, s);
+    if (a.mma || a.H % 4 || 256 % (a.H / 4)) return (int)cudaErrorInvalidValue;
+    return egnn::launch<float, false>(a, s);
   }
   if (a.dtype != 1 || a.H % 32 || a.H > 512) return (int)cudaErrorInvalidValue;
-  if (!a.mma) return a.w2_t ? (int)cudaErrorInvalidValue
-                            : egnn::launch<egnn::bf16, false, false>(a, s);
+  if (!a.mma) return egnn::launch<egnn::bf16, false>(a, s);
   if (a.H > 256 || a.rows != 128) return (int)cudaErrorInvalidValue;
-  return a.w2_t ? egnn::launch<egnn::bf16, true, true>(a, s)
-                : egnn::launch<egnn::bf16, true, false>(a, s);
+  return egnn::launch<egnn::bf16, true>(a, s);
 }

@@ -5,9 +5,10 @@ list (counterpart of ``cmdgen_tpu/ops/egnn_msgpass.py:gcl_message_agg``).
 (``csrc/egnn_msgpass.cu``) on CUDA tensors and raises if it cannot; on CPU
 tensors it runs ``gcl_message_agg_plain``, the same function in plain
 PyTorch with the kernel's casts. Weights come in the JAX kernel's layout:
-``we`` [2, H] and ``w2`` [H, H] as [in, out]; the kernel reads the
-transposed views of ``nn.Linear`` weights that the model passes as they
-lie, and the edge scalars as strided views of the model's edge features.
+``we`` [2, H] and ``w2`` [H, H] as [in, out]. The kernel reads the transposed views of
+``nn.Linear`` weights that the model passes as they lie, and the edge
+scalars, in the compute dtype, as strided views of the model's edge
+features; other layouts and dtypes are copied into these.
 """
 from __future__ import annotations
 
@@ -166,12 +167,11 @@ class _Params(ctypes.Structure):
     """csrc/egnn_msgpass.cu: K1Params, field for field."""
 
     _fields_ = [
-        ("dtype", ctypes.c_int), ("mma", ctypes.c_int), ("w2_t", ctypes.c_int),
+        ("dtype", ctypes.c_int), ("mma", ctypes.c_int),
         ("wi", ctypes.c_void_p), ("wj", ctypes.c_void_p),
         ("idx", ctypes.c_void_p),
         ("radial", ctypes.c_void_p), ("dist0", ctypes.c_void_p), ("kmask", ctypes.c_void_p),
-        ("edge_f32", ctypes.c_int), ("s_rad", ctypes.c_int), ("s_d0", ctypes.c_int),
-        ("s_km", ctypes.c_int),
+        ("s_rad", ctypes.c_int), ("s_d0", ctypes.c_int), ("s_km", ctypes.c_int),
         ("we", ctypes.c_void_p), ("we_s0", ctypes.c_int), ("we_s1", ctypes.c_int),
         ("w2", ctypes.c_void_p), ("b2", ctypes.c_void_p), ("att", ctypes.c_void_p),
         ("att_b", ctypes.c_void_p), ("attention", ctypes.c_int),
@@ -194,15 +194,14 @@ def _kernel() -> Callable:
 
 def _edge_view(t: torch.Tensor, name: str, shape, cdt: torch.dtype) -> Tuple[torch.Tensor, int]:
     """An edge scalar [B, N, K] as the kernel reads it: a row-major array
-    at one element stride s (a slice of the model's [B, N, K, 2] edge
-    features qualifies), in float32 or the compute dtype. Returns the
-    tensor (copied only where it is not so) and s."""
+    in the compute dtype at one element stride s (a slice of the model's
+    [B, N, K, 2] edge features qualifies). Returns the tensor (cast or
+    copied only where it is not so) and s."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if t.dtype not in (torch.float32, cdt):
-        t = t.float()
+    t = t.to(cdt)
     s = t.stride(-1)
     _, n, k = shape
     if s < 1 or t.stride() != (n * k * s, k * s, s):
@@ -236,15 +235,14 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
     radial, s_rad = _edge_view(radial, "radial", (b, n, k), cdt)
     dist0, s_d0 = _edge_view(dist0, "dist0", (b, n, k), cdt)
     kmask, s_km = _edge_view(kmask, "kmask", (b, n, k), cdt)
-    if not radial.dtype == dist0.dtype == kmask.dtype:
-        (radial, s_rad), (dist0, s_d0), (kmask, s_km) = (
-            _edge_view(t.float(), name, (b, n, k), torch.float32)
-            for t, name in ((radial, "radial"), (dist0, "dist0"), (kmask, "kmask")))
     we = we.float()
     w2 = w2.to(cdt)  # a cast keeps a transposed view's layout
-    w2_t = mma and w2.stride() == (1, h)
-    if not w2_t:
+    if not mma:
         w2 = w2.contiguous()
+    elif w2.stride() != (1, h):
+        # the mma route reads W2 as [out, in] in memory, an nn.Linear
+        # weight's layout, which the model's transposed view has already
+        w2 = w2.t().contiguous().t()
     w2b = w2b.to(torch.float32).reshape(h).contiguous()
     attention = att is not None
     if attention:
@@ -253,7 +251,7 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
     for t, name, shape, dt in (
         (wi, "wi", (b, n, h), cdt), (wj, "wj", (b, n, h), cdt),
         (idx, "idx", (b, n, k), torch.int64),
-        (w2.t() if w2_t else w2, "w2", (h, h), cdt), (w2b, "w2b", (h,), torch.float32),
+        (w2.t() if mma else w2, "w2", (h, h), cdt), (w2b, "w2b", (h,), torch.float32),
     ) + (((atk, "att kernel", (h,), torch.float32), (atb, "att bias", (1,), torch.float32))
          if attention else ()):
         _check(t, name, shape, dt)
@@ -262,10 +260,10 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
                          f"{tuple(we.shape)} on {we.device}")
     out = torch.empty((b, n, h), dtype=cdt, device=dev)
     p = _Params(
-        dtype=_DTYPE_CODE[cdt], mma=int(mma), w2_t=int(w2_t),
+        dtype=_DTYPE_CODE[cdt], mma=int(mma),
         wi=wi.data_ptr(), wj=wj.data_ptr(), idx=idx.data_ptr(),
         radial=radial.data_ptr(), dist0=dist0.data_ptr(), kmask=kmask.data_ptr(),
-        edge_f32=int(radial.dtype == torch.float32), s_rad=s_rad, s_d0=s_d0, s_km=s_km,
+        s_rad=s_rad, s_d0=s_d0, s_km=s_km,
         we=we.data_ptr(), we_s0=we.stride(0), we_s1=we.stride(1),
         w2=w2.data_ptr(), b2=w2b.data_ptr(),
         att=atk.data_ptr() if attention else None,

@@ -131,7 +131,10 @@ def test_msgpass_flagship_like_shape_matches_jax():
 
 def plan_tiles(plan, n, k):
     """The tiles K1's item loop takes (csrc/egnn_msgpass.cu), in unit order:
-    (sample, first receiver, receivers, first edge, edges)."""
+    (sample, first receiver, receivers, first edge, edges). A copy of that
+    loop's mapping from unit to tile, kept in step with it by hand: the
+    card cases (tests/test_torch_kernels_cuda.py) catch a kernel that
+    drifts from it."""
     rcv, whole, chunk = plan["receivers"], plan["whole"], plan["chunk"]
     per_sample = -(-n // rcv)
     for w in range(plan["units"]):
