@@ -23,10 +23,22 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    share of the wall time and the kernels that take most of it);
 4. runs the ``sample-phars`` CLI entry on the trained ``qrun_aa`` weights
    and a synthetic CA pocket, and holds the trained denoiser on the card
-   against the same denoiser on the CPU.
+   against the same denoiser on the CPU;
+5. the consensus stage: samples 1,024 clouds from ``qrun_aa`` (msgpass
+   engine, K1 counted, T=100, clamp 8), runs ``get-phar`` through the CLI
+   in every method (GMM, KMeans, DBSCAN) and mode (dual-target GMM, DBSCAN
+   and per-molecule; selectivity) on them, each call timed between two
+   synchronizes, checks the output files, recovers a known rigid motion
+   with ``register_clouds``, and holds the clustering and Kabsch functions
+   on the card against the CPU with the same explicit initialisation;
+6. holds stage 1's other options (``sin_embedding``, the GNN mode, the
+   learned noise schedule) on the card against the CPU at the flagship
+   widths in float32, and the chain sampler's sample against
+   ``sample_given_pocket``'s with the same noise, bit for bit.
 
-Prints the card, a ``kernels`` JSON line, the throughput, and as the last
-line ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
+Prints the card, a ``kernels`` JSON line, the throughput, a ``consensus``
+JSON line, and as the last line ``{"ok": true, "device": {...}}``. Any
+failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
 ``--kernels-only`` stops after step 2 and prints the checks as one JSON
 line (no ``ok`` line): the quick way to compare two trees' kernels. Such
@@ -62,6 +74,18 @@ TOL_REL_FUSED = {"float32": {"h": 1e-4, "dx": 1e-4},
 # pocket centroid (with --clamp-x 8, the repo's end-to-end setting)
 RADIUS = 30.0
 B, N_P, N_Q, K, H, L = 48, 8, 110, 12, 256, 5
+# consensus phase: clouds sampled (about 5 points each), card vs CPU limit
+# (relative to max|CPU value|, same explicit initialisation), and the
+# registration's limits on the recovered rotation and translation (Å)
+N_CLOUDS, CONS_T = 1024, 100
+# DBSCAN on raw sampled clouds (Å): the trained model's clouds spread ~9 Å
+# per axis, so 12 neighbours lie within 2 Å only in the denser sites
+DBSCAN_EPS = 2.0
+CONS_REL = 1e-4
+REG_TOL = 1e-3
+# stage 1's options on the card vs the CPU (float32): the trained
+# denoiser's limit
+OPTION_TOL = 1e-3
 
 
 def log(*a):
@@ -479,6 +503,300 @@ def trained_run(dev, repo):
     return launches
 
 
+def rigid_motion():
+    """The known rigid motion between the two targets of the dual mode."""
+    rng = np.random.RandomState(7)
+    q, r = np.linalg.qr(rng.randn(3, 3))
+    q = q @ np.diag(np.sign(np.diag(r)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q, np.array([3.0, -4.0, 2.5])
+
+
+def write_cloud(path, mols):
+    path.write_text(json.dumps(mols))
+
+
+def moved_cloud(mols, fn):
+    """The cloud JSON with every point p replaced by fn(p)."""
+    return {name: {fam: [list(map(float, fn(np.asarray(p, np.float64)))) for p in pts]
+                   for fam, pts in mol.items()} for name, mol in mols.items()}
+
+
+def check_posp(path, centroid, n_lines=None):
+    """A .posp file of known type codes and finite coordinates within RADIUS
+    of the pocket centroid (and n_lines lines where given): its lines."""
+    from cmdgen_tpu_torch.chem.posp import PHAR2IDX
+
+    rows = [ln.split() for ln in Path(path).read_text().strip().splitlines()]
+    types = [r[0] for r in rows]
+    xyz = np.array([[float(v) for v in r[1:]] for r in rows])
+    if not rows or not set(types) <= set(PHAR2IDX) or not np.isfinite(xyz).all():
+        raise AssertionError(f"{path}: malformed consensus {rows}")
+    rmax = float(np.linalg.norm(xyz - centroid, axis=1).max())
+    if rmax > RADIUS:
+        raise AssertionError(f"{path}: a point {rmax:.1f} Å from the pocket centroid")
+    if n_lines is not None and len(rows) != n_lines:
+        raise AssertionError(f"{path}: {len(rows)} lines, expected {n_lines}")
+    return len(rows)
+
+
+def synced_ms(fn):
+    """(result, ms) of one call between two synchronizes."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rel_err(out, ref):
+    """max|out - ref| / max(max|ref|, 1e-30), both on the CPU."""
+    out, ref = out.detach().cpu().double(), ref.detach().cpu().double()
+    return (out - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+def consensus_phase(dev, repo):
+    """Stage 2 on the card: 1,024 clouds from qrun_aa (K1 counted), every
+    get-phar method and mode through the CLI, the registration of a known
+    rigid motion, and the clustering and Kabsch functions on the card held
+    against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.convert import build_model, read_port_checkpoint
+    from cmdgen_tpu_torch.device import make_generator
+    from cmdgen_tpu_torch.ops import clustering as cl
+    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+    from cmdgen_tpu_torch.ops.kabsch import kabsch
+    from cmdgen_tpu_torch.pipeline import get_phar as gp
+    from cmdgen_tpu_torch.pipeline.sample_phars import pocket_point_cloud, sample_phars_to_json
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_pocket_pdb
+
+    out = {"clouds": N_CLOUDS, "ms": {}, "max_errors": {}, "clusters": {}}
+    cfg, params = read_port_checkpoint(repo / "cmdgen_tpu_torch" / "assets" / "qrun_aa")
+    cfg = dataclasses.replace(cfg, ddpm=dataclasses.replace(cfg.ddpm, clamp_x=8.0))
+    model = build_model(cfg, params, dev, "msgpass")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pdb = tmp / "pocket.pdb"
+        pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(0)))
+        coords_q, _ = pocket_point_cloud(pdb, "crossdock", "CA", ref_ligand="L:1")
+        centroid = coords_q.mean(0)
+        cloud = tmp / "cloud.json"
+        gcl_message_agg.launches = 0
+        egnn_forward_fused.launches = 0
+        mols, ms = synced_ms(lambda: sample_phars_to_json(
+            model, pdb, cloud, dataset=cfg.data.dataset,
+            representation=cfg.data.pocket_representation, ref_ligand="L:1",
+            n_samples=N_CLOUDS, timesteps=CONS_T, batch_size=N_CLOUDS,
+            generator=make_generator(dev, 0)))
+        launches = gcl_message_agg.launches
+        want = (CONS_T + 1) * cfg.dynamics.egnn.n_layers * cfg.dynamics.egnn.inv_sublayers
+        if launches != want or egnn_forward_fused.launches:
+            raise AssertionError(f"consensus sampling: K1 launched {launches} times "
+                                 f"(expected {want}), K2 {egnn_forward_fused.launches}")
+        if len(mols) != N_CLOUDS:
+            raise AssertionError(f"{len(mols)} clouds, expected {N_CLOUDS}")
+        coords, fams = gp.load_point_cloud_json(cloud)
+        out.update(points=len(coords), sample_ms=ms, k1_launches=launches)
+        log(f"consensus: {N_CLOUDS} clouds, {len(coords)} points sampled in {ms:.0f} ms "
+            f"(K1 launched {launches} times)")
+
+        # the second target: the first moved by a known rigid motion; the
+        # anti-target: the first with the half x > median moved 50 Å away
+        r_true, t_true = rigid_motion()
+        dual = tmp / "dual.json"
+        write_cloud(dual, moved_cloud(mols, lambda p: r_true @ p + t_true))
+        x_mid = float(np.median(coords[:, 0]))
+        anti = tmp / "anti.json"
+        write_cloud(anti, moved_cloud(mols, lambda p: p + (50.0 if p[0] > x_mid else 0.0)))
+
+        hyp = tmp / "hyp.posp"
+        runs = {
+            "gmm": (["--method", "gmm", "--n-clusters", "7"], [("", 7)]),
+            "kmeans": (["--method", "kmeans", "--n-clusters", "7"], [("", 7)]),
+            "dbscan": (["--method", "dbscan", "--eps", str(DBSCAN_EPS), "--min-samples", "12"],
+                       [("", None)]),
+            "dual_gmm": (["--dual-json", str(dual), "--dual-mode", "gmm",
+                          "--n-clusters", "7"], [(".dual1", 7), (".dual2", 7)]),
+            "dual_dbscan": (["--dual-json", str(dual), "--dual-mode", "dbscan"],
+                            [(".dual1", None), (".dual2", None)]),
+            "dual_indiv": (["--dual-json", str(dual), "--dual-mode", "indiv",
+                            "--n-clusters", "7"], [(".dual_indiv", None)]),
+            "select": (["--select-json", str(anti), "--eps", str(DBSCAN_EPS), "--min-samples", "12"],
+                       [("", None)]),
+        }
+        for name, (args, files) in runs.items():
+            _, ms = synced_ms(lambda: cli.main(["get-phar", str(cloud), str(hyp), *args,
+                                                "--device", str(dev)]))
+            counts = []
+            for suffix, n_lines in files:
+                path = hyp.with_suffix(suffix + ".posp") if suffix else hyp
+                # frame 2 of the dual modes is the moved target's
+                c = r_true @ centroid + t_true if suffix in (".dual2", ".dual_indiv") else centroid
+                counts.append(check_posp(path, c, n_lines))
+                path.unlink()
+            out["ms"][name] = ms
+            out["clusters"][name] = counts
+            log(f"  get-phar {name}: {ms:.1f} ms, lines {counts}")
+
+        moved, r, t = gp.register_clouds(coords, gp.load_point_cloud_json(dual)[0], device=dev)
+        reg = {"rotation": float(np.abs(r - r_true).max()),
+               "translation": float(np.abs(t - t_true).max())}
+        out["max_errors"]["registration"] = reg
+        log(f"  register_clouds: recovered the rigid motion within {reg} (limit {REG_TOL})")
+        if not max(reg.values()) <= REG_TOL:
+            raise AssertionError(f"registration off the known motion: {reg}")
+
+    # the card against the CPU, the same inputs and initialisation
+    x_cpu = torch.from_numpy(coords)
+    x = x_cpu.to(dev)
+    init = cl.kmeanspp(x_cpu, 7, 4, torch.Generator().manual_seed(0))
+    errs, times = {}, {}
+    labels, times["dbscan"] = synced_ms(lambda: cl.dbscan(x, DBSCAN_EPS, 12))
+    t0 = time.perf_counter()
+    labels_cpu = cl.dbscan(x_cpu, DBSCAN_EPS, 12)
+    times["dbscan_cpu"] = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(labels.cpu(), labels_cpu):
+        raise AssertionError("dbscan labels differ between the card and the CPU")
+    km, times["kmeans"] = synced_ms(lambda: cl.kmeans(x, 7, init=init))
+    t0 = time.perf_counter()
+    km_cpu = cl.kmeans(x_cpu, 7, init=init)
+    times["kmeans_cpu"] = (time.perf_counter() - t0) * 1e3
+    errs["kmeans"] = max(rel_err(km.centers, km_cpu.centers), rel_err(km.inertia, km_cpu.inertia))
+    g, times["gmm_fit"] = synced_ms(lambda: cl.gmm_fit(x, 7, init_means=init[0]))
+    t0 = time.perf_counter()
+    g_cpu = cl.gmm_fit(x_cpu, 7, init_means=init[0])
+    times["gmm_fit_cpu"] = (time.perf_counter() - t0) * 1e3
+    errs["gmm_fit"] = max(rel_err(a, b) for a, b in zip(g, g_cpu))
+    gen = torch.Generator().manual_seed(1)
+    p = torch.randn(4096, 8, 3, generator=gen) * 3.0
+    rot = torch.linalg.qr(torch.randn(4096, 3, 3, generator=gen)).Q
+    rot = rot * torch.linalg.det(rot)[:, None, None]  # proper rotations
+    q = p @ rot.mT + torch.randn(4096, 1, 3, generator=gen) * 5.0
+    q = q + 0.1 * torch.randn(q.shape, generator=gen)
+    (r, t), times["kabsch_4096"] = synced_ms(lambda: kabsch(p.to(dev), q.to(dev)))
+    r_cpu, t_cpu = kabsch(p, q)
+    errs["kabsch"] = max(rel_err(r, r_cpu), rel_err(t, t_cpu))
+    out["max_errors"]["card_vs_cpu"] = errs
+    out["library_ms"] = times
+    log(f"  card vs CPU (same init): dbscan labels equal, relative errors {errs} "
+        f"(limit {CONS_REL}); ms {times}")
+    if not max(errs.values()) <= CONS_REL:
+        raise AssertionError(f"consensus functions disagree with the CPU: {errs}")
+    return out
+
+
+def option_models(dev):
+    """Flagship-width (hidden 256, 5 layers, K=12) float32 models with
+    random weights from a seed, one per stage-1 option, each on the CPU and
+    on the card: {option: (cpu model, card model)}."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from cmdgen_tpu_torch.config import ca_config
+    from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
+    from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
+
+    cfg = ca_config()
+    egnn = dataclasses.replace(cfg.dynamics.egnn, neighbor_k=K)
+    variants = {
+        "sin_embedding": (dataclasses.replace(egnn, sin_embedding=True), "egnn_dynamics", {}),
+        "gnn_dynamics": (egnn, "gnn_dynamics", {}),
+        "learned": (egnn, "egnn_dynamics", {"noise_schedule": "learned", "loss_type": "vlb"}),
+    }
+    out = {}
+    for name, (ecfg, mode, ddpm_kw) in variants.items():
+        dyn = EGNNDynamics(dataclasses.replace(cfg.dynamics, egnn=ecfg, mode=mode))
+        seeded_init(dyn, seed=0)
+        ddpm = dataclasses.replace(cfg.ddpm, **ddpm_kw)
+        pair = [ConditionalDDPM(ddpm, copy.deepcopy(dyn).to(d).eval()) for d in ("cpu", dev)]
+        if pair[0].gamma_net is not None:  # the network's layers from a seed
+            g = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for key, prm in pair[0].gamma_net.named_parameters():
+                    if key.startswith("l"):
+                        prm.copy_(torch.randn(prm.shape, generator=g) * 0.5)
+            pair[1].gamma_net.load_state_dict(pair[0].gamma_net.state_dict())
+        out[name] = tuple(pair)
+    return out
+
+
+def options_phase(dev, repo):
+    """Stage 1's options on the card vs the CPU at the flagship widths in
+    float32: three teacher-forced reverse steps each at low t (1/alpha_ts
+    near 1), the same draws for every option. Then the chain sampler
+    against sample_given_pocket."""
+    import torch
+
+    from cmdgen_tpu_torch.containers import mask_from_sizes
+    from cmdgen_tpu_torch.convert import load_port_checkpoint
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+
+    b = 4
+    pocket, _, _ = flagship_geometry(11, b, "cpu")
+    g = torch.Generator().manual_seed(12)
+    phar_mask = mask_from_sizes(torch.tensor([N_P, N_P, 6, 5]), N_P)
+    st = torch.tensor([[20.0, 30.0], [40.0, 50.0], [90.0, 100.0]])
+    draws = [(torch.randn(b, N_P, 11, generator=g) * phar_mask[..., None],
+              torch.randn(b, N_P, 11, generator=g)) for _ in range(st.shape[0])]
+
+    def steps(model, d):
+        """The reverse steps' outputs (z, pocket) on d, concatenated."""
+        sc = model._reverse_scalars(st)
+        outs = []
+        with torch.no_grad():
+            for i, (z, eps) in enumerate(draws):
+                args = (z.to(d), pocket.xh.to(d), sc[i], eps.to(d), phar_mask.to(d),
+                        pocket.mask.to(d))
+                outs += [o.cpu().reshape(-1) for o in model.reverse_step(*args)]
+        return torch.cat(outs)
+
+    errs, launches = {}, {}
+    for name, (m_cpu, m_dev) in option_models(dev).items():
+        ref = steps(m_cpu, "cpu")
+        gcl_message_agg.launches = 0
+        errs[name] = (steps(m_dev, dev) - ref).abs().max().item()
+        launches[name] = gcl_message_agg.launches
+        log(f"option {name}: card vs CPU over 3 reverse steps (flagship widths, float32): "
+            f"max_abs_err={errs[name]:.3e} tol={OPTION_TOL}; K1 launches {launches[name]}")
+    if not all(e <= OPTION_TOL for e in errs.values()):
+        raise AssertionError(f"stage-1 options disagree with the CPU: {errs}")
+    if launches["learned"] != 5 * st.shape[0] or launches["sin_embedding"]:
+        raise AssertionError(f"K1 launches per option {launches}: the learned schedule's "
+                             "GCLs go to K1, sin_embedding's 24-wide ones do not")
+
+    # the chain sampler's sample is sample_given_pocket's with the same noise
+    model, _ = load_port_checkpoint(repo / "cmdgen_tpu_torch" / "assets" / "qrun_aa", dev)
+    pocket = pocket.replace(x=pocket.x.to(dev), h=pocket.h.to(dev), mask=pocket.mask.to(dev))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n_steps, shape = 100, (b, N_P, 11)
+    noise = (torch.randn(shape, generator=gen, device=dev),
+             torch.randn((n_steps, *shape), generator=gen, device=dev),
+             torch.randn(shape, generator=gen, device=dev))
+    nodes = torch.tensor([N_P, N_P, 6, 5], device=dev)
+    phar, pocket_out = model.sample_given_pocket(pocket, nodes, N_P, timesteps=n_steps,
+                                                 noise=noise)
+    cphar, cpocket, frames = model.sample_chain_given_pocket(
+        pocket, nodes, N_P, keep_frames=25, timesteps=n_steps, noise=noise)
+    same = (torch.equal(phar.x, cphar.x) and torch.equal(phar.h, cphar.h)
+            and torch.equal(pocket_out.x, cpocket.x))
+    log(f"chain sampler: frames {tuple(frames.shape)}, sample equal to "
+        f"sample_given_pocket's bit for bit: {same}")
+    if not same or tuple(frames.shape) != (25, b, N_P, 3) or not torch.isfinite(frames).all():
+        raise AssertionError("the chain sampler's sample differs from sample_given_pocket's")
+    return {"card_vs_cpu": errs, "k1_launches": launches,
+            "chain_equal": same, "frames": list(frames.shape)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--timesteps", type=int, default=500,
@@ -495,6 +813,12 @@ def main():
     repo = Path(__file__).resolve().parent
     from cmdgen_tpu_torch.ops import _build
 
+    # the consensus stage's EM products rely on PyTorch's default: float32
+    # matmuls without TF32
+    tf32 = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if tf32 != {"matmul.allow_tf32": False, "float32_matmul_precision": "highest"}:
+        raise AssertionError(f"float32 matmuls default to TF32 here: {tf32}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -521,6 +845,9 @@ def main():
 
     sampling = flagship_sampling(dev, args.timesteps)
     trained = trained_run(dev, repo)
+    consensus = consensus_phase(dev, repo)
+    consensus["options"] = options_phase(dev, repo)
+    consensus["tf32_default"] = tf32
 
     def entry(name, source, replaces, checks, launches):
         main_check = checks[-1]  # bf16, the flagship sampling dtype
@@ -559,6 +886,7 @@ def main():
         "timesteps": args.timesteps, "batch": B,
         "trained_launches": trained, "card": card,
     }))
+    log(json.dumps({"consensus": consensus, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,21 @@
 """Command-line interface of the port (counterpart of ``cmdgen_tpu/cli.py``):
 
   python -m cmdgen_tpu_torch.cli sample-phars CKPT_DIR POCKET.pdb OUT.json \\
-      --ref-ligand A:1 [--device cuda] [--engine msgpass|fused]
+      --ref-ligand A:1 [--device cuda] [--engine msgpass|fused] [--chain-gif G.gif]
+  python -m cmdgen_tpu_torch.cli get-phar OUT.json HYP.posp \\
+      [--method gmm|kmeans|dbscan] [--dual-json T2.json [--dual-mode gmm|dbscan|indiv]]
+      [--select-json ANTI.json] [--device cuda]
 
-Only ``sample-phars`` is ported so far (without ``--chain-gif``). ``CKPT_DIR`` is a port checkpoint
-directory (``params.npz`` + ``config.json``, see ``convert.py``), e.g.
-``cmdgen_tpu_torch/assets/qrun_aa``.
+Stages 1 (``sample-phars``) and 2 (``get-phar``) are ported. ``CKPT_DIR`` is
+a port checkpoint directory (``params.npz`` + ``config.json``, see
+``convert.py``), e.g. ``cmdgen_tpu_torch/assets/qrun_aa``. Every command
+runs on ``cuda`` unless given ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+from pathlib import Path
 from typing import Optional, Sequence
 
 from cmdgen_tpu_torch.device import make_generator
@@ -32,6 +37,8 @@ def _add_sample_phars(sub):
                    help="DDIM reverse chain at this eta (default ancestral)")
     p.add_argument("--clamp-x", type=float, default=None,
                    help="clamp sampled coordinates to +-this (normalized Å)")
+    p.add_argument("--chain-gif", default=None, metavar="PATH",
+                   help="also render one sampling chain as an animated GIF")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--engine", default="msgpass", choices=["msgpass", "fused"],
                    help="msgpass: per-GCL message-pass kernel (K1); fused: "
@@ -63,13 +70,85 @@ def run_sample_phars(args):
         generator=make_generator(model.device, args.seed),
     )
     print(f"wrote {args.out_json}")
+    if args.chain_gif:
+        from cmdgen_tpu_torch.pipeline.sample_phars import pocket_point_cloud
+        from cmdgen_tpu_torch.utils.visualization import render_chain_for_pocket
+
+        coords, onehot = pocket_point_cloud(
+            args.pdbfile, cfg.data.dataset, cfg.data.pocket_representation,
+            args.ref_ligand, args.resi_list)
+        render_chain_for_pocket(
+            model, coords, onehot, args.chain_gif, timesteps=args.timesteps,
+            generator=make_generator(model.device, args.seed + 1))
+        print(f"wrote {args.chain_gif}")
     return result
+
+
+def _add_get_phar(sub):
+    p = sub.add_parser("get-phar", help="consensus clustering -> .posp")
+    p.add_argument("cloud_json")
+    p.add_argument("out_posp")
+    p.add_argument("--method", default="gmm", choices=["gmm", "kmeans", "dbscan"])
+    p.add_argument("--n-clusters", type=int, default=7)
+    p.add_argument("--eps", type=float, default=0.2)
+    p.add_argument("--min-samples", type=int, default=12)
+    p.add_argument("--dual-json", default=None,
+                   help="second target cloud: dual-target mode")
+    p.add_argument("--dual-mode", default="gmm", choices=["gmm", "dbscan", "indiv"],
+                   help="dual-target clusterer: pooled GMM, standardized DBSCAN, "
+                        "or per-set GMM + cross-set merge")
+    p.add_argument("--select-json", default=None,
+                   help="anti-target cloud: selectivity mode")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(run=run_get_phar)
+
+
+def run_get_phar(args):
+    from cmdgen_tpu_torch.device import resolve_device
+    from cmdgen_tpu_torch.pipeline import get_phar as gp
+
+    dev = resolve_device(args.device)
+    coords, fams = gp.load_point_cloud_json(args.cloud_json)
+    if args.dual_json:
+        c2, f2 = gp.load_point_cloud_json(args.dual_json)
+        out = Path(args.out_posp)
+        if args.dual_mode == "indiv":
+            cons = gp.dual_target_consensus_indiv(
+                coords, fams, c2, f2, n_clusters=args.n_clusters, seed=args.seed,
+                device=dev)
+            gp.write_consensus(out.with_suffix(".dual_indiv.posp"), cons)
+            print(f"wrote {out.with_suffix('.dual_indiv.posp')}")
+            return cons
+        cons2, cons1 = gp.dual_target_consensus(
+            coords, fams, c2, f2, n_clusters=args.n_clusters, seed=args.seed,
+            method=args.dual_mode, dbscan_eps=args.eps,
+            dbscan_min_samples=args.min_samples, device=dev)
+        gp.write_consensus(out.with_suffix(".dual1.posp"), cons1)
+        gp.write_consensus(out.with_suffix(".dual2.posp"), cons2)
+        print(f"wrote {out.with_suffix('.dual1.posp')} and .dual2.posp")
+        return cons2, cons1
+    if args.select_json:
+        c2, _ = gp.load_point_cloud_json(args.select_json)
+        cons = gp.selective_consensus(coords, fams, c2, eps=args.eps,
+                                      min_samples=args.min_samples, device=dev)
+    elif args.method == "gmm":
+        cons = gp.consensus_gmm(coords, fams, args.n_clusters, args.seed, device=dev)
+    elif args.method == "kmeans":
+        cons = gp.consensus_kmeans(coords, fams, args.n_clusters, args.seed, device=dev)
+    else:
+        cons = gp.consensus_dbscan(coords, fams, eps=args.eps,
+                                   min_samples=args.min_samples, device=dev)
+    gp.write_consensus(args.out_posp, cons)
+    print(f"wrote {args.out_posp} ({len(cons)} points)")
+    return cons
 
 
 def main(argv: Optional[Sequence[str]] = None):
     parser = argparse.ArgumentParser(prog="cmdgen_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_sample_phars(sub)
+    _add_get_phar(sub)
     args = parser.parse_args(argv)
     return args.run(args)
 

@@ -5,7 +5,9 @@ Only the pharmacophore nodes are diffused; the pocket is fixed context. The
 CoM-free subspace trick subtracts the pharmacophore CoM from both clouds at
 every step. Randomness comes from an explicit ``torch.Generator``, or from
 the caller's noise tensors (``noise=``) so a test can feed both packages the
-same draws.
+same draws. The noise schedule is a fixed gamma table or, for
+``noise_schedule="learned"``, a ``GammaNetwork`` whose weights the model
+holds in ``gamma_net``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from cmdgen_tpu_torch.containers import PointCloud, mask_from_sizes
+from cmdgen_tpu_torch.diffusion.gamma_net import GammaNetwork
+from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
 from cmdgen_tpu_torch.ops import schedules as sch
 from cmdgen_tpu_torch.ops.masked import masked_mean, remove_mean_conditional
@@ -59,20 +63,45 @@ class ConditionalDDPM:
 
     ``dynamics`` is the EGNNDynamics module; ``apply_fn`` overrides its
     forward (e.g. ``models.dynamics.make_fused_apply``) with the same
-    signature.
+    signature. ``size_prior`` gives the sampling stage its node counts.
+    For the learned schedule ``gamma_net`` is a fresh ``GammaNetwork`` on
+    the model's device, to be filled from a checkpoint (``convert.py``).
     """
 
     def __init__(self, cfg: DDPMConfig, dynamics: EGNNDynamics,
-                 apply_fn: Optional[Callable] = None):
-        if cfg.noise_schedule == "learned":
-            raise NotImplementedError("the learned noise schedule is not ported yet")
+                 apply_fn: Optional[Callable] = None,
+                 size_prior: Optional[SizePrior] = None):
         self.cfg = cfg
         self.dynamics = dynamics
         self._apply = apply_fn if apply_fn is not None else dynamics
+        self.size_prior = size_prior
         self.device = next(dynamics.parameters()).device
-        self.gamma = sch.gamma_table(cfg.noise_schedule, cfg.timesteps,
-                                     cfg.noise_precision, device=self.device)
+        if cfg.noise_schedule == "learned":
+            if cfg.loss_type != "vlb":
+                raise ValueError("noise_schedule='learned' requires loss_type='vlb'")
+            self.gamma_net: Optional[GammaNetwork] = GammaNetwork().to(self.device).eval()
+            self.gamma = None
+        else:
+            self.gamma_net = None
+            self.gamma = sch.gamma_table(cfg.noise_schedule, cfg.timesteps,
+                                         cfg.noise_precision, device=self.device)
         self.phar_nf = dynamics.cfg.phar_nf
+
+    def check_norm_values(self, num_stdevs: int = 8):
+        """With discretized-h likelihoods, ``num_stdevs`` sigmas of noise at
+        t=0 must stay below one normalized one-hot unit: raises ValueError
+        when norm_h is too large for the schedule's gamma_0. Skipped for the
+        learned schedule, as the JAX package does (a random-init network's
+        gamma_0 means nothing)."""
+        if self.gamma_net is not None:
+            return
+        sigma_0 = float(sch.sigma(self._gamma0()))
+        if sigma_0 * self.cfg.norm_h * num_stdevs > 1.0:
+            raise ValueError(
+                f"norm_h={self.cfg.norm_h} too large for this noise schedule: "
+                f"{num_stdevs}*sigma_0*norm_h = "
+                f"{sigma_0 * self.cfg.norm_h * num_stdevs:.3f} > 1 - lower norm_h "
+                "or sharpen gamma_0")
 
     # ---------------------------------------------------------------- utils
 
@@ -93,8 +122,12 @@ class ConditionalDDPM:
         return x_phar * mask_phar[..., None], x_pocket * mask_pocket[..., None]
 
     def _gamma_t_norm(self, t_norm: torch.Tensor) -> torch.Tensor:
-        t = torch.as_tensor(t_norm, dtype=torch.float32, device=self.device)
-        return sch.gamma_at(self.gamma, t.clamp(0.0, 1.0))
+        """gamma at normalized time t in [0, 1] (clamped), any shape."""
+        t = torch.as_tensor(t_norm, dtype=torch.float32, device=self.device).clamp(0.0, 1.0)
+        if self.gamma_net is None:
+            return sch.gamma_at(self.gamma, t)
+        with torch.no_grad():
+            return self.gamma_net(t.reshape(-1, 1)).reshape(t.shape)
 
     def _gamma0(self) -> torch.Tensor:
         return self._gamma_t_norm(torch.zeros(()))
@@ -188,6 +221,33 @@ class ConditionalDDPM:
         from ``generator``. Returns (phar, pocket_out) unnormalized;
         pocket_out may be translated relative to the input.
         """
+        phar, pocket_out, _ = self._sample(pocket, num_nodes_phar, n_phar_max,
+                                           timesteps, generator, noise, None)
+        return phar, pocket_out
+
+    @torch.no_grad()
+    def sample_chain_given_pocket(
+        self,
+        pocket: PointCloud,
+        num_nodes_phar: torch.Tensor,
+        n_phar_max: int,
+        keep_frames: int = 100,
+        timesteps: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[PointCloud, PointCloud, torch.Tensor]:
+        """:meth:`sample_given_pocket` that also returns the chain's frames
+        for visualization: (phar, pocket_out, frames [F, B, Np, 3]), the
+        unnormalized coordinates of z after every ``stride``-th reverse
+        step, stride = max(S // keep_frames, 1) over the S steps. The same
+        ``noise`` gives the same sample as ``sample_given_pocket``."""
+        return self._sample(pocket, num_nodes_phar, n_phar_max, timesteps,
+                            generator, noise, keep_frames)
+
+    def _sample(self, pocket, num_nodes_phar, n_phar_max, timesteps, generator,
+                noise, keep_frames):
+        """The reverse chain of both samplers; frames only when
+        ``keep_frames`` is given (else None)."""
         cfg = self.cfg
         nd = cfg.n_dims
         dev = self.device
@@ -214,9 +274,13 @@ class ConditionalDDPM:
             draw(None, 0), mu, pocket.xh, 1.0, phar_mask, pocket.mask)
 
         scalars = self._reverse_scalars(respaced_st_pairs(cfg.timesteps, T))
+        stride = None if keep_frames is None else max(T // keep_frames, 1)
+        frames = []
         for i in range(scalars.shape[0]):
             z_phar, xh_pocket = self.reverse_step(
                 z_phar, xh_pocket, scalars[i], draw(i, 1), phar_mask, pocket.mask)
+            if stride is not None and i % stride == 0:
+                frames.append(self.unnormalize_x(z_phar[..., :nd]))
 
         x_phar, h_phar, x_pocket, h_pocket = self._final_decode(
             z_phar, xh_pocket, phar_mask, pocket.mask, draw(None, 2))
@@ -225,4 +289,4 @@ class ConditionalDDPM:
                 x_phar, x_pocket, phar_mask, pocket.mask)
         phar_out = PointCloud(x=x_phar, h=h_phar * phar_mask[..., None], mask=phar_mask)
         pocket_out = PointCloud(x=x_pocket, h=h_pocket, mask=pocket.mask)
-        return phar_out, pocket_out
+        return phar_out, pocket_out, None if stride is None else torch.stack(frames)

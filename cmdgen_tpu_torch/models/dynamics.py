@@ -9,7 +9,9 @@ displacement.
 ``EGNNDynamics`` is the module (the JAX package's flax path, with the K1
 kernel on the neighbor-list engine); ``make_fused_apply`` is the
 counterpart of ``make_pallas_apply``: the same function with the EGNN
-stack in the K2 kernel.
+stack in the K2 kernel. The ``gnn_dynamics`` mode replaces the EGNN with
+the plain ``GNN``: coordinates go in as node features and the velocities
+are read from the first 3 output channels (not E(3)-equivariant).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cmdgen_tpu_torch.models.egnn import EGNN, EGNNConfig, linear
+from cmdgen_tpu_torch.models.egnn import EGNN, GNN, EGNNConfig, linear
 from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused, fused_params
 from cmdgen_tpu_torch.ops.masked import pair_mask, remove_mean
 
@@ -34,8 +36,7 @@ class DynamicsConfig:
     condition_time: bool = True
     update_pocket_coords: bool = False  # False => conditional model
     edge_cutoff: Optional[float] = 6.0  # Å; None => complete graph
-    # 'egnn_dynamics' | 'gnn_dynamics' (the plain-GNN mode is not ported yet)
-    mode: str = "egnn_dynamics"
+    mode: str = "egnn_dynamics"  # 'egnn_dynamics' | 'gnn_dynamics'
     egnn: EGNNConfig = dataclasses.field(default_factory=EGNNConfig)
 
 
@@ -66,13 +67,16 @@ class EGNNDynamics(nn.Module):
 
     def __init__(self, cfg: DynamicsConfig):
         super().__init__()
-        if cfg.mode != "egnn_dynamics":
-            raise NotImplementedError(f"dynamics mode {cfg.mode!r} is not ported yet")
         self.cfg = cfg
         self.phar_encoder = TypeMLP(cfg.phar_nf, 2 * cfg.phar_nf, cfg.joint_nf)
         self.residue_encoder = TypeMLP(cfg.residue_nf, 2 * cfg.residue_nf, cfg.joint_nf)
         in_nf = cfg.joint_nf + int(cfg.condition_time)
-        self.egnn = EGNN(cfg.egnn, in_nf, cfg.joint_nf + 1)
+        if cfg.mode == "gnn_dynamics":
+            self.gnn = GNN(cfg.egnn, cfg.n_dims + in_nf, cfg.n_dims + in_nf)
+        elif cfg.mode == "egnn_dynamics":
+            self.egnn = EGNN(cfg.egnn, in_nf, cfg.joint_nf + 1)
+        else:
+            raise ValueError(f"unknown dynamics mode {cfg.mode!r}")
         self.phar_decoder = TypeMLP(cfg.joint_nf, 2 * cfg.phar_nf, cfg.phar_nf)
         self.residue_decoder = TypeMLP(cfg.joint_nf, 2 * cfg.residue_nf, cfg.residue_nf)
 
@@ -99,11 +103,9 @@ class EGNNDynamics(nn.Module):
                 [mask_phar, torch.zeros_like(mask_pocket)], dim=-1)
         return h, x, mask, edge_mask, update_coords_mask
 
-    def _outputs(self, h_final, x_final, x, mask, mask_phar, mask_pocket,
-                 decode):
+    def _outputs(self, h_final, vel, mask, mask_phar, mask_pocket, decode):
         cfg = self.cfg
         n_phar = mask_phar.shape[-1]
-        vel = (x_final - x) * mask[..., None]
         if cfg.condition_time:
             h_final = h_final[..., :-1]
         h_out_phar = decode(self.phar_decoder, h_final[:, :n_phar]).float()
@@ -124,10 +126,17 @@ class EGNNDynamics(nn.Module):
 
         h, x, mask, edge_mask, ucm = self._inputs(
             xh_phar, xh_pocket, t, mask_phar, mask_pocket, typed)
-        update_rows = None if self.cfg.update_pocket_coords else xh_phar.shape[-2]
-        h_final, x_final = self.egnn(h, x, edge_mask, mask, ucm, update_rows)
-        return self._outputs(h_final, x_final, x, mask, mask_phar,
-                             mask_pocket, typed)
+        nd = self.cfg.n_dims
+        if self.cfg.mode == "gnn_dynamics":
+            # [x ‖ h] in, [vel ‖ h] out; no update-coords mask, as the
+            # reference (the conditional DDPM never reads pocket eps)
+            out = self.gnn(torch.cat([x.to(h.dtype), h], dim=-1), edge_mask, mask)
+            vel, h_final = out[..., :nd] * mask[..., None], out[..., nd:]
+        else:
+            update_rows = None if self.cfg.update_pocket_coords else xh_phar.shape[-2]
+            h_final, x_final = self.egnn(h, x, edge_mask, mask, ucm, update_rows)
+            vel = (x_final - x) * mask[..., None]
+        return self._outputs(h_final, vel, mask, mask_phar, mask_pocket, typed)
 
 
 def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
@@ -137,6 +146,8 @@ def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
     there. Weights are stacked once, here. Inference only."""
     cfg = dynamics.cfg
     ecfg = cfg.egnn
+    if cfg.mode != "egnn_dynamics" or ecfg.sin_embedding:
+        raise ValueError("the fused engine supports the egnn mode without sin_embedding")
     if ecfg.inv_sublayers != 1:
         raise ValueError("the fused engine supports inv_sublayers=1")
     if ecfg.neighbor_k is None:
@@ -160,7 +171,7 @@ def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
             update_rows=None if cfg.update_pocket_coords else xh_phar.shape[-2],
             compute_dtype=ecfg.compute_dtype,
         )
-        return dynamics._outputs(h_final, x_final, x, mask, mask_phar,
-                                 mask_pocket, f32)
+        return dynamics._outputs(h_final, (x_final - x) * mask[..., None], mask,
+                                 mask_phar, mask_pocket, f32)
 
     return apply_fn

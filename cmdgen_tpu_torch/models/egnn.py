@@ -5,9 +5,14 @@ Two engines, as in the JAX package:
 - dense: every sample is an [N, N] pair block with an edge mask;
 - neighbor list (``neighbor_k``): the K nearest valid edges of each
   receiver, messages on gathered [B, N, K, H] tensors. With sum
-  aggregation the GCL message pass always goes through
-  ``ops.egnn_msgpass.gcl_message_agg`` (the CUDA kernel on the GPU, its
-  plain version on the CPU).
+  aggregation and the two raw edge features (radial, dist0) the GCL
+  message pass goes through ``ops.egnn_msgpass.gcl_message_agg`` (the CUDA
+  kernel on the GPU, its plain version on the CPU), as the JAX package
+  sends only such GCLs to its Pallas kernel; with ``sin_embedding`` (24
+  edge features) it runs in PyTorch.
+
+``GNN`` is the plain (non-equivariant) network of the ``gnn_dynamics``
+mode: GCLs without edge features over the dense adjacency.
 
 Module and parameter names follow the flax tree, so ``convert.py`` maps a
 flax path ``a/b/kernel`` onto ``a.b.weight`` (transposed). The first pair
@@ -16,6 +21,7 @@ layer keeps flax's split into ``w_i``, ``w_j`` and ``w_e``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -39,8 +45,30 @@ class EGNNConfig:
     compute_dtype: torch.dtype = torch.float32
     # fixed-K neighbor-list message passing (None => dense [N,N] pair blocks)
     neighbor_k: Optional[int] = None
-    # not ported yet (off in every shipped config)
+    # sinusoidal distance features instead of raw squared distances
+    # (off in every shipped config)
     sin_embedding: bool = False
+
+
+# SinusoidsEmbeddingNew: max_res 15, min_res 15/2000, div_factor 4 ->
+# 6 geometric frequencies, 12 features. The float32 frequencies are formed
+# on the host, as the JAX package forms them: formed on the GPU they
+# differed from the CPU's in the last bit, and at phases of ~2,600 rad
+# that moved the denoiser's output by ~1e-3 even in float64.
+_SIN_N_FREQ = int(math.log(2000.0, 4.0)) + 1
+_SIN_FREQS = 2.0 * math.pi * (4.0 ** torch.arange(_SIN_N_FREQ)) / 15.0
+
+
+def sinusoids_embedding(d2: torch.Tensor) -> torch.Tensor:
+    """Sin/cos of sqrt(d2) at 6 geometric frequencies: [..., 1] -> [..., 12]."""
+    emb = torch.sqrt(d2 + 1e-8) * _SIN_FREQS.to(d2.device)
+    return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+
+
+def edge_features(cfg: EGNNConfig) -> int:
+    """Width of the EGNN's edge features: (radial, dist0), each raw or
+    sinusoid-embedded."""
+    return 2 * (2 * _SIN_N_FREQ if cfg.sin_embedding else 1)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -92,7 +120,8 @@ class PairFirstLayer(nn.Module):
         super().__init__()
         self.w_i = nn.Linear(in_nf, features, bias=False)
         self.w_j = nn.Linear(in_nf, features)
-        self.w_e = nn.Linear(edge_nf, features, bias=False)
+        if edge_nf:  # the plain GNN's GCLs take no edge features
+            self.w_e = nn.Linear(edge_nf, features, bias=False)
 
     def project(self, h, dtype, rows=None):
         """(w_i h[:rows], w_j h + b) in dtype, without the pair tensor."""
@@ -100,11 +129,13 @@ class PairFirstLayer(nn.Module):
         return linear(hi, self.w_i, dtype), linear(h, self.w_j, dtype)
 
     def forward(self, h, e, dtype, nbr_idx=None, rows=None):
-        """e: [B, R, J, E] edge features -> [B, R, J, H], J = N (dense) or
-        K (gathered at nbr_idx [B, R, K])."""
+        """e: [B, R, J, E] edge features or None -> [B, R, J, H], J = N
+        (dense) or K (gathered at nbr_idx [B, R, K])."""
         wi, wj = self.project(h, dtype, rows)
         wj_pair = wj[:, None, :, :] if nbr_idx is None else gather_rows(wj, nbr_idx)
         out = wi[:, :, None, :] + wj_pair
+        if e is None:
+            return out
         kernel = self.w_e.weight.t().to(dtype)  # [E, H]
         e = e.to(dtype)
         for c in range(e.shape[-1]):
@@ -115,11 +146,11 @@ class PairFirstLayer(nn.Module):
 class GCL(nn.Module):
     """Invariant message-passing sublayer."""
 
-    def __init__(self, cfg: EGNNConfig):
+    def __init__(self, cfg: EGNNConfig, edge_nf: int):
         super().__init__()
         hdim = cfg.hidden_nf
         self.cfg = cfg
-        self.edge_in = PairFirstLayer(hdim, hdim)
+        self.edge_in = PairFirstLayer(hdim, hdim, edge_nf)
         self.edge_out = nn.Linear(hdim, hdim)
         if cfg.attention:
             self.att = nn.Linear(hdim, 1)
@@ -130,7 +161,8 @@ class GCL(nn.Module):
         cfg = self.cfg
         dt = cfg.compute_dtype
         hdim = cfg.hidden_nf
-        if nbr_idx is not None and cfg.aggregation_method == "sum":
+        if (nbr_idx is not None and cfg.aggregation_method == "sum"
+                and edge_attr.shape[-1] == 2):
             wi, wj = self.edge_in.project(h, dt)
             att = (self.att.weight.reshape(hdim), self.att.bias) if cfg.attention else None
             agg = gcl_message_agg(
@@ -162,7 +194,7 @@ class EquivariantUpdate(nn.Module):
         hdim = cfg.hidden_nf
         self.cfg = cfg
         self.coords_range_layer = coords_range_layer
-        self.coord_in = PairFirstLayer(hdim, hdim)
+        self.coord_in = PairFirstLayer(hdim, hdim, edge_features(cfg))
         self.coord_mid = nn.Linear(hdim, hdim)
         self.coord_gate = nn.Linear(hdim, 1, bias=False)
 
@@ -202,7 +234,7 @@ class EquivariantBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         for i in range(cfg.inv_sublayers):
-            self.add_module(f"gcl_{i}", GCL(cfg))
+            self.add_module(f"gcl_{i}", GCL(cfg, edge_features(cfg)))
         self.coord_update = EquivariantUpdate(cfg, coords_range_layer)
 
     def forward(self, h, x, dist0, edge_mask, node_mask, update_coords_mask,
@@ -214,6 +246,8 @@ class EquivariantBlock(nn.Module):
             diff = x[:, :, None, :] - gather_rows(x, nbr_idx)
             radial = (diff ** 2).sum(-1, keepdim=True)
             coord_diff = diff / (torch.sqrt(radial + 1e-8) + cfg.norm_constant)
+        if cfg.sin_embedding:
+            radial = sinusoids_embedding(radial)
         edge_attr = torch.cat([radial.to(cfg.compute_dtype), dist0], dim=-1)
         for i in range(cfg.inv_sublayers):
             h = getattr(self, f"gcl_{i}")(h, edge_attr, edge_mask, nbr_idx)
@@ -236,8 +270,6 @@ class EGNN(nn.Module):
 
     def __init__(self, cfg: EGNNConfig, in_node_nf: int, out_node_nf: int):
         super().__init__()
-        if cfg.sin_embedding:
-            raise NotImplementedError("sin_embedding is not ported yet")
         self.cfg = cfg
         self.embedding = nn.Linear(in_node_nf, cfg.hidden_nf)
         # the reference hands the full coords_range to every block
@@ -257,6 +289,8 @@ class EGNN(nn.Module):
         else:
             nbr_idx = None
             dist0, _ = coord2diff(x)
+        if cfg.sin_embedding:
+            dist0 = sinusoids_embedding(dist0)
         dist0 = dist0.to(dt)
         h = linear(h, self.embedding, dt)
         for i in range(cfg.n_layers):
@@ -267,3 +301,29 @@ class EGNN(nn.Module):
         h = linear(h, self.embedding_out, dt)
         h = h * node_mask[..., None]
         return h.float(), x.float()
+
+
+class GNN(nn.Module):
+    """Plain (non-equivariant) message passing: embedding -> n_layers GCLs
+    without edge features over the dense adjacency -> output Dense.
+
+    forward(h [B,N,D_in], edge_mask [B,N,N], node_mask [B,N])
+      -> [B, N, out_node_nf] float32.
+    """
+
+    def __init__(self, cfg: EGNNConfig, in_node_nf: int, out_node_nf: int):
+        super().__init__()
+        self.cfg = cfg
+        self.embedding = nn.Linear(in_node_nf, cfg.hidden_nf)
+        for i in range(cfg.n_layers):
+            self.add_module(f"gcl_{i}", GCL(cfg, edge_nf=0))
+        self.embedding_out = nn.Linear(cfg.hidden_nf, out_node_nf)
+
+    def forward(self, h, edge_mask, node_mask):
+        dt = self.cfg.compute_dtype
+        h = linear(h, self.embedding, dt)
+        for i in range(self.cfg.n_layers):
+            h = getattr(self, f"gcl_{i}")(h, None, edge_mask)
+            h = h * node_mask[..., None]
+        h = linear(h, self.embedding_out, dt)
+        return (h * node_mask[..., None]).float()

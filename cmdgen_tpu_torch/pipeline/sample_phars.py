@@ -59,9 +59,11 @@ def sample_pharmacophores(
     device; returns the JSON-ready dict.
 
     ``pocket_pad_bucket`` pads the pocket node axis up to a multiple of this
-    granularity (mask-exact). Without a size prior every cloud has 5 nodes
-    unless ``num_nodes`` says otherwise. ``noise``: one (init, chain, final)
-    triple per batch for ``sample_given_pocket``, instead of ``generator``.
+    granularity (mask-exact). Unless ``num_nodes`` gives them, node counts
+    come from the model's size prior, p(n | pocket size), drawn from
+    ``generator``, or are 5 without a prior; either is clipped to
+    [1, n_phar_max]. ``noise``: one (init, chain, final) triple per batch
+    for ``sample_given_pocket``, instead of ``generator``.
     """
     dev = model.device
     nq, nf = pocket_onehot.shape
@@ -87,7 +89,12 @@ def sample_pharmacophores(
         pocket = PointCloud(x=coords_t.expand(b, nq, 3), h=onehot_t.expand(b, nq, nf),
                             mask=mask_row.expand(b, nq))
         if num_nodes is None:
-            nn_ = torch.full((b,), 5, device=dev).clamp(1, n_phar_max)
+            if model.size_prior is None:
+                nn_ = torch.full((b,), 5, device=dev)
+            else:
+                nn_ = model.size_prior.sample_conditional_n1(
+                    torch.full((b,), nq_real, device=dev), generator)
+            nn_ = nn_.clamp(1, n_phar_max)
         else:
             nn_ = torch.as_tensor(np.asarray(num_nodes[done:done + b]), device=dev)
         phar, pocket_out = model.sample_given_pocket(

@@ -1,6 +1,7 @@
-"""The port's ``sample-phars`` CLI on the committed trained weights, on the
-CPU, at a small T: writes the ``{Molecule_i: {family: [[x, y, z], ...]}}``
-schema the consensus stage reads."""
+"""The port's CLI on the CPU: ``sample-phars`` on the committed trained
+weights at a small T (the ``{Molecule_i: {family: [[x, y, z], ...]}}``
+schema the consensus stage reads, and ``--chain-gif``), and ``get-phar``
+in every method and mode on synthetic clouds of four known sites."""
 import json
 import os
 import subprocess
@@ -9,9 +10,14 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
+from cmdgen_tpu_torch import cli
 from cmdgen_tpu_torch.chem.constants import PHAR_DECODER
+from cmdgen_tpu_torch.chem.posp import PHAR2IDX
 from cmdgen_tpu_torch.utils.synthetic import synthetic_pocket_pdb
+
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 CKPT = REPO / "cmdgen_tpu_torch" / "assets" / "qrun_aa"
@@ -36,3 +42,97 @@ def test_cli_sample_phars_cpu(tmp_path, engine):
         assert len(pts) == 5  # no size prior: 5 nodes per cloud
         assert all(len(p) == 3 and all(np.isfinite(p)) for p in pts)
 
+
+
+def test_cli_sample_phars_chain_gif_cpu(tmp_path):
+    pdb = tmp_path / "pocket.pdb"
+    pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(0)))
+    out, gif = tmp_path / "phars.json", tmp_path / "chain.gif"
+    cmd = [sys.executable, "-m", "cmdgen_tpu_torch.cli", "sample-phars", str(CKPT),
+           str(pdb), str(out), "--ref-ligand", "L:1", "--n-samples", "2",
+           "--timesteps", "3", "--clamp-x", "8", "--device", "cpu", "--chain-gif", str(gif)]
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert len(json.loads(out.read_text())) == 2
+    assert gif.read_bytes()[:6] in (b"GIF87a", b"GIF89a") and gif.stat().st_size > 1000
+
+
+SITES = np.array([[0, 0, 0], [6, 0, 0], [0, 6, 0], [3, 3, 5]])
+FAMS = ["Aromatic", "Acceptor", "Donor", "Hydrophobe"]
+
+
+def _cloud_json(path, points, n_mol=30):
+    """A sampling-stage JSON: molecule i holds one point of every site."""
+    data = {f"Molecule_{i}": {fam: [points[s * n_mol + i].tolist()]
+                              for s, fam in enumerate(FAMS)} for i in range(n_mol)}
+    path.write_text(json.dumps(data))
+
+
+def _read_posp(path):
+    lines = [ln.split() for ln in path.read_text().strip().splitlines()]
+    return [ln[0] for ln in lines], np.array([[float(v) for v in ln[1:]] for ln in lines])
+
+
+@pytest.fixture
+def clouds(tmp_path):
+    """Target 1, target 2 (target 1 moved by a known rigid motion) and an
+    anti-target that covers only the first two sites."""
+    rng = np.random.RandomState(0)
+    pts = np.concatenate([s + rng.randn(30, 3) * 0.3 for s in SITES]) + 20.0
+    q, r = np.linalg.qr(rng.randn(3, 3))
+    rot = q @ np.diag(np.sign(np.diag(r)))
+    rot[:, 0] *= np.sign(np.linalg.det(rot))
+    paths = {name: tmp_path / f"{name}.json" for name in ("t1", "t2", "anti")}
+    _cloud_json(paths["t1"], pts)
+    _cloud_json(paths["t2"], pts @ rot.T + np.array([4.0, -2.0, 1.0]))
+    anti = pts.copy()
+    anti[60:] += 50.0  # sites 3 and 4 far away
+    _cloud_json(paths["anti"], anti)
+    return paths
+
+
+@pytest.mark.parametrize("args,n_points", [
+    (["--method", "gmm", "--n-clusters", "4"], 4),
+    (["--method", "kmeans", "--n-clusters", "4"], 4),
+    (["--method", "dbscan", "--eps", "1.0", "--min-samples", "8"], 4),
+])
+def test_cli_get_phar_methods_cpu(tmp_path, clouds, args, n_points):
+    out = tmp_path / "hyp.posp"
+    cli.main(["get-phar", str(clouds["t1"]), str(out), "--device", "cpu", *args])
+    types, centers = _read_posp(out)
+    assert sorted(types) == ["AROM", "HACC", "HDON", "HYBL"] and len(types) == n_points
+    d = np.sqrt(((centers[:, None] - (SITES[None] + 20.0)) ** 2).sum(-1)).min(1)
+    assert d.max() < 0.3
+
+
+@pytest.mark.parametrize("mode,suffixes", [("gmm", [".dual1.posp", ".dual2.posp"]),
+                                           ("dbscan", [".dual1.posp", ".dual2.posp"]),
+                                           ("indiv", [".dual_indiv.posp"])])
+def test_cli_get_phar_dual_target_cpu(tmp_path, clouds, mode, suffixes):
+    out = tmp_path / "hyp.posp"
+    cli.main(["get-phar", str(clouds["t1"]), str(out), "--dual-json", str(clouds["t2"]),
+              "--dual-mode", mode, "--n-clusters", "4", "--device", "cpu"])
+    for suffix in suffixes:
+        types, centers = _read_posp(out.with_suffix(suffix))
+        assert set(types) <= set(PHAR2IDX) and len(types) >= 4
+        assert np.isfinite(centers).all()
+    if mode != "indiv":  # frame 1 holds the sites where target 1 has them
+        _, centers = _read_posp(out.with_suffix(".dual1.posp"))
+        d = np.sqrt(((centers[:, None] - (SITES[None] + 20.0)) ** 2).sum(-1)).min(1)
+        assert d.max() < 0.5
+
+
+def test_cli_get_phar_selectivity_cpu(tmp_path, clouds):
+    out = tmp_path / "sel.posp"
+    cli.main(["get-phar", str(clouds["t1"]), str(out), "--select-json", str(clouds["anti"]),
+              "--eps", "1.0", "--min-samples", "8", "--device", "cpu"])
+    types, _ = _read_posp(out)
+    assert sorted(types) == ["HDON", "HYBL"]  # the sites the anti-target lacks
+
+
+def test_cli_get_phar_defaults_to_cuda(tmp_path, clouds):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["get-phar", str(clouds["t1"]), str(tmp_path / "x.posp")])

@@ -121,7 +121,14 @@ def test_nan_guard_zeroes_velocities():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        TEGNN(TEGNNConfig(sin_embedding=True), 4, 4)
-    with pytest.raises(NotImplementedError):
-        TEGNNDynamics(TDynamicsConfig(mode="gnn_dynamics"))
+    """Every dynamics mode and EGNN option is ported; the fused engine still
+    refuses sin_embedding and the GNN mode (as make_pallas_apply asserts),
+    and an unknown mode raises."""
+    from cmdgen_tpu_torch.models.dynamics import make_fused_apply
+
+    for cfg in (TDynamicsConfig(mode="gnn_dynamics"),
+                TDynamicsConfig(egnn=TEGNNConfig(sin_embedding=True, neighbor_k=4))):
+        with pytest.raises(ValueError, match="fused engine"):
+            make_fused_apply(TEGNNDynamics(cfg))
+    with pytest.raises(ValueError, match="unknown dynamics mode"):
+        TEGNNDynamics(TDynamicsConfig(mode="egnn"))

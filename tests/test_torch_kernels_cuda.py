@@ -277,3 +277,81 @@ def test_kernels_raise_on_unsupported_input(dev):
     args[1] = args[1].cpu()  # wj left on the CPU
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         mp.gcl_message_agg(*args)
+
+
+# ------------------------------------------------------------------------
+# The consensus stage's functions (plain PyTorch, no kernel of their own) on
+# the card against the CPU, from the same explicit initialisation: DBSCAN
+# labels equal, everything else within 1e-4 of max|CPU value| (float32,
+# summation order only; TF32 off).
+
+TOL_CONS = 1e-4
+
+
+def _rel(out, ref):
+    out, ref = out.cpu().double(), ref.double()
+    return (out - ref).abs().max().item() / ref.abs().max().item()
+
+
+def _sites(n_per_site, seed):
+    rng = np.random.RandomState(seed)
+    sites = rng.rand(7, 3) * 16.0
+    return torch.from_numpy(np.concatenate(
+        [s + rng.randn(n_per_site, 3) * 1.2 for s in sites]).astype(np.float32))
+
+
+@pytest.mark.parametrize("n_per_site", [40, 700])
+def test_consensus_functions_card_matches_cpu(dev, n_per_site):
+    from cmdgen_tpu_torch.ops import clustering as cl
+    from cmdgen_tpu_torch.pipeline import get_phar as gp
+
+    x = _sites(n_per_site, seed=n_per_site)
+    xd = x.to(dev)
+    init = cl.kmeanspp(x, 7, 4, torch.Generator().manual_seed(0))
+    assert torch.equal(cl.dbscan(xd, 1.0, 12, row_chunk=1000).cpu(), cl.dbscan(x, 1.0, 12))
+    km, km_cpu = cl.kmeans(xd, 7, init=init), cl.kmeans(x, 7, init=init)
+    assert _rel(km.centers, km_cpu.centers) <= TOL_CONS
+    assert _rel(km.inertia, km_cpu.inertia) <= TOL_CONS
+    g, g_cpu = cl.gmm_fit(xd, 7, init_means=init[0]), cl.gmm_fit(x, 7, init_means=init[0])
+    for name in ("means", "covs", "weights", "log_likelihood"):
+        assert _rel(getattr(g, name), getattr(g_cpu, name)) <= TOL_CONS, name
+    assert _rel(cl.gmm_predict_proba(g, xd), cl.gmm_predict_proba(g_cpu, x)) <= TOL_CONS
+    a, b = x.numpy(), x.numpy()[::3] + 0.5
+    np.testing.assert_allclose(gp.nn_distances(a, b, device=dev),
+                               gp.nn_distances(a, b, device="cpu"), atol=1e-4)
+
+
+@pytest.mark.parametrize("batch,n", [(4096, 8), (64, 500)])
+def test_kabsch_batched_card_matches_cpu(dev, batch, n):
+    from cmdgen_tpu_torch.ops.kabsch import aligned_rmsd, kabsch
+
+    g = torch.Generator().manual_seed(batch)
+    p = torch.randn(batch, n, 3, generator=g) * 3.0
+    rot = torch.linalg.qr(torch.randn(batch, 3, 3, generator=g)).Q
+    rot = rot * torch.linalg.det(rot)[:, None, None]
+    q = p @ rot.mT + torch.randn(batch, 1, 3, generator=g) * 5.0
+    q = q + 0.1 * torch.randn(q.shape, generator=g)
+    q[0, :, 2] *= -1  # one reflected pair
+    r, t = kabsch(p.to(dev), q.to(dev))
+    r_cpu, t_cpu = kabsch(p, q)
+    assert _rel(r, r_cpu) <= TOL_CONS and _rel(t, t_cpu) <= TOL_CONS
+    assert torch.allclose(torch.linalg.det(r).cpu(), torch.ones(batch), atol=1e-4)
+    assert _rel(aligned_rmsd(p.to(dev), q.to(dev)), aligned_rmsd(p, q)) <= TOL_CONS
+
+
+def test_sinusoids_embedding_card_matches_cpu(dev):
+    """The sin_embedding features on the card and on the CPU over the 6 Å
+    cutoff's squared distances. In float64 they agree to rounding: the
+    float32 frequencies (up to 429 rad/Å) are the same on both (formed on
+    the card, they differed from the CPU's in the last bit).
+    In float32 one ulp of d, which the two devices' sqrt may round apart,
+    moves a phase by up to f_max * ulp(d): that bound, twice, is the limit."""
+    from cmdgen_tpu_torch.models.egnn import _SIN_FREQS, sinusoids_embedding
+
+    d2 = torch.linspace(0.0, 36.0, 20001, dtype=torch.float64)[:, None]
+    out = sinusoids_embedding(d2.to(dev)).cpu()
+    assert (out - sinusoids_embedding(d2)).abs().max().item() <= 1e-9
+    d2 = d2.float()
+    bound = 2 * _SIN_FREQS.max().item() * torch.finfo(torch.float32).eps * 6.0
+    out = sinusoids_embedding(d2.to(dev)).cpu()
+    assert (out - sinusoids_embedding(d2)).abs().max().item() <= bound
