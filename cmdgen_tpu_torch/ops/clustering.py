@@ -139,18 +139,22 @@ def gmm_predict(gmm: GMMResult, x: torch.Tensor) -> torch.Tensor:
     return gmm_predict_proba(gmm, x).argmax(1)
 
 
-def dbscan(x: torch.Tensor, eps: float, min_samples: int,
-           row_chunk: int = 4096) -> torch.Tensor:
+# rows of DBSCAN's float distances formed at a time: [4096, N] float32
+# beside the [N, N] bool adjacency
+DBSCAN_ROW_CHUNK = 4096
+
+
+def dbscan(x: torch.Tensor, eps: float, min_samples: int) -> torch.Tensor:
     """DBSCAN by dense adjacency and min-label propagation.
 
     Returns labels [N] int64, -1 for noise (sklearn's convention). A
     cluster's id is the minimum index among its core points. The [N, N]
     temporaries are bool and int32; the float distances are formed
-    ``row_chunk`` rows at a time. The propagation loop reads one flag from
-    the device per round and stops when no label changed."""
+    ``DBSCAN_ROW_CHUNK`` rows at a time. The propagation loop reads one
+    flag from the device per round and stops when no label changed."""
     n = x.shape[0]
-    adj = torch.cat([sq_dists(x[i:i + row_chunk], x) <= eps * eps
-                     for i in range(0, n, row_chunk)])
+    adj = torch.cat([sq_dists(x[i:i + DBSCAN_ROW_CHUNK], x) <= eps * eps
+                     for i in range(0, n, DBSCAN_ROW_CHUNK)])
     core = adj.sum(1) >= min_samples  # the count includes the point itself
     core_adj = adj & core[:, None] & core[None, :]
     idx = torch.arange(n, dtype=torch.int32, device=x.device)

@@ -48,12 +48,9 @@ def test_cli_sample_phars_chain_gif_cpu(tmp_path):
     pdb = tmp_path / "pocket.pdb"
     pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(0)))
     out, gif = tmp_path / "phars.json", tmp_path / "chain.gif"
-    cmd = [sys.executable, "-m", "cmdgen_tpu_torch.cli", "sample-phars", str(CKPT),
-           str(pdb), str(out), "--ref-ligand", "L:1", "--n-samples", "2",
-           "--timesteps", "3", "--clamp-x", "8", "--device", "cpu", "--chain-gif", str(gif)]
-    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
-                       env={**os.environ, "OMP_NUM_THREADS": "1"})
-    assert r.returncode == 0, r.stderr[-3000:]
+    cli.main(["sample-phars", str(CKPT), str(pdb), str(out), "--ref-ligand", "L:1",
+              "--n-samples", "2", "--timesteps", "3", "--clamp-x", "8", "--device", "cpu",
+              "--chain-gif", str(gif)])
     assert len(json.loads(out.read_text())) == 2
     assert gif.read_bytes()[:6] in (b"GIF87a", b"GIF89a") and gif.stat().st_size > 1000
 

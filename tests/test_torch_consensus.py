@@ -122,11 +122,18 @@ def test_kmeans_from_jax_init_matches_jax(k):
     np.testing.assert_allclose(best.centers.numpy(), np.asarray(ref.centers), **TOL)
 
 
-def test_gmm_fit_from_jax_init_matches_jax():
+@pytest.fixture(scope="module")
+def jax_gmm():
+    """(cloud, JAX's init means, JAX's 100-round fit from them): one JAX
+    fit shared by the GMM tests."""
     x = _overlapping(1)
     key = jax.random.PRNGKey(3)
     init = np.asarray(jcl.gmm_fit(key, jnp.asarray(x), 4, iters=0).means)
-    ref = jcl.gmm_fit(key, jnp.asarray(x), 4, iters=100)
+    return x, init, jcl.gmm_fit(key, jnp.asarray(x), 4, iters=100)
+
+
+def test_gmm_fit_from_jax_init_matches_jax(jax_gmm):
+    x, init, ref = jax_gmm
     out = cl.gmm_fit(_t(x), 4, iters=100, init_means=_t(init))
     for name in ("means", "covs", "weights", "log_likelihood"):
         np.testing.assert_allclose(getattr(out, name).numpy(),
@@ -135,9 +142,9 @@ def test_gmm_fit_from_jax_init_matches_jax():
                                np.asarray(jcl.gmm_predict_proba(ref, jnp.asarray(x))), **TOL)
 
 
-def test_gmm_predict_proba_on_one_shared_gmm():
-    x = _overlapping(2)
-    g = jcl.gmm_fit(jax.random.PRNGKey(0), jnp.asarray(x), 3, iters=20)
+def test_gmm_predict_proba_on_one_shared_gmm(jax_gmm):
+    _, _, g = jax_gmm
+    x = _overlapping(2)  # other points than the fit's
     tg = cl.GMMResult(*[_t(np.asarray(v)) for v in g])
     proba = cl.gmm_predict_proba(tg, _t(x)).numpy()
     np.testing.assert_allclose(proba, np.asarray(jcl.gmm_predict_proba(g, jnp.asarray(x))),
@@ -159,10 +166,11 @@ def _dbscan_cloud(seed=4):
 
 
 @pytest.mark.parametrize("eps,min_samples", [(0.6, 5), (1.0, 8), (0.3, 3)])
-def test_dbscan_labels_equal_jax(eps, min_samples):
+def test_dbscan_labels_equal_jax(eps, min_samples, monkeypatch):
+    monkeypatch.setattr(cl, "DBSCAN_ROW_CHUNK", 37)  # cross the row chunks' seams
     x = _dbscan_cloud()
     ref = np.asarray(jcl.dbscan(jnp.asarray(x), eps, min_samples))
-    out = cl.dbscan(_t(x), eps, min_samples, row_chunk=37).numpy()
+    out = cl.dbscan(_t(x), eps, min_samples).numpy()
     np.testing.assert_array_equal(out, ref)
     assert (out == -1).any() and len(set(out.tolist()) - {-1}) >= 2
 

@@ -301,14 +301,15 @@ def _sites(n_per_site, seed):
 
 
 @pytest.mark.parametrize("n_per_site", [40, 700])
-def test_consensus_functions_card_matches_cpu(dev, n_per_site):
+def test_consensus_functions_card_matches_cpu(dev, n_per_site, monkeypatch):
     from cmdgen_tpu_torch.ops import clustering as cl
     from cmdgen_tpu_torch.pipeline import get_phar as gp
 
+    monkeypatch.setattr(cl, "DBSCAN_ROW_CHUNK", 1000)  # cross the row chunks' seams
     x = _sites(n_per_site, seed=n_per_site)
     xd = x.to(dev)
     init = cl.kmeanspp(x, 7, 4, torch.Generator().manual_seed(0))
-    assert torch.equal(cl.dbscan(xd, 1.0, 12, row_chunk=1000).cpu(), cl.dbscan(x, 1.0, 12))
+    assert torch.equal(cl.dbscan(xd, 1.0, 12).cpu(), cl.dbscan(x, 1.0, 12))
     km, km_cpu = cl.kmeans(xd, 7, init=init), cl.kmeans(x, 7, init=init)
     assert _rel(km.centers, km_cpu.centers) <= TOL_CONS
     assert _rel(km.inertia, km_cpu.inertia) <= TOL_CONS

@@ -18,6 +18,7 @@ its float64 value on random inits. So the port's module is held against a
 float64 evaluation of the same algebra at 1e-9, and its float32 gamma
 against the JAX package's at atol 1e-3 (``GAMMA_TOL``)."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -75,19 +76,25 @@ def _config(egnn=None, mode="egnn_dynamics", timesteps=10, schedule="polynomial_
         ddpm=DDPMConfig(timesteps=timesteps, noise_schedule=schedule, loss_type=loss))
 
 
+@functools.lru_cache(maxsize=None)
+def _dynamics_params(dynamics_cfg, seed):
+    """The flax dynamics' initial variables, initialised once per
+    configuration and seed."""
+    b = 2
+    return EGNNDynamics(dynamics_cfg).init(
+        jax.random.PRNGKey(seed), jnp.zeros((b, N_P, 11)), jnp.zeros((b, N_Q, 3 + RES_NF)),
+        jnp.zeros((b, 1)), jnp.ones((b, N_P)), jnp.ones((b, N_Q)))
+
+
 def _pair(*args, size_histogram=None, seed=4, **kwargs):
     """(JAX model, its params, the port's model from ``build_model``) for
     one small DiffPhar configuration (``_config``); params hold the gamma
     network's subtree for the learned schedule."""
     cfg = _config(*args, **kwargs)
     schedule = cfg.ddpm.noise_schedule
-    jdyn = EGNNDynamics(cfg.dynamics)
     prior = None if size_histogram is None else JSizePrior(size_histogram)
-    jmodel = JConditionalDDPM(cfg.ddpm, jdyn, prior)
-    b = 2
-    params = jdyn.init(jax.random.PRNGKey(seed), jnp.zeros((b, N_P, 11)),
-                       jnp.zeros((b, N_Q, 3 + RES_NF)), jnp.zeros((b, 1)),
-                       jnp.ones((b, N_P)), jnp.ones((b, N_Q)))
+    jmodel = JConditionalDDPM(cfg.ddpm, EGNNDynamics(cfg.dynamics), prior)
+    params = _dynamics_params(cfg.dynamics, seed)
     params = jmodel.init_extra_params(jax.random.PRNGKey(seed + 1), params)
     if schedule == "learned":  # move the endpoints off their initial values
         gp = dict(params["params"]["gamma_net"])
