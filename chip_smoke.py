@@ -35,12 +35,22 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    against the CPU with the same explicit initialisation;
 6. holds stage 1's other options (``sin_embedding``, the GNN mode, the
    learned noise schedule) on the card against the CPU at the flagship
-   widths in float32, and the chain sampler's sample against
-   ``sample_given_pocket``'s with the same noise, bit for bit.
+   widths in float32, and the chain sampler (the reference's: ancestral
+   whatever ``ddim_eta`` is) on the card against the CPU, and under
+   ``ddim_eta`` against the ancestral chain, bit for bit;
+7. stage 3, GCPG decode: the trained ``grun_r5cn`` weights decode the
+   consensus phase's GMM hypothesis at B=512 (run-all's decode batch),
+   sampled at T=1, unconstrained, constrained and with the valence state
+   machine (first call timed apart from three warm ones; decode positions/s,
+   valid SMILES/s, validity, uniqueness); the default ``GCPGModelConfig()``
+   width with seeded random weights, timed; card against CPU at B=16 at
+   both widths (teacher-forced logits, greedy and sampled tokens on the same
+   Gumbel noise, rows apart only at counted near ties); a profile of one
+   warm decode; the ``generate`` CLI once through.
 
 Prints the card, a ``kernels`` JSON line, the throughput, a ``consensus``
-JSON line, and as the last line ``{"ok": true, "device": {...}}``. Any
-failure raises (exit code != 0).
+JSON line, a ``decode`` JSON line, and as the last line ``{"ok": true,
+"device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
 ``--kernels-only`` stops after step 2 and prints the checks as one JSON
 line (no ``ok`` line): the quick way to compare two trees' kernels. Such
@@ -87,6 +97,18 @@ CONS_REL = 1e-4
 REG_TOL = 1e-3
 # get-phar calls timed after each method's first call
 WARM_CALLS = 3
+# K1's launches in the flagship msgpass run at the default T=500: (T + 1)
+# denoiser calls of 5 GCLs each; the width rule must not send any away
+K1_FLAGSHIP_LAUNCHES = 2505
+# stage 3: run-all's decode batch; rows held card vs CPU; the validity below
+# which the constrained trained decode is garbage (the JAX package read
+# 0.90-0.91 on real pockets); logits card vs CPU relative to max|CPU|;
+# a row's tokens may part only where the CPU's top two scores lie closer
+DECODE_B = 512
+DECODE_CHECK_B = 16
+DECODE_VALID_MIN = 0.5
+DECODE_LOGIT_REL = 1e-4
+DECODE_TIE = 1e-3
 # stage 1's options on the card vs the CPU (float32): the trained
 # denoiser's limit
 OPTION_TOL = 1e-3
@@ -371,14 +393,15 @@ def device_profile(fn, reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    by_name = {}
+    by_name, events = {}, 0
     for e in prof.events():
         if e.device_type.name == "CUDA":
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+            events += 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
-            "top_kernels_ms": {k[:60]: v for k, v in top}}
+            "device_ops": events / reps, "top_kernels_ms": {k[:60]: v for k, v in top}}
 
 
 def flagship_sampling(dev, timesteps):
@@ -478,8 +501,11 @@ def trained_run(dev, repo):
             if rmax > RADIUS:
                 raise AssertionError(f"{engine}: a point {rmax:.1f} Å from the pocket centroid")
             used = "gcl_message_agg" if engine == "msgpass" else "egnn_forward_fused"
-            if launches[engine][used] == 0:
-                raise AssertionError(f"{engine}: {used} never launched")
+            # 24 samples in one batch, T=100: 101 denoiser calls of 3 GCLs
+            want = 101 * 3 if engine == "msgpass" else 101
+            if launches[engine][used] != want:
+                raise AssertionError(f"{engine}: {used} launched {launches[engine][used]} "
+                                     f"times, expected {want}")
             log(f"trained sample-phars {engine}: 24 molecules, {len(pts)} points, "
                 f"families {sorted(fams)}, max {rmax:.2f} Å from the pocket centroid "
                 f"(limit {RADIUS}), {dt:.2f} s, launches={launches[engine]}")
@@ -567,12 +593,13 @@ def rel_err(out, ref):
     return (out - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
 
 
-def consensus_phase(dev, repo):
+def consensus_phase(dev, repo, keep_posp):
     """Stage 2 on the card: 1,024 clouds from qrun_aa (K1 counted), every
     get-phar method and mode through the CLI (each method's first call and
     its warm calls timed apart), a warm call in parts, the registration of
     a known rigid motion between clouds of unequal sizes, and the
-    clustering and Kabsch functions on the card held against the CPU."""
+    clustering and Kabsch functions on the card held against the CPU. The
+    GMM hypothesis of the first call is copied to ``keep_posp``."""
     import dataclasses
 
     import torch
@@ -652,6 +679,8 @@ def consensus_phase(dev, repo):
                 _, ms = synced_ms(lambda: cli.main(["get-phar", str(cloud), str(hyp), *args,
                                                     "--device", str(dev)]))
                 counts = []
+                if name == "gmm" and i == 0:
+                    keep_posp.write_text(hyp.read_text())
                 for suffix, n_lines in files:
                     path = hyp.with_suffix(suffix + ".posp") if suffix else hyp
                     # frame 2 of the dual modes is the moved target's
@@ -793,12 +822,14 @@ def option_models(dev):
 def options_phase(dev, repo):
     """Stage 1's options on the card vs the CPU at the flagship widths in
     float32: three teacher-forced reverse steps each at low t (1/alpha_ts
-    near 1), the same draws for every option. Then the chain sampler
-    against sample_given_pocket."""
+    near 1), the same draws for every option. Then the chain sampler on
+    the trained weights, card vs CPU and under ddim_eta."""
+    import dataclasses
+
     import torch
 
     from cmdgen_tpu_torch.containers import mask_from_sizes
-    from cmdgen_tpu_torch.convert import load_port_checkpoint
+    from cmdgen_tpu_torch.convert import build_model, read_port_checkpoint
     from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
 
     b = 4
@@ -834,27 +865,193 @@ def options_phase(dev, repo):
         raise AssertionError(f"K1 launches per option {launches}: the learned schedule's "
                              "GCLs go to K1, sin_embedding's 24-wide ones do not")
 
-    # the chain sampler's sample is sample_given_pocket's with the same noise
-    model, _ = load_port_checkpoint(repo / "cmdgen_tpu_torch" / "assets" / "qrun_aa", dev)
-    pocket = pocket.replace(x=pocket.x.to(dev), h=pocket.h.to(dev), mask=pocket.mask.to(dev))
-    gen = torch.Generator(device=dev).manual_seed(13)
-    n_steps, shape = 100, (b, N_P, 11)
-    noise = (torch.randn(shape, generator=gen, device=dev),
-             torch.randn((n_steps, *shape), generator=gen, device=dev),
-             torch.randn(shape, generator=gen, device=dev))
-    nodes = torch.tensor([N_P, N_P, 6, 5], device=dev)
-    phar, pocket_out = model.sample_given_pocket(pocket, nodes, N_P, timesteps=n_steps,
-                                                 noise=noise)
-    cphar, cpocket, frames = model.sample_chain_given_pocket(
-        pocket, nodes, N_P, keep_frames=25, timesteps=n_steps, noise=noise)
-    same = (torch.equal(phar.x, cphar.x) and torch.equal(phar.h, cphar.h)
-            and torch.equal(pocket_out.x, cpocket.x))
-    log(f"chain sampler: frames {tuple(frames.shape)}, sample equal to "
-        f"sample_given_pocket's bit for bit: {same}")
-    if not same or tuple(frames.shape) != (25, b, N_P, 3) or not torch.isfinite(frames).all():
-        raise AssertionError("the chain sampler's sample differs from sample_given_pocket's")
-    return {"card_vs_cpu": errs, "k1_launches": launches,
-            "chain_equal": same, "frames": list(frames.shape)}
+    # the chain sampler (the reference's): on the card against the CPU with
+    # the same noise, and under ddim_eta the ancestral chain, bit for bit
+    cfg, params = read_port_checkpoint(repo / "cmdgen_tpu_torch" / "assets" / "qrun_aa")
+    nodes = torch.tensor([N_P, N_P, 6, 5])
+    gen = torch.Generator().manual_seed(13)
+    n_steps, shape = 10, (b, N_P, 11)
+    noise = (torch.randn(shape, generator=gen), torch.randn((n_steps, *shape), generator=gen),
+             torch.randn(shape, generator=gen))
+    chains = {}
+    for name, d, eta in (("cpu", "cpu", None), ("card", dev, None), ("card_ddim", dev, 0.0)):
+        model = build_model(dataclasses.replace(
+            cfg, ddpm=dataclasses.replace(cfg.ddpm, ddim_eta=eta)), params, d)
+        pk = pocket.replace(x=pocket.x.to(d), h=pocket.h.to(d), mask=pocket.mask.to(d))
+        phar, _, frames = model.sample_chain_given_pocket(
+            pk, nodes.to(d), N_P, keep_frames=5, timesteps=n_steps,
+            noise=tuple(v.to(d) for v in noise))
+        chains[name] = (phar.x.cpu(), phar.h.cpu(), frames.cpu())
+    (x, h, frames), (cx, ch, cframes) = chains["card"], chains["cpu"]
+    chain_err = max((frames - cframes).abs().max().item(), (x - cx).abs().max().item())
+    same_h = torch.equal(h, ch)
+    ancestral = all(torch.equal(u, v) for u, v in zip(chains["card_ddim"], chains["card"]))
+    log(f"chain sampler ({n_steps} steps, qrun_aa): frames {tuple(frames.shape)}, card vs CPU "
+        f"max_abs_err={chain_err:.3e} tol={OPTION_TOL}, types equal: {same_h}; under "
+        f"ddim_eta=0 equal to the ancestral chain bit for bit: {ancestral}")
+    if (chain_err > OPTION_TOL or not same_h or not ancestral
+            or tuple(frames.shape) != (5, b, N_P, 3) or not torch.isfinite(frames).all()):
+        raise AssertionError("the chain sampler disagrees with the CPU or follows ddim_eta")
+    return {"card_vs_cpu": errs, "k1_launches": launches, "chain_card_vs_cpu": chain_err,
+            "chain_ancestral_under_ddim": ancestral, "frames": list(frames.shape)}
+
+
+def seeded_gcpg(cfg, vocab, seed):
+    """A decode-only GCPG with random weights from a seed (seeded_init for
+    the Linear layers, a seeded normal embedding)."""
+    import torch
+
+    from cmdgen_tpu_torch.models.gcpg import GCPG
+
+    torch.manual_seed(seed)
+    model = GCPG(cfg, vocab, training_modules=False)
+    seeded_init(model, seed)
+    return model.eval()
+
+
+def decode_stats(tok, tokens):
+    """(validity, uniqueness among the valid, valid count) of decoded rows."""
+    from cmdgen_tpu_torch.chem.mol import canonical_smiles, mol_from_smiles
+
+    texts = tok.get_text(tokens.cpu().numpy())
+    valid = [s for s in texts if mol_from_smiles(s) is not None]
+    unique = {canonical_smiles(s) for s in valid}
+    return len(valid) / len(texts), len(unique) / max(len(valid), 1), len(valid)
+
+
+def decode_phase(dev, repo, posp):
+    """Stage 3 on the card: the trained grun_r5cn decode of a consensus
+    hypothesis at B=512 in three modes, the default width timed, card vs
+    CPU at B=16, a profile of one warm decode and the generate CLI."""
+    import copy
+    import random
+
+    import torch
+
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.chem.mol import canonical_smiles
+    from cmdgen_tpu_torch.chem.posp import load_posp
+    from cmdgen_tpu_torch.chem.tokenizer import syntax_tables
+    from cmdgen_tpu_torch.config import GCPGModelConfig
+    from cmdgen_tpu_torch.convert import load_port_gcpg
+    from cmdgen_tpu_torch.models.gcpg import generate, sample_gumbel
+    from cmdgen_tpu_torch.pipeline.generate_smiles import condition_grid
+
+    grun = repo / "cmdgen_tpu_torch" / "assets" / "grun_r5cn"
+    model, tok = load_port_gcpg(grun, dev)
+    tables = torch.from_numpy(syntax_tables(tok))
+    graph = [torch.from_numpy(a) for a in load_posp(posp, random.Random(0))]
+    cond = torch.from_numpy(condition_grid()[0])
+
+    def inputs(b, d):
+        return [v.to(d).expand(b, *v.shape) for v in (*graph, cond)]
+
+    modes = {"free": dict(), "constrain": dict(constraints=tables),
+             "constrain_valence": dict(constraints=tables, valence=True)}
+    out = {"batch": DECODE_B, "hypothesis_points": int(graph[2].sum()), "grun_r5cn": {},
+           "card_vs_cpu": {}}
+
+    def timed(m, mode_kw, seed):
+        """The first call and three warm calls of a sampled decode at B=512:
+        (every call's tokens, first ms, warm ms)."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = inputs(DECODE_B, dev)
+        calls = [synced_ms(lambda: generate(m, *x, random_sample=True, generator=gen,
+                                            **mode_kw)) for _ in range(1 + WARM_CALLS)]
+        return [c[0] for c in calls], calls[0][1], [c[1] for c in calls[1:]]
+
+    positions = DECODE_B * (model.cfg.max_len - 1)
+    for i, (name, kw) in enumerate(modes.items()):
+        toks, first, warm = timed(model, kw, seed=i)
+        validity, uniqueness, n_valid = decode_stats(tok, torch.cat(toks))
+        ms = float(np.median(warm))
+        rec = {"first_ms": first, "warm_ms": warm, "ms": ms,
+               "positions_per_s": positions / ms * 1e3,
+               "valid_smiles_per_s": validity * DECODE_B / ms * 1e3,
+               "validity": validity, "uniqueness": uniqueness, "decoded": len(toks) * DECODE_B}
+        out["grun_r5cn"][name] = rec
+        log(f"decode grun_r5cn {name}: B={DECODE_B} first call {first:.1f} ms, warm "
+            f"{[round(v, 1) for v in warm]} ms, {rec['positions_per_s']:.0f} positions/s, "
+            f"{rec['valid_smiles_per_s']:.0f} valid SMILES/s, validity {validity:.4f}, "
+            f"uniqueness {uniqueness:.4f} over {rec['decoded']} rows")
+    if out["grun_r5cn"]["constrain_valence"]["validity"] < DECODE_VALID_MIN:
+        raise AssertionError(f"constrained trained decode: validity "
+                             f"{out['grun_r5cn']['constrain_valence']['validity']} < "
+                             f"{DECODE_VALID_MIN}")
+
+    wide_cfg = GCPGModelConfig()
+    wide = seeded_gcpg(wide_cfg, len(tok), seed=3).to(dev)
+    _, first, warm = timed(wide, modes["constrain_valence"], seed=5)
+    ms = float(np.median(warm))
+    out["default_width"] = {"first_ms": first, "warm_ms": warm, "ms": ms,
+                            "positions_per_s": DECODE_B * (wide_cfg.max_len - 1) / ms * 1e3}
+    log(f"decode default width (hidden 384, 8 layers, max_len 128, random weights): "
+        f"B={DECODE_B} first call {first:.1f} ms, warm {[round(v, 1) for v in warm]} ms")
+
+    # the card against the CPU at B=16: the same z and Gumbel noise
+    cpu_models = {"grun_r5cn": load_port_gcpg(grun, "cpu")[0],
+                  "default_width": copy.deepcopy(wide).cpu()}
+    dev_models = {"grun_r5cn": model, "default_width": wide}
+    b = DECODE_CHECK_B
+    for name, m_cpu in cpu_models.items():
+        m_dev = dev_models[name]
+        g = torch.Generator().manual_seed(17)
+        z = torch.randn(b, m_cpu.cfg.hidden_dim, generator=g)
+        noise = sample_gumbel((m_cpu.cfg.max_len - 1, b, len(tok)), g)
+        rec = {"tie_rows": {}}
+        for kind in ("greedy", "sampled"):
+            kw = dict(random_sample=kind == "sampled", z=z, gumbel=noise, **modes["constrain_valence"])
+            ref, gaps = generate(m_cpu, *inputs(b, "cpu"), return_gaps=True, **kw)
+            got = generate(m_dev, *inputs(b, dev),
+                           **{k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()}).cpu()
+            ties = 0
+            for r in np.flatnonzero((got != ref).any(dim=1).numpy()):
+                t = int(np.flatnonzero((got[r] != ref[r]).numpy())[0])
+                if not gaps[r, t] < DECODE_TIE:
+                    raise AssertionError(f"decode {name} {kind}: row {r} parts at step {t + 1} "
+                                         f"where the CPU's top-two gap is {gaps[r, t]:.3e}")
+                ties += 1
+            rec["tie_rows"][kind] = ties
+            if kind == "sampled":
+                targets = torch.cat([torch.zeros((b, 1), dtype=torch.int64), ref[:, :-1]], dim=1)
+        with torch.no_grad():
+            logits = []
+            for m, d in ((m_cpu, "cpu"), (m_dev, dev)):
+                x = inputs(b, d)
+                mem = m.prior_memory(*x, z=z.to(d))
+                logits.append(m.word_pred(m.decoder_states(targets.to(d), *mem)).cpu())
+        rec["logits_rel_err"] = rel_err(logits[1], logits[0])
+        out["card_vs_cpu"][name] = rec
+        log(f"decode {name} card vs CPU (B={b}, constrain+valence): teacher-forced logits "
+            f"relative error {rec['logits_rel_err']:.3e} (limit {DECODE_LOGIT_REL}); rows apart "
+            f"at near ties (CPU top-two gap < {DECODE_TIE}): {rec['tie_rows']}")
+        if not rec["logits_rel_err"] <= DECODE_LOGIT_REL:
+            raise AssertionError(f"decode {name}: logits disagree with the CPU")
+
+    # one warm B=512 decode of each mode profiled: busy share, top kernels,
+    # device ops per step and the wall time per device op
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = inputs(DECODE_B, dev)
+    out["profile"] = {}
+    for name, kw in modes.items():
+        prof = device_profile(lambda: generate(model, *x, random_sample=True, generator=gen,
+                                               **kw), 1)
+        prof["device_ops_per_step"] = prof["device_ops"] / (model.cfg.max_len - 1)
+        prof["wall_us_per_device_op"] = prof["wall_ms"] * 1e3 / prof["device_ops"]
+        out["profile"][name] = prof
+        log(f"decode profile (grun_r5cn, B={DECODE_B}, {name}): {json.dumps(prof)}")
+
+    # the generate CLI once through on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        res, ms = synced_ms(lambda: cli.main([
+            "generate", str(posp), tmp, str(grun), "--n", str(DECODE_B), "--constrain-decode",
+            "--constrain-valence", "--seed", "0", "--device", "cuda"]))
+        lines = Path(res).read_text().splitlines()
+    if not lines or len(set(lines)) != len(lines) or any(canonical_smiles(s) != s for s in lines):
+        raise AssertionError(f"generate CLI: malformed output ({len(lines)} lines)")
+    out["cli"] = {"ms": ms, "smiles": len(lines), "n": DECODE_B}
+    log(f"generate CLI: {len(lines)} unique valid SMILES of {DECODE_B} in {ms:.0f} ms")
+    return out
 
 
 def main():
@@ -904,10 +1101,17 @@ def main():
         return 0
 
     sampling = flagship_sampling(dev, args.timesteps)
+    k1_flagship = sampling["msgpass"][2]["gcl_message_agg"]
+    if args.timesteps == 500 and k1_flagship != K1_FLAGSHIP_LAUNCHES:
+        raise AssertionError(f"K1 launched {k1_flagship} times in the flagship run, "
+                             f"expected {K1_FLAGSHIP_LAUNCHES}")
     trained = trained_run(dev, repo)
-    consensus = consensus_phase(dev, repo)
-    consensus["options"] = options_phase(dev, repo)
-    consensus["tf32_default"] = tf32
+    with tempfile.TemporaryDirectory() as keep:
+        hypothesis = Path(keep) / "consensus_gmm.posp"
+        consensus = consensus_phase(dev, repo, hypothesis)
+        consensus["options"] = options_phase(dev, repo)
+        consensus["tf32_default"] = tf32
+        decode = decode_phase(dev, repo, hypothesis)
 
     def entry(name, source, replaces, checks, launches):
         main_check = checks[-1]  # bf16, the flagship sampling dtype
@@ -947,6 +1151,7 @@ def main():
         "trained_launches": trained, "card": card,
     }))
     log(json.dumps({"consensus": consensus, "card": card}))
+    log(json.dumps({"decode": decode, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

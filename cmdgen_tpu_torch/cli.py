@@ -5,11 +5,14 @@
   python -m cmdgen_tpu_torch.cli get-phar OUT.json HYP.posp \\
       [--method gmm|kmeans|dbscan] [--dual-json T2.json [--dual-mode gmm|dbscan|indiv]]
       [--select-json ANTI.json] [--device cuda]
+  python -m cmdgen_tpu_torch.cli generate HYP.posp OUT_DIR GCPG_DIR [--n 128] \
+      [--constrain-decode] [--constrain-valence] [--no-filter] [--device cuda]
 
-Stages 1 (``sample-phars``) and 2 (``get-phar``) are ported. ``CKPT_DIR`` is
-a port checkpoint directory (``params.npz`` + ``config.json``, see
-``convert.py``), e.g. ``cmdgen_tpu_torch/assets/qrun_aa``. Every command
-runs on ``cuda`` unless given ``--device cpu``.
+Stages 1 (``sample-phars``), 2 (``get-phar``) and 3 (``generate``) are
+ported. ``CKPT_DIR`` is a port checkpoint directory (``params.npz`` +
+``config.json``, see ``convert.py``), e.g. ``cmdgen_tpu_torch/assets/qrun_aa``;
+``GCPG_DIR`` a GCPG one, e.g. ``cmdgen_tpu_torch/assets/grun_r5cn``. Every
+command runs on ``cuda`` unless given ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -38,7 +41,10 @@ def _add_sample_phars(sub):
     p.add_argument("--clamp-x", type=float, default=None,
                    help="clamp sampled coordinates to +-this (normalized Å)")
     p.add_argument("--chain-gif", default=None, metavar="PATH",
-                   help="also render one sampling chain as an animated GIF")
+                   help="also render one sampling chain as an animated GIF: the "
+                        "reference's chain sampler, ancestral whatever --ddim-eta "
+                        "is, with its own draws, so not the chain that made the "
+                        "written samples")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--engine", default="msgpass", choices=["msgpass", "fused"],
                    help="msgpass: per-GCL message-pass kernel (K1); fused: "
@@ -144,11 +150,50 @@ def run_get_phar(args):
     return cons
 
 
+def _add_generate(sub):
+    p = sub.add_parser("generate", help=".posp -> SMILES")
+    p.add_argument("phar_file")
+    p.add_argument("out_dir")
+    p.add_argument("ckpt_dir", help="GCPG port checkpoint directory")
+    p.add_argument("--n", type=int, default=128)
+    p.add_argument("--target-score", type=float, default=0.0,
+                   help="docking-score condition (generate_docked.py uses -14)")
+    p.add_argument("--no-filter", action="store_true")
+    p.add_argument("--temperature", type=float, default=1.0,
+                   help="sampling-logit temperature (<1 sharpens)")
+    p.add_argument("--constrain-decode", action="store_true",
+                   help="syntax-constrained decoding: mask tokens that would leave "
+                        "rings/parens unclosable (and special tokens) during sampling")
+    p.add_argument("--constrain-valence", action="store_true",
+                   help="additionally mask valence-overflow continuations "
+                        "(per-atom bond budgets)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(run=run_generate)
+
+
+def run_generate(args):
+    from cmdgen_tpu_torch.convert import load_port_gcpg
+    from cmdgen_tpu_torch.pipeline.generate_smiles import generate_to_file
+
+    model, tokenizer = load_port_gcpg(args.ckpt_dir, args.device)
+    out = generate_to_file(
+        model, tokenizer, args.phar_file, args.out_dir, n_per_condition=args.n,
+        conditions={"Score": [args.target_score]}, filter_valid=not args.no_filter,
+        temperature=args.temperature, constrain=args.constrain_decode,
+        constrain_valence=args.constrain_valence,
+        generator=make_generator(model.pos.device, args.seed),
+    )
+    print(f"wrote {out}")
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None):
     parser = argparse.ArgumentParser(prog="cmdgen_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_sample_phars(sub)
     _add_get_phar(sub)
+    _add_generate(sub)
     args = parser.parse_args(argv)
     return args.run(args)
 

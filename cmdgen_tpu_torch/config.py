@@ -1,7 +1,7 @@
-"""DiffPhar configuration dataclasses (counterpart of the DiffPhar half of
-``cmdgen_tpu/config.py``). Field names and defaults are the JAX package's,
-so a checkpoint's ``config`` dict loads with :func:`from_dict`; the
-``compute_dtype`` string maps to a torch dtype."""
+"""Configuration dataclasses of DiffPhar and of the GCPG model
+(counterparts of ``cmdgen_tpu/config.py``). Field names and defaults are
+the JAX package's, so a checkpoint's ``config`` dict loads with
+:func:`from_dict`; the ``compute_dtype`` string maps to a torch dtype."""
 from __future__ import annotations
 
 import dataclasses
@@ -91,6 +91,30 @@ def ca_config() -> DiffPharConfig:
         train=dataclasses.replace(base.train, run_name="crossdocked_ca_cond",
                                   batch_size=4, n_epochs=1000, clip_grad=True),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class GCPGModelConfig:
+    """Mirrors MODEL_DEFAULT_SETTINGS (GCPG/train_chembl33_baseline.py:50-65)."""
+
+    max_len: int = 128
+    pp_v_dim: int = 8          # 7 type bits + 1 size scalar
+    pp_e_dim: int = 1          # bond-path distance
+    pp_encoder_n_layer: int = 4
+    hidden_dim: int = 384
+    n_layers: int = 8
+    ff_dim: int = 1024
+    n_head: int = 8
+    cond_dim: int = 7          # [MW, logP, QED, SAS, RotaNumBonds, Score, Smi]
+    non_vae: bool = False
+    remove_pp_dis: bool = False
+    n_pp_max: int = 8          # MAX_NUM_PP_GRAPHS
+    dropout: float = 0.1
+    # Replicate the reference's condition-token masking bug (gcpg.py:208-210
+    # marks the cond token as padding in every attention mask, so properties
+    # never influence generation). Off in production, but switchable so the
+    # full forward can be compared against the reference's actual numerics.
+    mask_cond_token: bool = False
 
 
 def from_dict(cls, d: Dict[str, Any]):

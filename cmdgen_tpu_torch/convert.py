@@ -14,6 +14,13 @@ package keeps beside the dynamics modules, maps onto the model's
 A port checkpoint is a directory with ``params.npz`` (the flattened tree),
 ``config.json`` (the JAX checkpoint's ``config``) and optionally
 ``size_distribution.npy`` (the size prior's histogram).
+
+The GCPG model maps the same way by name (``gcpg_state_dict``), with
+flax's other leaves: a LayerNorm ``scale`` and an Embed ``embedding``
+become ``weight``, a PReLU's scalar ``negative_slope`` the weight [1] of
+``nn.PReLU(1)``, and other leaves (``pp_seg``, a GINE layer's ``eps``) keep
+their name. A GCPG port checkpoint's ``config.json`` holds ``model`` (the
+``GCPGModelConfig``) and ``tokenizer`` (the vocabulary list).
 """
 from __future__ import annotations
 
@@ -24,11 +31,13 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from cmdgen_tpu_torch.config import DiffPharConfig, from_dict
+from cmdgen_tpu_torch.chem.tokenizer import Tokenizer
+from cmdgen_tpu_torch.config import DiffPharConfig, GCPGModelConfig, from_dict
 from cmdgen_tpu_torch.device import DeviceLike, resolve_device
 from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
 from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, make_fused_apply
+from cmdgen_tpu_torch.models.gcpg import GCPG, TRAINING_MODULES
 
 GAMMA_NET = "gamma_net/"
 
@@ -91,7 +100,12 @@ def load_flax_params(module: torch.nn.Module, flax_params: Mapping,
     """Fill ``module`` (the dynamics, or the gamma network with its
     ``scalars``) from a flax tree. Raises on any flax leaf left unmapped,
     any module weight left unfilled, or a shape mismatch."""
-    sd = dynamics_state_dict(flax_params, scalars)
+    load_state(module, dynamics_state_dict(flax_params, scalars))
+
+
+def load_state(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """Load a converted state dict into ``module``. Raises on any entry left
+    unmapped, any module weight left unfilled, or a shape mismatch."""
     want = module.state_dict()
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))
@@ -149,3 +163,65 @@ def load_port_checkpoint(ckpt_dir, device: DeviceLike = None,
     hist_path = Path(ckpt_dir) / "size_distribution.npy"
     hist = np.load(hist_path) if hist_path.exists() else None
     return build_model(cfg, flat, device, engine, size_histogram=hist), cfg
+
+
+# ------------------------------------------------------------------- GCPG
+
+# the top-level modules the prior decode reads: all a decode-only
+# checkpoint holds (TRAINING_MODULES serve the posterior path and training)
+DECODE_MODULES = ("cond_embedding", "pp_v_init", "pp_e_init", "pp_encoder", "pp_seg",
+                  "expand", "zz_seg", "dencoder", "decoder", "word_embed", "word_pred")
+_GCPG_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+                "negative_slope": "weight"}
+
+
+def gcpg_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax GCPG parameter tree (with or without its top-level
+    ``params`` key, nested or flattened) onto the port's ``GCPG``
+    state_dict names."""
+    sd = {}
+    for path, arr in _flat_tree(flax_params).items():
+        *mods, leaf = path.split("/")
+        if leaf == "kernel":
+            if arr.ndim != 2:
+                raise KeyError(f"unmapped flax leaf {path!r}: kernel of rank {arr.ndim}")
+            arr = arr.T
+        elif leaf == "negative_slope":
+            arr = arr.reshape(1)
+        name = ".".join(mods + [_GCPG_LEAVES.get(leaf, leaf)])
+        if name in sd:
+            raise KeyError(f"unmapped flax leaf {path!r}: {name} is filled already")
+        sd[name] = torch.tensor(arr)
+    return sd
+
+
+def build_gcpg(cfg: GCPGModelConfig, flax_params: Mapping, vocab_size: int,
+               device: DeviceLike = None) -> GCPG:
+    """The GCPG of ``cfg`` with ``flax_params`` loaded, in eval mode, on
+    ``device`` (default ``cuda``; raises without CUDA). A tree without the
+    training-only modules (``TRAINING_MODULES``) gives a decode-only model.
+    Raises on any leaf left unmapped or weight left unfilled."""
+    dev = resolve_device(device)
+    sd = gcpg_state_dict(flax_params)
+    training = any(k.split(".")[0] in TRAINING_MODULES for k in sd)
+    model = GCPG(cfg, vocab_size, training_modules=training)
+    load_state(model, sd)
+    return model.to(dev).eval()
+
+
+def read_port_gcpg(ckpt_dir) -> Tuple[GCPGModelConfig, Tokenizer, Dict[str, np.ndarray]]:
+    """(model config, tokenizer, flattened flax params) of a GCPG port
+    checkpoint directory."""
+    ckpt_dir = Path(ckpt_dir)
+    meta = json.loads((ckpt_dir / "config.json").read_text())
+    with np.load(ckpt_dir / "params.npz") as npz:
+        flat = {k: npz[k] for k in npz.files}
+    return (from_dict(GCPGModelConfig, meta["model"]), Tokenizer.from_list(meta["tokenizer"]),
+            flat)
+
+
+def load_port_gcpg(ckpt_dir, device: DeviceLike = None) -> Tuple[GCPG, Tokenizer]:
+    """Read a GCPG port checkpoint (``params.npz`` + ``config.json``) and
+    build its model on ``device``: (model, tokenizer)."""
+    cfg, tokenizer, flat = read_port_gcpg(ckpt_dir)
+    return build_gcpg(cfg, flat, len(tokenizer), device), tokenizer

@@ -134,16 +134,17 @@ class ConditionalDDPM:
 
     # ------------------------------------------------------------- sampling
 
-    def _reverse_scalars(self, st_pairs: torch.Tensor) -> torch.Tensor:
+    def _reverse_scalars(self, st_pairs: torch.Tensor, ancestral: bool = False) -> torch.Tensor:
         """[S, 2] (s, t) -> [S, 4] rows (t_norm, 1/alpha_ts, eps coefficient,
-        posterior sigma), ancestral or DDIM(eta)."""
+        posterior sigma), DDIM(eta) when ``cfg.ddim_eta`` is set and not
+        ``ancestral``, else ancestral."""
         T = self.cfg.timesteps
         st_pairs = st_pairs.to(self.device)
         gamma_s = self._gamma_t_norm(st_pairs[:, 0] / T)
         gamma_t = self._gamma_t_norm(st_pairs[:, 1] / T)
         sigma2_ts, sigma_ts, alpha_ts = sch.sigma_and_alpha_t_given_s(gamma_t, gamma_s)
         sigma_s, sigma_t = sch.sigma(gamma_s), sch.sigma(gamma_t)
-        if self.cfg.ddim_eta is not None:
+        if self.cfg.ddim_eta is not None and not ancestral:
             sigma_post = self.cfg.ddim_eta * sigma_ts * sigma_s / sigma_t
             eps_coeff = sigma_t / alpha_ts - torch.sqrt(
                 (sigma_s ** 2 - sigma_post ** 2).clamp_min(0.0))
@@ -221,9 +222,7 @@ class ConditionalDDPM:
         from ``generator``. Returns (phar, pocket_out) unnormalized;
         pocket_out may be translated relative to the input.
         """
-        phar, pocket_out, _ = self._sample(pocket, num_nodes_phar, n_phar_max,
-                                           timesteps, generator, noise, None)
-        return phar, pocket_out
+        return self._sample(pocket, num_nodes_phar, n_phar_max, timesteps, generator, noise)
 
     @torch.no_grad()
     def sample_chain_given_pocket(
@@ -236,18 +235,63 @@ class ConditionalDDPM:
         generator: Optional[torch.Generator] = None,
         noise: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[PointCloud, PointCloud, torch.Tensor]:
-        """:meth:`sample_given_pocket` that also returns the chain's frames
-        for visualization: (phar, pocket_out, frames [F, B, Np, 3]), the
-        unnormalized coordinates of z after every ``stride``-th reverse
-        step, stride = max(S // keep_frames, 1) over the S steps. The same
-        ``noise`` gives the same sample as ``sample_given_pocket``."""
-        return self._sample(pocket, num_nodes_phar, n_phar_max, timesteps,
-                            generator, noise, keep_frames)
+        """Reverse-chain sampling that also returns frames for visualization:
+        (phar, pocket_out, frames [F, B, Np, 3]), the unnormalized
+        coordinates of z after every ``stride``-th reverse step, stride =
+        max(S // keep_frames, 1) over the S steps.
 
-    def _sample(self, pocket, num_nodes_phar, n_phar_max, timesteps, generator,
-                noise, keep_frames):
-        """The reverse chain of both samplers; frames only when
-        ``keep_frames`` is given (else None)."""
+        The JAX package's ``sample_chain_given_pocket``, step for step: its
+        steps are ancestral whatever ``cfg.ddim_eta`` is, the pocket is not
+        shifted to its CoM when ``com_free`` is off, and the final sample is
+        not projected again. So it is not the chain :meth:`sample_given_pocket`
+        runs under ``ddim_eta`` or ``com_free=False``. ``noise`` is as there."""
+        cfg = self.cfg
+        nd = cfg.n_dims
+        dev = self.device
+        T = cfg.timesteps if timesteps is None else min(timesteps, cfg.timesteps)
+        b = pocket.batch
+        pocket = self.normalize(pocket)
+        phar_mask = mask_from_sizes(num_nodes_phar.to(dev), n_phar_max)
+        draw = self._draws(noise, generator, (b, n_phar_max, nd + self.phar_nf))
+        z_phar, xh_pocket = self._initial_z(pocket, phar_mask, draw(None, 0))
+        scalars = self._reverse_scalars(respaced_st_pairs(cfg.timesteps, T), ancestral=True)
+        stride = max(T // keep_frames, 1)
+        frames = []
+        for i in range(scalars.shape[0]):
+            z_phar, xh_pocket = self.reverse_step(
+                z_phar, xh_pocket, scalars[i], draw(i, 1), phar_mask, pocket.mask)
+            if i % stride == 0:
+                frames.append(self.unnormalize_x(z_phar[..., :nd]))
+        x_phar, h_phar, x_pocket, h_pocket = self._final_decode(
+            z_phar, xh_pocket, phar_mask, pocket.mask, draw(None, 2))
+        phar_out = PointCloud(x=x_phar, h=h_phar * phar_mask[..., None], mask=phar_mask)
+        pocket_out = PointCloud(x=x_pocket, h=h_pocket, mask=pocket.mask)
+        return phar_out, pocket_out, torch.stack(frames)
+
+    def _draws(self, noise, generator, shape):
+        """draw(i, which): the standard-normal draw ``which`` (0 init, 1 the
+        chain's step i, 2 final) from ``noise``, else from ``generator``."""
+        dev = self.device
+
+        def draw(i, which):
+            if noise is not None:
+                v = noise[which] if i is None else noise[which][i]
+                return v.to(device=dev, dtype=torch.float32)
+            return torch.randn(shape, generator=generator, device=dev)
+
+        return draw
+
+    def _initial_z(self, pocket, phar_mask, eps):
+        """z_T ~ N(pocket CoM, I), CoM-projected: (z_phar, xh_pocket)."""
+        b, n_phar_max = phar_mask.shape
+        mu_x = masked_mean(pocket.x, pocket.mask)[:, None, :].expand(
+            b, n_phar_max, self.cfg.n_dims)
+        mu_h = torch.zeros((b, n_phar_max, self.phar_nf), device=self.device)
+        mu = torch.cat([mu_x, mu_h], dim=-1) * phar_mask[..., None]
+        return self._normal_zero_com_eps(eps, mu, pocket.xh, 1.0, phar_mask, pocket.mask)
+
+    def _sample(self, pocket, num_nodes_phar, n_phar_max, timesteps, generator, noise):
+        """The reverse chain of ``sample_given_pocket``."""
         cfg = self.cfg
         nd = cfg.n_dims
         dev = self.device
@@ -258,29 +302,12 @@ class ConditionalDDPM:
             pocket_com = masked_mean(pocket.x, pocket.mask)
             pocket = pocket.replace(x=pocket.x - pocket_com[:, None, :])
         phar_mask = mask_from_sizes(num_nodes_phar.to(dev), n_phar_max)
-        shape = (b, n_phar_max, nd + self.phar_nf)
-
-        def draw(i, which):
-            if noise is not None:
-                v = noise[which] if i is None else noise[which][i]
-                return v.to(device=dev, dtype=torch.float32)
-            return torch.randn(shape, generator=generator, device=dev)
-
-        # init: z ~ N(pocket CoM, I), then CoM-projected
-        mu_x = masked_mean(pocket.x, pocket.mask)[:, None, :].expand(b, n_phar_max, nd)
-        mu_h = torch.zeros((b, n_phar_max, self.phar_nf), device=dev)
-        mu = torch.cat([mu_x, mu_h], dim=-1) * phar_mask[..., None]
-        z_phar, xh_pocket = self._normal_zero_com_eps(
-            draw(None, 0), mu, pocket.xh, 1.0, phar_mask, pocket.mask)
-
+        draw = self._draws(noise, generator, (b, n_phar_max, nd + self.phar_nf))
+        z_phar, xh_pocket = self._initial_z(pocket, phar_mask, draw(None, 0))
         scalars = self._reverse_scalars(respaced_st_pairs(cfg.timesteps, T))
-        stride = None if keep_frames is None else max(T // keep_frames, 1)
-        frames = []
         for i in range(scalars.shape[0]):
             z_phar, xh_pocket = self.reverse_step(
                 z_phar, xh_pocket, scalars[i], draw(i, 1), phar_mask, pocket.mask)
-            if stride is not None and i % stride == 0:
-                frames.append(self.unnormalize_x(z_phar[..., :nd]))
 
         x_phar, h_phar, x_pocket, h_pocket = self._final_decode(
             z_phar, xh_pocket, phar_mask, pocket.mask, draw(None, 2))
@@ -289,4 +316,4 @@ class ConditionalDDPM:
                 x_phar, x_pocket, phar_mask, pocket.mask)
         phar_out = PointCloud(x=x_phar, h=h_phar * phar_mask[..., None], mask=phar_mask)
         pocket_out = PointCloud(x=x_pocket, h=h_pocket, mask=pocket.mask)
-        return phar_out, pocket_out, None if stride is None else torch.stack(frames)
+        return phar_out, pocket_out

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cmdgen_tpu_torch.models.egnn import EGNN, GNN, EGNNConfig, linear
-from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused, fused_params
+from cmdgen_tpu_torch.ops.egnn_fused import check_fused_shape, egnn_forward_fused, fused_params
 from cmdgen_tpu_torch.ops.masked import pair_mask, remove_mean
 
 
@@ -143,7 +143,9 @@ def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
     """The dynamics forward with the EGNN stack in one K2 launch
     (``ops.egnn_fused``); counterpart of the JAX package's
     ``make_pallas_apply``. The type MLPs and embeddings run in float32, as
-    there. Weights are stacked once, here. Inference only."""
+    there. Weights are stacked once, here. Inference only. Raises
+    ValueError for a shape K2 cannot run, naming the limit
+    (``check_fused_shape``)."""
     cfg = dynamics.cfg
     ecfg = cfg.egnn
     if cfg.mode != "egnn_dynamics" or ecfg.sin_embedding:
@@ -154,6 +156,7 @@ def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
         raise ValueError("the fused engine needs neighbor_k")
     if ecfg.aggregation_method != "sum" or not ecfg.attention:
         raise ValueError("the fused engine needs sum aggregation and attention")
+    check_fused_shape(ecfg.hidden_nf, ecfg.compute_dtype, ecfg.neighbor_k)
     with torch.no_grad():
         params = fused_params(dynamics.egnn, ecfg.compute_dtype)
 

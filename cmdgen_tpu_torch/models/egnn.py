@@ -9,7 +9,9 @@ Two engines, as in the JAX package:
   message pass goes through ``ops.egnn_msgpass.gcl_message_agg`` (the CUDA
   kernel on the GPU, its plain version on the CPU), as the JAX package
   sends only such GCLs to its Pallas kernel; with ``sin_embedding`` (24
-  edge features) it runs in PyTorch.
+  edge features), or at a hidden width the kernel does not take
+  (``ops.egnn_msgpass.kernel_takes``, a static rule of width and dtype),
+  it runs in PyTorch.
 
 ``GNN`` is the plain (non-equivariant) network of the ``gnn_dynamics``
 mode: GCLs without edge features over the dense adjacency.
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cmdgen_tpu_torch.ops.egnn_msgpass import gather_rows, gcl_message_agg
+from cmdgen_tpu_torch.ops.egnn_msgpass import gather_rows, gcl_message_agg, kernel_takes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +163,10 @@ class GCL(nn.Module):
         cfg = self.cfg
         dt = cfg.compute_dtype
         hdim = cfg.hidden_nf
+        # K1 takes neighbor-list GCLs with sum aggregation, the two edge
+        # scalars and a width it supports; the rest take the torch path
         if (nbr_idx is not None and cfg.aggregation_method == "sum"
-                and edge_attr.shape[-1] == 2):
+                and edge_attr.shape[-1] == 2 and kernel_takes(hdim, dt)):
             wi, wj = self.edge_in.project(h, dt)
             att = (self.att.weight.reshape(hdim), self.att.bias) if cfg.attention else None
             agg = gcl_message_agg(

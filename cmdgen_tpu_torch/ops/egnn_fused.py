@@ -22,9 +22,10 @@ import torch
 from cmdgen_tpu_torch.ops import _build
 from cmdgen_tpu_torch.ops.egnn_msgpass import (
     _DTYPE_CODE,
+    WIDTH_LIMITS,
     _check,
-    _check_width,
     gather_rows,
+    kernel_takes,
     ksum,
     silu_cdt,
 )
@@ -158,6 +159,29 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+# the widest bf16 stack K2 takes: its node phases keep bf16 tiles of up to
+# 256 columns (csrc/egnn_fused.cu)
+FUSED_BF16_MAX_H = 256
+
+
+def check_fused_shape(hdim: int, cdt: torch.dtype, k: int) -> None:
+    """Raise ValueError, naming the limit, for a stack K2 cannot run:
+    compute dtypes float32 and bfloat16; the widths K1 takes
+    (``WIDTH_LIMITS``), and for bf16 H <= ``FUSED_BF16_MAX_H``; neighbor_k
+    in [1, ``EDGE_ROWS``]."""
+    if cdt not in _DTYPE_CODE:
+        raise ValueError(f"the fused kernel takes float32 or bfloat16, not {cdt}")
+    if not kernel_takes(hdim, cdt):
+        raise ValueError(f"hidden width {hdim} unsupported by the fused {cdt} kernel: "
+                         f"{WIDTH_LIMITS[cdt]}")
+    if cdt == torch.bfloat16 and hdim > FUSED_BF16_MAX_H:
+        raise ValueError(f"hidden width {hdim} unsupported by the fused bf16 kernel: "
+                         f"H <= {FUSED_BF16_MAX_H}")
+    if not 1 <= k <= EDGE_ROWS:
+        raise ValueError(f"neighbor_k {k} unsupported by the fused kernel: "
+                         f"1 <= K <= {EDGE_ROWS}")
+
+
 def launch_plan(b: int, n: int, k: int, hdim: int, r_true: int) -> Dict[str, object]:
     """The kernel's work decomposition, computed here and passed to it.
 
@@ -196,13 +220,9 @@ def _layers_kernel(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
     int64 CUDA tensor of 1 + len(PHASES) * n_layers elements, or None; the
     kernel then writes one block's SM clock at its start and after each
     phase (:func:`phase_shares`)."""
-    if cdt not in _DTYPE_CODE:
-        raise ValueError(f"unsupported compute dtype {cdt}")
     b, n, hdim = h0.shape
     k = idx.shape[-1]
-    _check_width(hdim, cdt)
-    if cdt == torch.bfloat16 and hdim > 256:
-        raise ValueError(f"hidden width {hdim} unsupported by the fused bf16 kernel (<= 256)")
+    check_fused_shape(hdim, cdt, k)
     plan = launch_plan(b, n, k, hdim, int(r_true))
     dev = h0.device
     h0 = h0.to(cdt).contiguous()

@@ -93,13 +93,26 @@ def _check(t: torch.Tensor, name: str, shape, dtype) -> None:
         raise ValueError(f"{name} must start on a 32-byte boundary (tensor-core tile loads)")
 
 
+WIDTH_LIMITS = {torch.float32: "H/4 must divide 256 (H in 4, 8, 16, ..., 1024)",
+                torch.bfloat16: "H % 32 == 0 and H <= 512"}
+
+
+def kernel_takes(h: int, cdt: torch.dtype) -> bool:
+    """Whether the kernels take hidden width ``h`` in compute dtype ``cdt``:
+    float32 products need H/4 to divide 256, bf16 tensor-core products
+    H % 32 == 0 and H <= 512 (``WIDTH_LIMITS``). A static rule of (H, dtype)
+    alone: the model sends the other GCLs to its torch message path."""
+    if cdt == torch.bfloat16:
+        return h % 32 == 0 and 32 <= h <= 512
+    if cdt == torch.float32:
+        return h % 4 == 0 and 4 <= h <= 1024 and 256 % (h // 4) == 0
+    return False
+
+
 def _check_width(h: int, cdt: torch.dtype) -> None:
-    """The kernels' hidden widths: float32 products need H/4 to divide 256
-    (H in 4, 8, ..., 1024), bf16 tensor-core products H % 32 == 0, H <= 512."""
-    ok = (h % 32 == 0 and 32 <= h <= 512) if cdt == torch.bfloat16 else (
-        h % 4 == 0 and 4 <= h <= 1024 and 256 % (h // 4) == 0)
-    if not ok:
-        raise ValueError(f"hidden width {h} unsupported by the {cdt} kernels")
+    if not kernel_takes(h, cdt):
+        raise ValueError(f"hidden width {h} unsupported by the {cdt} kernels: "
+                         f"{WIDTH_LIMITS.get(cdt, 'float32 or bfloat16 only')}")
 
 
 # rows of one message tile: R receivers x K edges, R * K <= EDGE_ROWS

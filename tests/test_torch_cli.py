@@ -1,7 +1,8 @@
 """The port's CLI on the CPU: ``sample-phars`` on the committed trained
 weights at a small T (the ``{Molecule_i: {family: [[x, y, z], ...]}}``
-schema the consensus stage reads, and ``--chain-gif``), and ``get-phar``
-in every method and mode on synthetic clouds of four known sites."""
+schema the consensus stage reads, and ``--chain-gif``), ``get-phar``
+in every method and mode on synthetic clouds of four known sites, and
+``generate`` on the committed trained GCPG (``assets/grun_r5cn``)."""
 import json
 import os
 import subprocess
@@ -21,6 +22,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 CKPT = REPO / "cmdgen_tpu_torch" / "assets" / "qrun_aa"
+GRUN = REPO / "cmdgen_tpu_torch" / "assets" / "grun_r5cn"
 
 
 @pytest.mark.parametrize("engine", ["msgpass", "fused"])
@@ -133,3 +135,40 @@ def test_cli_get_phar_defaults_to_cuda(tmp_path, clouds):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["get-phar", str(clouds["t1"]), str(tmp_path / "x.posp")])
+
+
+POSP = "AROM 1.00 0.50 -0.20\nHACC 4.10 1.20 0.30\nHDON -2.00 3.10 1.00\nHYBL 0.50 -3.60 2.20\n"
+
+
+@pytest.mark.parametrize("args", [["--constrain-decode", "--constrain-valence"], []],
+                         ids=["valence", "free"])
+def test_cli_generate_cpu(tmp_path, args):
+    """One SMILES per line, each valid, canonical and unique."""
+    from cmdgen_tpu_torch.chem.mol import canonical_smiles
+
+    posp = tmp_path / "hyp.posp"
+    posp.write_text(POSP)
+    out = cli.main(["generate", str(posp), str(tmp_path / "out"), str(GRUN), "--n", "6",
+                    "--seed", "1", "--device", "cpu", *args])
+    assert out == tmp_path / "out" / "hyp_result.txt"
+    lines = out.read_text().splitlines()
+    assert len(lines) == len(set(lines)) >= 1
+    assert all(canonical_smiles(s) == s for s in lines)
+
+
+def test_cli_generate_no_filter_writes_n_lines(tmp_path):
+    posp = tmp_path / "hyp.posp"
+    posp.write_text(POSP)
+    out = cli.main(["generate", str(posp), str(tmp_path), str(GRUN), "--n", "5",
+                    "--no-filter", "--temperature", "0.8", "--device", "cpu"])
+    lines = out.read_text().split("\n")
+    assert len(lines) == 6 and lines[-1] == ""  # 5 lines, newline-terminated
+
+
+def test_cli_generate_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    posp = tmp_path / "hyp.posp"
+    posp.write_text(POSP)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["generate", str(posp), str(tmp_path), str(GRUN)])

@@ -202,3 +202,23 @@ def test_launch_plan_of_the_wrapping_card_case():
     phase more work items than the H100's 132 SMs, so each strided item
     loop wraps."""
     assert min(launch_plan(160, 100, 12, 256, 8)["items"].values()) > 132
+
+
+def test_fused_apply_refuses_kernel_limits_at_build():
+    """make_fused_apply refuses the shapes K2 cannot run when the model is
+    built, and the error names the limit: bf16 H = 320 (> 256), an f32
+    width K1's products do not take, K beyond one 128-row tile."""
+    from cmdgen_tpu_torch.models.egnn import EGNNConfig as TEGNNConfig
+
+    def dyn(**egnn):
+        base = dict(hidden_nf=64, n_layers=1, inv_sublayers=1, neighbor_k=8)
+        return TEGNNDynamics(TDynamicsConfig(phar_nf=8, residue_nf=5, joint_nf=8,
+                                             egnn=TEGNNConfig(**{**base, **egnn})))
+
+    with pytest.raises(ValueError, match=r"hidden width 320 .*bf16.*H <= 256"):
+        make_fused_apply(dyn(hidden_nf=320, compute_dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match=r"hidden width 192 .*H/4 must divide 256"):
+        make_fused_apply(dyn(hidden_nf=192))
+    with pytest.raises(ValueError, match=r"neighbor_k 129 .*K <= 128"):
+        make_fused_apply(dyn(neighbor_k=129))
+    make_fused_apply(dyn(hidden_nf=256, compute_dtype=torch.bfloat16))

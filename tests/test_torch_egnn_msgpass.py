@@ -221,3 +221,38 @@ def test_stage_shares_from_stamps():
     assert list(shares)[:len(STAGES)] == list(STAGES)
     assert sum(shares[s] for s in STAGES) == pytest.approx(1.0)
     assert shares["pair layer"] == pytest.approx(0.3)
+
+
+@pytest.mark.parametrize("hidden,dtype,to_kernel", [
+    (192, torch.float32, False),   # 256 % (192 / 4) != 0
+    (48, torch.bfloat16, False),   # 48 % 32 != 0
+    (256, torch.bfloat16, True),   # the flagship width
+    (128, torch.float32, True),    # qrun_aa's width
+], ids=["f32_H192", "bf16_H48", "flagship_bf16_H256", "qrun_aa_f32_H128"])
+def test_gcl_routing_rule(monkeypatch, hidden, dtype, to_kernel):
+    """A neighbor-list GCL goes to K1's wrapper exactly where the static
+    width rule says the kernel takes its (H, dtype); elsewhere it takes the
+    torch message path, which gives the same function."""
+    from cmdgen_tpu_torch.models import egnn as egnn_module
+    from cmdgen_tpu_torch.models.egnn import EGNNConfig as TEGNNConfig
+    from cmdgen_tpu_torch.ops.egnn_msgpass import kernel_takes
+
+    calls = []
+    real = egnn_module.gcl_message_agg
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(egnn_module, "gcl_message_agg", counting)
+    cfg = TDynamicsConfig(phar_nf=8, residue_nf=5, joint_nf=8, edge_cutoff=None,
+                          egnn=TEGNNConfig(hidden_nf=hidden, n_layers=2, inv_sublayers=1,
+                                           neighbor_k=6, compute_dtype=dtype))
+    torch.manual_seed(0)
+    dyn = TEGNNDynamics(cfg).eval()
+    _, _, inputs = _setup(b=2, n_p=4, n_q=9)
+    with torch.no_grad():
+        out_p, out_q = dyn(*_t(*inputs))
+    assert kernel_takes(hidden, dtype) == to_kernel
+    assert len(calls) == (2 if to_kernel else 0)
+    assert torch.isfinite(out_p).all() and torch.isfinite(out_q).all()

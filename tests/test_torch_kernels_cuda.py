@@ -356,3 +356,86 @@ def test_sinusoids_embedding_card_matches_cpu(dev):
     bound = 2 * _SIN_FREQS.max().item() * torch.finfo(torch.float32).eps * 6.0
     out = sinusoids_embedding(d2.to(dev)).cpu()
     assert (out - sinusoids_embedding(d2)).abs().max().item() <= bound
+
+
+# ------------------------------------------------------------------------
+# Widths K1 does not take run the GCL's torch message path on the card
+# (the static rule ``ops.egnn_msgpass.kernel_takes``), held against the CPU:
+# float32 1e-4 of max|CPU|, bf16 2e-2 (cuBLAS and the CPU round the bf16
+# products apart; the fused kernel's bf16 h tolerance).
+
+@pytest.mark.parametrize("hidden,cdt,tol", [(192, torch.float32, 1e-4),
+                                            (48, torch.bfloat16, 2e-2)],
+                         ids=["f32_H192", "bf16_H48"])
+def test_gcl_widths_outside_k1_card_matches_cpu(dev, hidden, cdt, tol):
+    from cmdgen_tpu_torch.models.dynamics import DynamicsConfig
+    from cmdgen_tpu_torch.models.egnn import EGNNConfig
+
+    assert not mp.kernel_takes(hidden, cdt)
+    cfg = DynamicsConfig(phar_nf=8, residue_nf=20, joint_nf=16,
+                         egnn=EGNNConfig(hidden_nf=hidden, n_layers=2, neighbor_k=12,
+                                         compute_dtype=cdt))
+    torch.manual_seed(0)
+    dyn = EGNNDynamics(cfg).eval()
+    rng = np.random.RandomState(1)
+    b, n_p, n_q = 3, 6, 40
+    pocket = np.stack([realistic_ca_pocket(rng, n_q) for _ in range(b)])
+    xh_q = np.concatenate([pocket, np.eye(20)[rng.randint(0, 20, (b, n_q))] / 4], -1)
+    xh_p = np.concatenate([pocket.mean(1, keepdims=True) + rng.randn(b, n_p, 3) * 2,
+                           np.eye(8)[rng.randint(0, 8, (b, n_p))] / 4], -1)
+    inputs = [torch.tensor(a, dtype=torch.float32) for a in
+              (xh_p, xh_q, rng.rand(b, 1), np.ones((b, n_p)), np.ones((b, n_q)))]
+    with torch.no_grad():
+        ref = dyn(*inputs)
+        before = mp.gcl_message_agg.launches
+        out = dyn.to(dev)(*[v.to(dev) for v in inputs])
+    assert mp.gcl_message_agg.launches == before  # no K1 launch at these widths
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all()
+        assert (o.cpu() - r).abs().max().item() <= tol * r.abs().max().item()
+
+
+# ------------------------------------------------------------------------
+# Stage 3: the trained GCPG decode on the card against the CPU (B=16, the
+# same z and Gumbel noise, constrained with valence): teacher-forced logits
+# within 1e-4 of max|CPU|; tokens equal, except rows that part where the
+# CPU's top two scores lie within 1e-3 (counted, as in chip_smoke.py).
+
+def test_gcpg_decode_card_matches_cpu(dev):
+    import random
+    from pathlib import Path
+
+    from cmdgen_tpu_torch.chem.posp import points_to_graph
+    from cmdgen_tpu_torch.chem.tokenizer import syntax_tables
+    from cmdgen_tpu_torch.convert import load_port_gcpg
+    from cmdgen_tpu_torch.models.gcpg import generate, sample_gumbel
+    from cmdgen_tpu_torch.pipeline.generate_smiles import condition_grid
+
+    grun = Path(__file__).resolve().parent.parent / "cmdgen_tpu_torch" / "assets" / "grun_r5cn"
+    m_cpu, tok = load_port_gcpg(grun, "cpu")
+    m_dev, _ = load_port_gcpg(grun, dev)
+    b = 16
+    coords = np.random.RandomState(2).randn(6, 3) * 4
+    graph = points_to_graph(["AROM", "HACC", "HDON", "HYBL", "POSC", "AROM"], coords,
+                            random.Random(0))
+    x = [torch.from_numpy(a).expand(b, *a.shape) for a in (*graph, condition_grid()[0])]
+    g = torch.Generator().manual_seed(3)
+    z = torch.randn(b, m_cpu.cfg.hidden_dim, generator=g)
+    noise = sample_gumbel((m_cpu.cfg.max_len - 1, b, len(tok)), g)
+    tables = torch.from_numpy(syntax_tables(tok))
+    for sampled in (False, True):
+        kw = dict(random_sample=sampled, z=z, gumbel=noise, constraints=tables, valence=True)
+        ref, gaps = generate(m_cpu, *x, return_gaps=True, **kw)
+        got = generate(m_dev, *[v.to(dev) for v in x],
+                       **{k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()})
+        got = got.cpu()
+        for r in np.flatnonzero((got != ref).any(dim=1).numpy()):
+            t = int(np.flatnonzero((got[r] != ref[r]).numpy())[0])
+            assert gaps[r, t] < 1e-3, (r, t, float(gaps[r, t]))
+    targets = torch.cat([torch.zeros((b, 1), dtype=torch.int64), ref[:, :-1]], dim=1)
+    with torch.no_grad():
+        logits = []
+        for m, d in ((m_cpu, "cpu"), (m_dev, dev)):
+            mem = m.prior_memory(*[v.to(d) for v in x], z=z.to(d))
+            logits.append(m.word_pred(m.decoder_states(targets.to(d), *mem)).cpu())
+    assert (logits[1] - logits[0]).abs().max() <= 1e-4 * logits[0].abs().max()

@@ -66,14 +66,16 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _config(egnn=None, mode="egnn_dynamics", timesteps=10, schedule="polynomial_2"):
+def _config(egnn=None, mode="egnn_dynamics", timesteps=10, schedule="polynomial_2",
+            **ddpm_kw):
     egnn = egnn or EGNNConfig(hidden_nf=16, n_layers=1, neighbor_k=10)
     loss = "vlb" if schedule == "learned" else "l2"
     return DiffPharConfig(
         data=DataConfig(dataset="crossdock", pocket_representation="CA"),
         dynamics=DynamicsConfig(phar_nf=8, residue_nf=RES_NF, joint_nf=8, edge_cutoff=6.0,
                                 mode=mode, egnn=egnn),
-        ddpm=DDPMConfig(timesteps=timesteps, noise_schedule=schedule, loss_type=loss))
+        ddpm=DDPMConfig(timesteps=timesteps, noise_schedule=schedule, loss_type=loss,
+                        **ddpm_kw))
 
 
 @functools.lru_cache(maxsize=None)
@@ -372,10 +374,39 @@ def test_sample_chain_matches_jax(steps, keep_frames):
     np.testing.assert_array_equal(tphar.h.numpy(), np.asarray(jphar.h))
     np.testing.assert_allclose(tphar.x.numpy(), np.asarray(jphar.x), **CHAIN_TOL)
     np.testing.assert_allclose(tpocket.x.numpy(), np.asarray(jpocket.x), **CHAIN_TOL)
-    # the chain sampler's sample is sample_given_pocket's, bit for bit
+    # with the default (ancestral, CoM-free) config the chain's sample is
+    # sample_given_pocket's, less its final CoM projection (float rounding)
     phar, pocket_out = tmodel.sample_given_pocket(pocket, torch.from_numpy(nn_), N_P,
                                                   timesteps=steps, noise=noise)
-    assert torch.equal(phar.x, tphar.x) and torch.equal(pocket_out.x, tpocket.x)
+    assert torch.equal(phar.h, tphar.h)
+    torch.testing.assert_close(phar.x, tphar.x, atol=1e-5, rtol=0)
+    torch.testing.assert_close(pocket_out.x, tpocket.x, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("ddpm_kw", [{"ddim_eta": 0.0}, {"ddim_eta": 0.5}, {"com_free": False}],
+                         ids=["ddim_eta_0", "ddim_eta_0.5", "com_free_off"])
+def test_sample_chain_options_match_jax(ddpm_kw):
+    """The JAX package's chain is ancestral whatever ddim_eta is, and skips
+    the pocket-CoM shift and the final projection: so is the port's, frames
+    and sample within 1e-4."""
+    steps = 6
+    jmodel, params, tmodel = _pair(**ddpm_kw)
+    px, ph, pm = _pocket()
+    nn_ = np.array([N_P, N_P - 2])
+    rng = jax.random.PRNGKey(5)
+    jphar, jpocket, jframes = jsample_chain(
+        jmodel, params, rng, JPointCloud(x=px, h=ph, mask=pm), jnp.asarray(nn_), N_P,
+        keep_frames=3, timesteps=steps)
+    pocket = PointCloud(x=torch.from_numpy(px), h=torch.from_numpy(ph),
+                        mask=torch.from_numpy(pm))
+    tphar, tpocket, frames = tmodel.sample_chain_given_pocket(
+        pocket, torch.from_numpy(nn_), N_P, keep_frames=3, timesteps=steps,
+        noise=_chain_noise(rng, 2, N_P, steps))
+    chain_tol = dict(atol=1e-4, rtol=0)
+    np.testing.assert_allclose(frames.numpy(), np.asarray(jframes), **chain_tol)
+    np.testing.assert_array_equal(tphar.h.numpy(), np.asarray(jphar.h))
+    np.testing.assert_allclose(tphar.x.numpy(), np.asarray(jphar.x), **chain_tol)
+    np.testing.assert_allclose(tpocket.x.numpy(), np.asarray(jpocket.x), **chain_tol)
 
 
 def test_render_chain_gif(tmp_path):
