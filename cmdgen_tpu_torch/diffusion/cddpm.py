@@ -222,7 +222,31 @@ class ConditionalDDPM:
         from ``generator``. Returns (phar, pocket_out) unnormalized;
         pocket_out may be translated relative to the input.
         """
-        return self._sample(pocket, num_nodes_phar, n_phar_max, timesteps, generator, noise)
+        cfg = self.cfg
+        nd = cfg.n_dims
+        dev = self.device
+        T = cfg.timesteps if timesteps is None else min(timesteps, cfg.timesteps)
+        b = pocket.batch
+        pocket = self.normalize(pocket)
+        if not cfg.com_free:
+            pocket_com = masked_mean(pocket.x, pocket.mask)
+            pocket = pocket.replace(x=pocket.x - pocket_com[:, None, :])
+        phar_mask = mask_from_sizes(num_nodes_phar.to(dev), n_phar_max)
+        draw = self._draws(noise, generator, (b, n_phar_max, nd + self.phar_nf))
+        z_phar, xh_pocket = self._initial_z(pocket, phar_mask, draw(None, 0))
+        scalars = self._reverse_scalars(respaced_st_pairs(cfg.timesteps, T))
+        for i in range(scalars.shape[0]):
+            z_phar, xh_pocket = self.reverse_step(
+                z_phar, xh_pocket, scalars[i], draw(i, 1), phar_mask, pocket.mask)
+
+        x_phar, h_phar, x_pocket, h_pocket = self._final_decode(
+            z_phar, xh_pocket, phar_mask, pocket.mask, draw(None, 2))
+        if cfg.com_free:
+            x_phar, x_pocket = remove_mean_conditional(
+                x_phar, x_pocket, phar_mask, pocket.mask)
+        phar_out = PointCloud(x=x_phar, h=h_phar * phar_mask[..., None], mask=phar_mask)
+        pocket_out = PointCloud(x=x_pocket, h=h_pocket, mask=pocket.mask)
+        return phar_out, pocket_out
 
     @torch.no_grad()
     def sample_chain_given_pocket(
@@ -289,31 +313,3 @@ class ConditionalDDPM:
         mu_h = torch.zeros((b, n_phar_max, self.phar_nf), device=self.device)
         mu = torch.cat([mu_x, mu_h], dim=-1) * phar_mask[..., None]
         return self._normal_zero_com_eps(eps, mu, pocket.xh, 1.0, phar_mask, pocket.mask)
-
-    def _sample(self, pocket, num_nodes_phar, n_phar_max, timesteps, generator, noise):
-        """The reverse chain of ``sample_given_pocket``."""
-        cfg = self.cfg
-        nd = cfg.n_dims
-        dev = self.device
-        T = cfg.timesteps if timesteps is None else min(timesteps, cfg.timesteps)
-        b = pocket.batch
-        pocket = self.normalize(pocket)
-        if not cfg.com_free:
-            pocket_com = masked_mean(pocket.x, pocket.mask)
-            pocket = pocket.replace(x=pocket.x - pocket_com[:, None, :])
-        phar_mask = mask_from_sizes(num_nodes_phar.to(dev), n_phar_max)
-        draw = self._draws(noise, generator, (b, n_phar_max, nd + self.phar_nf))
-        z_phar, xh_pocket = self._initial_z(pocket, phar_mask, draw(None, 0))
-        scalars = self._reverse_scalars(respaced_st_pairs(cfg.timesteps, T))
-        for i in range(scalars.shape[0]):
-            z_phar, xh_pocket = self.reverse_step(
-                z_phar, xh_pocket, scalars[i], draw(i, 1), phar_mask, pocket.mask)
-
-        x_phar, h_phar, x_pocket, h_pocket = self._final_decode(
-            z_phar, xh_pocket, phar_mask, pocket.mask, draw(None, 2))
-        if cfg.com_free:
-            x_phar, x_pocket = remove_mean_conditional(
-                x_phar, x_pocket, phar_mask, pocket.mask)
-        phar_out = PointCloud(x=x_phar, h=h_phar * phar_mask[..., None], mask=phar_mask)
-        pocket_out = PointCloud(x=x_pocket, h=h_pocket, mask=pocket.mask)
-        return phar_out, pocket_out

@@ -37,6 +37,7 @@ from cmdgen_tpu_torch.models.transformer import (
     TransformerEncoder,
     layer_norm,
     sinusoidal_positions,
+    valid_bias,
 )
 
 # the modules only the posterior path and the mapping head read (training)
@@ -241,12 +242,14 @@ class GCPG(nn.Module):
     def init_cache(self, batch: int):
         return self.decoder.init_cache(batch, self.cfg.max_len, self.pos.device)
 
-    def decode_one(self, tok, t: int, mem, mem_valid, cache_k, cache_v, mem_kv=None):
+    def decode_one(self, tok, t: int, mem_kv, mem_bias, cache_k, cache_v):
         """Embed token ids [B] at position t, run one decoder step (cache
-        slot t, written in place). Returns (logits [B, V], caches)."""
+        slot t, written in place) against the memory's cross-attention
+        ``mem_kv`` and validity bias ``mem_bias`` (see
+        ``TransformerDecoder.decode_step``). Returns (logits [B, V], caches)."""
         x = self.word_embed(tok)[:, None, :] + self.pos[t][None, None, :]
         out, cache_k, cache_v = self.decoder.decode_step(
-            x, mem, cache_k, cache_v, t, mem_valid, mem_kv)
+            x, mem_kv, mem_bias, cache_k, cache_v, t)
         return self.word_pred(out[:, 0, :]), cache_k, cache_v
 
 
@@ -282,14 +285,14 @@ class SyntaxState:
                    vstack=torch.zeros((b, STACK_D), dtype=torch.int32, device=device))
 
 
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each int32 (bit 31 too: the shift is arithmetic)."""
-    shifts = torch.arange(32, dtype=torch.int32, device=x.device)
+def popcount32(x: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 (bit 31 too: the shift is arithmetic);
+    ``shifts`` is ``arange(32)`` int32 on x's device."""
     return ((x[:, None] >> shifts) & 1).sum(-1, dtype=torch.int32)
 
 
-def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
-    return (idx[:, None] == torch.arange(n, device=idx.device)).to(torch.int32)
+def _one_hot(idx: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    return (idx[:, None] == slots).to(torch.int32)
 
 
 class SyntaxConstraints:
@@ -320,6 +323,9 @@ class SyntaxConstraints:
         self.start = tables[:, 3]
         self.val = tables[:, 4]
         self.bond = tables[:, 5]
+        # step-invariant index vectors, formed once per decode
+        self.shifts = torch.arange(32, dtype=torch.int32, device=tables.device)
+        self.slots = torch.arange(STACK_D, dtype=torch.int32, device=tables.device)
 
     def forbidden(self, s: SyntaxState, tok: torch.Tensor, t: int, max_len: int,
                   valence: bool) -> torch.Tensor:
@@ -328,7 +334,7 @@ class SyntaxConstraints:
         first = t == 1
         depth, rings = s.depth[:, None], s.rings[:, None]
         delta, ring = self.delta[None, :], self.ring[None, :]
-        need = (s.depth + popcount32(s.rings))[:, None]
+        need = (s.depth + popcount32(s.rings, self.shifts))[:, None]
         ring_hits = (rings & ring) != 0
         ring_open = (ring != 0) & ~ring_hits
         closing = (delta < 0) | ring_hits
@@ -389,26 +395,25 @@ class SyntaxConstraints:
         t_ring = self.ring[nxt] != 0
         t_atom = t_val >= 0
         bo = torch.clamp_min(pend, 1)
-        zero = torch.zeros_like(bo)
         # bonds consumed from the attachment atom by this token
-        consume = torch.where((t_atom & (prev >= 0)) | t_ring, bo, zero)
+        consume = torch.where((t_atom & (prev >= 0)) | t_ring, bo, 0)
         prev_c = prev - consume
         # mirror consumption onto the stacked copy while the attachment atom
         # is itself the stack top (post-"("); depth is already updated
-        oh_top = _one_hot(torch.clamp(depth - d_nxt - 1, 0, STACK_D - 1), STACK_D)
+        oh_top = _one_hot(torch.clamp(depth - d_nxt - 1, 0, STACK_D - 1), self.slots)
         vstack = torch.where((fresh & (consume > 0))[:, None],
                              vstack - oh_top * consume[:, None], vstack)
         # "(" pushes the attachment budget at the pre-push depth
-        oh_push = _one_hot(torch.clamp(depth - 1, 0, STACK_D - 1), STACK_D)
+        oh_push = _one_hot(torch.clamp(depth - 1, 0, STACK_D - 1), self.slots)
         vstack = torch.where(t_push[:, None],
                              vstack * (1 - oh_push) + oh_push * prev_c[:, None], vstack)
         # ")" restores the saved attachment (the popped slot is the new depth's)
         popped = torch.sum(vstack * oh_top, dim=1, dtype=torch.int32)
-        prev = torch.where(t_atom, t_val - torch.where(prev >= 0, bo, zero),
+        prev = torch.where(t_atom, t_val - torch.where(prev >= 0, bo, 0),
                            torch.where(t_pop, popped, prev_c))
-        prev = torch.where(t_bond < 0, torch.full_like(prev, -1), prev)  # "." disconnect
-        pend = torch.where(t_bond > 0, t_bond, zero)
-        fresh = torch.where(t_push, torch.ones_like(fresh), (t_bond > 0) & fresh)
+        prev = torch.where(t_bond < 0, -1, prev)  # "." disconnect
+        pend = torch.where(t_bond > 0, t_bond, 0)
+        fresh = t_push | ((t_bond > 0) & fresh)
         return SyntaxState(depth=depth, rings=rings, prev=prev, pend=pend, fresh=fresh,
                            vstack=vstack)
 
@@ -435,7 +440,6 @@ def generate(
     valence: bool = False,
     gumbel: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
-    return_gaps: bool = False,
 ):
     """Batched autoregressive decode, step for step the JAX package's
     ``generate``. Returns token ids [B, max_len-1] (int64, without <sos>);
@@ -449,9 +453,7 @@ def generate(
     takes the argmax; both return the first index on a tie.
     ``constraints`` (``syntax_tables``, [V, 6]) masks forbidden tokens to
     exactly -1e9 (:class:`SyntaxConstraints`); ``valence`` adds the valence
-    state machine. ``return_gaps`` also returns, per row and step, the gap
-    between the two largest scores the token was picked from ([B,
-    max_len-1]): where two devices' tokens part, it tells a near tie.
+    state machine.
     """
     if valence and constraints is None:
         raise ValueError("valence masking needs the syntax tables (constraints=)")
@@ -464,7 +466,9 @@ def generate(
     else:
         mem, mem_valid = memory
     cache_k, cache_v = model.init_cache(b)
+    # the memory's cross-attention K/V and validity bias, once per decode
     mem_kv = model.decoder.memory_kv(mem)
+    mem_bias = None if mem_valid is None else valid_bias(mem_valid)
     if random_sample:
         if gumbel is None:
             gumbel = sample_gumbel((max_len - 1, b, model.vocab_size), generator, dev)
@@ -476,24 +480,20 @@ def generate(
     tok = torch.full((b,), model.sos_value, dtype=torch.int64, device=dev)
     finished = torch.zeros((b,), dtype=torch.bool, device=dev)
     pad = torch.full_like(tok, model.pad_value)
-    out, gaps = [], []
+    out = []
     for t in range(1, max_len):
         # the token at scan step t sits at position t-1 (cache slot t-1)
-        logits, cache_k, cache_v = model.decode_one(tok, t - 1, mem, mem_valid,
-                                                    cache_k, cache_v, mem_kv)
+        logits, cache_k, cache_v = model.decode_one(tok, t - 1, mem_kv, mem_bias,
+                                                    cache_k, cache_v)
         if con is not None:
             logits = torch.where(con.forbidden(state, tok, t, max_len, valence),
                                  NEG_INF, logits)
         scores = logits / temp + gumbel[t - 1] if random_sample else logits
         nxt = torch.argmax(scores, dim=-1)
-        if return_gaps:
-            top2 = torch.topk(scores, 2, dim=-1).values
-            gaps.append(top2[:, 0] - top2[:, 1])
         nxt = torch.where(finished, pad, nxt)
         finished = finished | (nxt == model.eos_value)
         if con is not None:
             state = con.update(state, nxt, valence)
         out.append(nxt)
         tok = nxt
-    tokens = torch.stack(out, dim=1)
-    return (tokens, torch.stack(gaps, dim=1)) if return_gaps else tokens
+    return torch.stack(out, dim=1)

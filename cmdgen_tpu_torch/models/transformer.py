@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -109,16 +109,14 @@ class MHA(nn.Module):
         """Attention of x_q to precomputed ``kv_heads`` under ``bias``."""
         return self.attend(self.heads(self.q(x_q)), kv[0], kv[1], bias)
 
-    def decode_step(self, x_q, cache_k, cache_v, index: int):
+    def decode_step(self, x_q, cache_k, cache_v, index: int, bias):
         """Single-token self-attention against a KV cache.
 
         x_q [B, 1, D]; cache_k/v [B, T_max, D] (raw projections, before the
-        head split), written in place at ``index``. Returns out [B, 1, D]."""
+        head split), written in place at ``index``; ``bias`` [1, 1, 1,
+        T_max] masks the slots after ``index``. Returns out [B, 1, D]."""
         cache_k[:, index] = self.k(x_q)[:, 0]
         cache_v[:, index] = self.v(x_q)[:, 0]
-        t_max = cache_k.shape[1]
-        pos = torch.arange(t_max, device=x_q.device)
-        bias = torch.where(pos <= index, 0.0, NEG_INF)[None, None, None, :]
         return self.attend(self.heads(self.q(x_q)), self.heads(cache_k),
                            self.heads(cache_v), bias)
 
@@ -180,11 +178,12 @@ class DecoderLayer(nn.Module):
         x = x + self.cross_attn(self.ln2(x), mem, valid_kv=mem_valid)
         return x + self.ff(self.ln3(x))
 
-    def decode_step(self, x, mem_kv, mem_bias, cache_k, cache_v, index: int):
+    def decode_step(self, x, mem_kv, mem_bias, cache_k, cache_v, index: int, self_bias):
         """One token: x [B, 1, D]; ``mem_kv`` the cross-attention's
-        ``kv_heads`` of the memory, ``mem_bias`` its validity bias; the
-        layer's caches are written in place."""
-        x = x + self.self_attn.decode_step(self.ln1(x), cache_k, cache_v, index)
+        ``kv_heads`` of the memory, ``mem_bias`` its validity bias;
+        ``self_bias`` the cache's causal bias at ``index``; the layer's
+        caches are written in place."""
+        x = x + self.self_attn.decode_step(self.ln1(x), cache_k, cache_v, index, self_bias)
         x = x + self.cross_attn.attend_kv(self.ln2(x), mem_kv, mem_bias)
         return x + self.ff(self.ln3(x))
 
@@ -216,14 +215,14 @@ class TransformerDecoder(nn.Module):
         memory is projected once per decode, not once per step."""
         return [layer.cross_attn.kv_heads(mem) for layer in self.layers()]
 
-    def decode_step(self, x, mem, cache_k, cache_v, index: int, mem_valid=None,
-                    mem_kv: Optional[list] = None):
+    def decode_step(self, x, mem_kv, mem_bias, cache_k, cache_v, index: int):
         """One token through all layers with the stacked KV cache, written
-        in place. x [B, 1, D]; cache_k/v [L, B, T_max, D]. ``mem_kv``
-        (:meth:`memory_kv` of ``mem``) saves the memory's projections."""
-        if mem_kv is None:
-            mem_kv = self.memory_kv(mem)
-        bias = None if mem_valid is None else valid_bias(mem_valid)
+        in place. x [B, 1, D]; ``mem_kv`` is :meth:`memory_kv` of the
+        memory and ``mem_bias`` its :func:`valid_bias` (or None), both
+        formed once per decode; cache_k/v [L, B, T_max, D]."""
+        pos = torch.arange(cache_k.shape[2], device=x.device)
+        self_bias = torch.where(pos <= index, 0.0, NEG_INF)[None, None, None, :]
         for i, layer in enumerate(self.layers()):
-            x = layer.decode_step(x, mem_kv[i], bias, cache_k[i], cache_v[i], index)
+            x = layer.decode_step(x, mem_kv[i], mem_bias, cache_k[i], cache_v[i], index,
+                                  self_bias)
         return self.final_ln(x), cache_k, cache_v

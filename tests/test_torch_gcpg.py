@@ -39,6 +39,7 @@ from cmdgen_tpu_torch.models.gcpg import (
     popcount32,
 )
 from cmdgen_tpu_torch.models.ppencoder import PPEncoder
+from cmdgen_tpu_torch.models.transformer import valid_bias
 from test_gcpg import VALENCE_CORPUS
 
 torch.set_num_threads(1)
@@ -120,9 +121,9 @@ def test_decode_step_matches_full_decoder(setup):
     with torch.no_grad():
         mem, mem_valid = tmodel.prior_memory(_t(pp_h), _t(pp_e), _t(pp_mask), _t(conds), z=_t(z))
         cache_k, cache_v = tmodel.init_cache(B)
-        mem_kv = tmodel.decoder.memory_kv(mem)
-        steps = [tmodel.decode_one(_t(targets[:, t]), t, mem, mem_valid, cache_k, cache_v,
-                                   mem_kv)[0] for t in range(10)]
+        mem_kv, mem_bias = tmodel.decoder.memory_kv(mem), valid_bias(mem_valid)
+        steps = [tmodel.decode_one(_t(targets[:, t]), t, mem_kv, mem_bias, cache_k,
+                                   cache_v)[0] for t in range(10)]
         inc = torch.stack(steps, dim=1)
         full = tmodel.word_pred(tmodel.decoder(
             tmodel.word_embed(_t(targets[:, :10])) + tmodel.pos[None, :10], mem, mem_valid))
@@ -202,7 +203,7 @@ def test_decode_only_model_matches_and_refuses_training(setup):
 def test_popcount_counts_bit_31():
     x = torch.tensor([0, 1, 7, -1, np.int32(1) << np.int32(31), (1 << 30) | 5],
                      dtype=torch.int32)
-    assert popcount32(x).tolist() == [0, 1, 3, 32, 1, 3]
+    assert popcount32(x, torch.arange(32, dtype=torch.int32)).tolist() == [0, 1, 3, 32, 1, 3]
 
 
 # ------------------------------------------------------------------ decode

@@ -402,6 +402,7 @@ def test_gcl_widths_outside_k1_card_matches_cpu(dev, hidden, cdt, tol):
 # CPU's top two scores lie within 1e-3 (counted, as in chip_smoke.py).
 
 def test_gcpg_decode_card_matches_cpu(dev):
+    import importlib.util
     import random
     from pathlib import Path
 
@@ -411,7 +412,11 @@ def test_gcpg_decode_card_matches_cpu(dev):
     from cmdgen_tpu_torch.models.gcpg import generate, sample_gumbel
     from cmdgen_tpu_torch.pipeline.generate_smiles import condition_grid
 
-    grun = Path(__file__).resolve().parent.parent / "cmdgen_tpu_torch" / "assets" / "grun_r5cn"
+    repo = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("chip_smoke", repo / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)  # its decode_gaps
+    grun = repo / "cmdgen_tpu_torch" / "assets" / "grun_r5cn"
     m_cpu, tok = load_port_gcpg(grun, "cpu")
     m_dev, _ = load_port_gcpg(grun, dev)
     b = 16
@@ -425,10 +430,11 @@ def test_gcpg_decode_card_matches_cpu(dev):
     tables = torch.from_numpy(syntax_tables(tok))
     for sampled in (False, True):
         kw = dict(random_sample=sampled, z=z, gumbel=noise, constraints=tables, valence=True)
-        ref, gaps = generate(m_cpu, *x, return_gaps=True, **kw)
+        ref = generate(m_cpu, *x, **kw)
         got = generate(m_dev, *[v.to(dev) for v in x],
                        **{k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()})
         got = got.cpu()
+        gaps = smoke.decode_gaps(m_cpu, x, ref, **kw)
         for r in np.flatnonzero((got != ref).any(dim=1).numpy()):
             t = int(np.flatnonzero((got[r] != ref[r]).numpy())[0])
             assert gaps[r, t] < 1e-3, (r, t, float(gaps[r, t]))
