@@ -47,11 +47,30 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    width with seeded random weights, timed; card against CPU at B=16 at
    both widths (teacher-forced logits, greedy and sampled tokens on the same
    Gumbel noise, rows apart only at counted near ties); a profile of one
-   warm decode; the ``generate`` CLI once through.
+   warm decode; the ``generate`` CLI once through;
+8. stage 4, alignment: the unique valid SMILES of step 7's decode with the
+   valence state machine at T=0.7, matched to its hypothesis and aligned
+   at run-all's settings (5 conformers, 100 refinement steps, chunks of 64
+   molecules, 16-atom buckets; first chunk timed apart from the warm ones,
+   conformers/s, matched, aligned, dropped conformers, the medians of the
+   best RMSD and of its bounds violation); the embedding and Kabsch of one
+   chunk on the card against the CPU with the same draws; a warm chunk
+   profiled at 100 and at 0 refinement steps (busy share, device ops per
+   refinement step); the ``align`` CLI once through, its SDFs and
+   ``rmsd_values.npy`` checked;
+9. ``run-all`` through the CLI on ``qrun_aa`` + ``grun_r5cn`` and two
+   synthetic pockets at round 5's settings cut to the time limit (512
+   decodes per hypothesis, not 2,048; 2 pockets, not 8): once with the
+   msgpass engine, once more with ``--keep-top-match 0.25``, once with
+   ``--engine fused``; each run's stats, validity, aligned molecules/min
+   and kernel launches (K1 303 per pocket, K2 101), every written SDF
+   parsed, every RMSD finite, aligned > 0 and validity >= 0.5.
 
-Prints the card, a ``kernels`` JSON line, the throughput, a ``consensus``
-JSON line, a ``decode`` JSON line, and as the last line ``{"ok": true,
-"device": {...}}``. Any failure raises (exit code != 0).
+Prints the card, a ``kernels`` JSON line (``launches``: run-all's, K1 with
+the msgpass engine and K2 with the fused one; ``launches_by_path``: every
+path's), the throughput, a ``consensus`` JSON line, a ``decode`` JSON
+line, an ``align`` JSON line, a ``run_all`` JSON line, and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
 ``--kernels-only`` stops after step 2 and prints the checks as one JSON
 line (no ``ok`` line): the quick way to compare two trees' kernels. Such
@@ -61,6 +80,8 @@ the full run.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -113,6 +134,22 @@ DECODE_TIE = 1e-3
 # stage 1's options on the card vs the CPU (float32): the trained
 # denoiser's limit
 OPTION_TOL = 1e-3
+# stage 4 at run-all's settings: conformers per molecule, refinement steps,
+# molecules per align call, atom-count bucket; card vs CPU on one chunk
+# with the same draws: the RMSD of every conformer both keep (Å) and its
+# coordinates (relative to max|CPU|), float32 through 100 steps
+ALIGN_C, ALIGN_STEPS, ALIGN_CHUNK, ALIGN_BUCKET = 5, 100, 64, 16
+ALIGN_RMSD_TOL = 1e-3
+ALIGN_REL = 1e-3
+# run-all on two synthetic pockets: round 5's end-to-end settings
+# (runs/summary_triple_target_r5.json) with 512 decodes per hypothesis for
+# its 2,048 and 2 pockets for its 8, to fit the time limit
+RUN_ALL_ARGS = ["--n-clouds", "64", "--timesteps", "100", "--clamp-x", "8",
+                "--neighbor-k", "16", "--cluster-counts", "4", "5", "6",
+                "--smiles-per-hypothesis", "512", "--constrain-decode",
+                "--constrain-valence", "--decode-temperature", "0.7"]
+RUN_ALL_POCKETS = 2
+RUN_ALL_VALID_MIN = 0.5
 
 
 def log(*a):
@@ -957,7 +994,9 @@ def decode_gaps(model, x, tokens, random_sample=False, z=None, temperature=1.0,
 def decode_phase(dev, repo, posp):
     """Stage 3 on the card: the trained grun_r5cn decode of a consensus
     hypothesis at B=512 in three modes, the default width timed, card vs
-    CPU at B=16, a profile of one warm decode and the generate CLI."""
+    CPU at B=16, a profile of one warm decode and the generate CLI.
+    Returns (the decode line's dict, the unique valid SMILES of the
+    ``constrain + valence`` run at T=0.7)."""
     import copy
     import random
 
@@ -1013,6 +1052,9 @@ def decode_phase(dev, repo, posp):
     # (0.90-0.91 at T=0.7 on real pockets), on this hypothesis
     toks, _, _ = timed(model, dict(modes["constrain_valence"], temperature=0.7), seed=len(modes))
     validity, uniqueness, _ = decode_stats(tok, torch.cat(toks))
+    # the align phase's molecules: this run's unique valid SMILES
+    canon = (canonical_smiles(s) for s in tok.get_text(torch.cat(toks).cpu().numpy()))
+    smiles_t07 = list(dict.fromkeys(c for c in canon if c))
     out["grun_r5cn_t0.7"] = {"validity": validity, "uniqueness": uniqueness,
                              "decoded": len(toks) * DECODE_B}
     log(f"decode grun_r5cn constrain_valence at T=0.7: validity {validity:.4f}, "
@@ -1097,6 +1139,189 @@ def decode_phase(dev, repo, posp):
         raise AssertionError(f"generate CLI: malformed output ({len(lines)} lines)")
     out["cli"] = {"ms": ms, "smiles": len(lines), "n": DECODE_B}
     log(f"generate CLI: {len(lines)} unique valid SMILES of {DECODE_B} in {ms:.0f} ms")
+    return out, smiles_t07
+
+
+def align_phase(dev, repo, posp, smiles):
+    """Stage 4 on the card: the decode phase's unique valid SMILES aligned
+    onto its hypothesis in run-all's chunks (first chunk apart from the
+    warm ones), card vs CPU on one chunk with the same draws, a warm chunk
+    profiled at 100 and at 0 refinement steps, and the align CLI once."""
+    import torch
+
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.chem.sdf import read_sdf
+    from cmdgen_tpu_torch.device import make_generator
+    from cmdgen_tpu_torch.ops.dgeom import bounds_violation, embed_conformers_padded, embed_draws
+    from cmdgen_tpu_torch.ops.dgeom import padded_bounds
+    from cmdgen_tpu_torch.pipeline import align as al
+    from cmdgen_tpu_torch.pipeline.run_all import align_chunks
+
+    pp, types = al.load_pp_points(posp)
+    t0 = time.perf_counter()
+    entries = al.prepare_align_entries(smiles, types)
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    chunks = align_chunks(entries, ALIGN_BUCKET, ALIGN_CHUNK)
+    if not chunks:
+        raise AssertionError(f"align: none of {len(smiles)} SMILES matched {types}")
+    gen = make_generator(dev, 0)
+    kw = dict(n_conformers=ALIGN_C, num_keep=ALIGN_C, refine_steps=ALIGN_STEPS,
+              bucket=ALIGN_BUCKET)
+    results, calls, kept_by_chunk = {}, [], []
+    for chunk in chunks:
+        res, ms = synced_ms(lambda: al.align_entries(chunk, pp, gen, **kw))
+        results.update(res)
+        calls.append((len(chunk), ms))
+        kept_by_chunk.append(sum(len(r) for r in res.values()))
+    mols = {idx: mol for idx, mol, _ in entries}
+    kept = sum(len(r) for r in results.values())
+    best = [r[0] for r in results.values()]
+    warm = calls[1:] or calls
+    out = {"smiles": len(smiles), "hypothesis_points": len(types), "matched": len(entries),
+           "aligned": len(results), "chunks": len(chunks), "prep_ms": prep_ms,
+           "first_chunk": {"molecules": calls[0][0], "ms": calls[0][1]},
+           "warm_chunk_ms": [c[1] for c in calls[1:]],
+           "conformers_per_s": sum(n for n, _ in warm) * ALIGN_C / sum(ms for _, ms in warm) * 1e3,
+           "dropped_conformers": len(entries) * ALIGN_C - kept,
+           "kept_conformers": kept,
+           "median_best_rmsd": float(np.median([e for e, _ in best])) if best else None,
+           "median_bounds_violation": float(np.median(
+               [bounds_violation(mols[i], r[0][1]) for i, r in results.items()])) if best else None}
+    log(f"align: {len(smiles)} SMILES, {len(entries)} matched the {len(types)}-point "
+        f"hypothesis, {len(results)} aligned in {len(chunks)} chunks; first chunk "
+        f"{calls[0][1]:.1f} ms, {out['conformers_per_s']:.0f} conformers/s warm; "
+        f"{out['dropped_conformers']} of {len(entries) * ALIGN_C} conformers dropped (not finite "
+        f"or RMSD >= {al.MAX_RMSD:g} Å)")
+
+    # card vs CPU on the chunk that kept the most conformers (most diverge
+    # on these hypotheses; a diverged one is compared only as dropped on
+    # both), the same draws, every conformer
+    chunk = chunks[int(np.argmax(kept_by_chunk))]
+    n_pad = -(-max(e[1].n_atoms for e in chunk) // ALIGN_BUCKET) * ALIGN_BUCKET
+    lo, up, amask = padded_bounds([e[1] for e in chunk], n_pad)
+    gmat = np.stack([al.group_matrix(g, n_pad) for _, _, g in chunk])
+    targets = np.sqrt(((pp[:, None] - pp[None]) ** 2).sum(-1)).astype(np.float32)
+    draws = embed_draws(len(chunk), ALIGN_C, n_pad, torch.Generator().manual_seed(1), "cpu")
+    posed = []
+    for d in ("cpu", dev):
+        t = [torch.from_numpy(a).to(d) for a in (lo, up, amask, gmat, targets)]
+        confs = embed_conformers_padded(
+            *t[:3], ALIGN_C, ALIGN_STEPS, groups=t[3],
+            targets=t[4].expand(len(chunk), *targets.shape), centroid_weight=2.0,
+            draws=tuple(v.to(d) for v in draws))
+        x, errs = al.pose_conformers(confs, t[3][:, None], torch.from_numpy(pp).to(d))
+        posed.append((x.cpu().double(), errs.cpu()))
+    (x_cpu, e_cpu), (x_dev, e_dev) = posed
+    keep_cpu = torch.isfinite(e_cpu) & (e_cpu < al.MAX_RMSD)
+    keep_dev = torch.isfinite(e_dev) & (e_dev < al.MAX_RMSD)
+    both = keep_cpu & keep_dev
+    rmsd_err = (e_dev - e_cpu)[both].abs().max().item() if both.any() else 0.0
+    ref = x_cpu[both]
+    coord_rel = ((x_dev[both] - ref).abs().max() / ref.abs().max()).item() if both.any() else 0.0
+    out["card_vs_cpu"] = {"molecules": len(chunk), "atoms_padded": n_pad,
+                          "kept_both": int(both.sum()), "kept_apart": int((keep_cpu ^ keep_dev).sum()),
+                          "rmsd_max_abs_err": rmsd_err, "coords_rel_err": coord_rel}
+    log(f"align card vs CPU ({len(chunk)} molecules x {ALIGN_C} conformers, same draws): "
+        f"{out['card_vs_cpu']}")
+    if (not both.any() or out["card_vs_cpu"]["kept_apart"] or rmsd_err > ALIGN_RMSD_TOL
+            or coord_rel > ALIGN_REL):
+        raise AssertionError(f"align disagrees with the CPU: {out['card_vs_cpu']}")
+
+    # one warm chunk (the largest) profiled at 100 and at 0 refinement steps
+    chunk = max(chunks, key=len)
+    prof = {}
+    for steps in (ALIGN_STEPS, 0):
+        prof[steps] = device_profile(lambda: al.align_entries(
+            chunk, pp, gen, **dict(kw, refine_steps=steps)), 1)
+    out["profile"] = dict(prof[ALIGN_STEPS], molecules=len(chunk),
+                          device_ops_per_refine_step=(prof[ALIGN_STEPS]["device_ops"]
+                                                      - prof[0]["device_ops"]) / ALIGN_STEPS,
+                          device_ops_without_refinement=prof[0]["device_ops"],
+                          wall_us_per_device_op=prof[ALIGN_STEPS]["wall_ms"] * 1e3
+                          / prof[ALIGN_STEPS]["device_ops"])
+    log(f"align profile (one chunk of {len(chunk)}): {json.dumps(out['profile'])}")
+
+    # the align CLI once through on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "smiles.txt").write_text("\n".join(smiles) + "\n")
+        with contextlib.redirect_stdout(io.StringIO()):  # its {SMILES: RMSD} line
+            best_cli, ms = synced_ms(lambda: cli.main([
+                "align", str(tmp / "smiles.txt"), str(posp), str(tmp / "out"), "--n-conformers",
+                str(ALIGN_C), "--seed", "0", "--device", "cuda"]))
+        rmsds = np.load(tmp / "out" / "rmsd_values.npy")
+        sdfs = sorted((tmp / "out").glob("mol_*.sdf"))
+        for f in sdfs:
+            back = read_sdf(f)
+            if not back or not all(np.isfinite(c).all() for _, c in back):
+                raise AssertionError(f"align CLI: {f.name} does not parse")
+    if not (len(sdfs) == len(rmsds) == len(best_cli) > 0 and np.isfinite(rmsds).all()):
+        raise AssertionError(f"align CLI: {len(sdfs)} SDFs, {len(rmsds)} RMSDs, "
+                             f"{len(best_cli)} molecules")
+    out["cli"] = {"ms": ms, "aligned": len(best_cli), "median_rmsd": float(np.median(rmsds))}
+    log(f"align CLI: {len(best_cli)} molecules posed in {ms:.0f} ms")
+    return out
+
+
+def run_all_phase(dev, repo):
+    """run-all through the CLI on the trained qrun_aa and grun_r5cn, two
+    synthetic pockets: msgpass, msgpass with --keep-top-match 0.25, fused.
+    Each run's stats, validity = valid/raw, aligned molecules/min and the
+    kernels' launches (counts set to 0 just before the run)."""
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.chem.mol import mol_from_smiles
+    from cmdgen_tpu_torch.chem.sdf import read_sdf
+    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_pocket_pdb
+
+    assets = repo / "cmdgen_tpu_torch" / "assets"
+    runs = {"msgpass": [], "keep_top_match": ["--keep-top-match", "0.25"],
+            "fused": ["--engine", "fused"]}
+    out = {"settings": RUN_ALL_ARGS, "pockets": RUN_ALL_POCKETS,
+           "cut_from_round_5": {"smiles_per_hypothesis": [2048, 512], "pockets": [8, 2],
+                                "pocket": "synthetic CA pockets, not CrossDocked test pockets"},
+           "runs": {}}
+    # per pocket: one sampling batch of T + 1 denoiser calls (qrun_aa: 3 GCLs)
+    calls = (int(RUN_ALL_ARGS[RUN_ALL_ARGS.index("--timesteps") + 1]) + 1) * RUN_ALL_POCKETS
+    want = {"msgpass": {"gcl_message_agg": 3 * calls, "egnn_forward_fused": 0},
+            "fused": {"gcl_message_agg": 0, "egnn_forward_fused": calls}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pdbs = []
+        for i in range(RUN_ALL_POCKETS):
+            pdbs.append(tmp / f"pocket_{i}.pdb")
+            pdbs[-1].write_text(synthetic_pocket_pdb(np.random.RandomState(i)))
+        for name, extra in runs.items():
+            out_dir = tmp / name
+            gcl_message_agg.launches = 0
+            egnn_forward_fused.launches = 0
+            (results, stats), ms = synced_ms(lambda: cli.main([
+                "run-all", str(assets / "qrun_aa"), str(assets / "grun_r5cn"), str(out_dir),
+                *map(str, pdbs), "--ref-ligand", "L:1", *RUN_ALL_ARGS, "--seed", "0",
+                "--device", "cuda", *extra]))
+            launches = {"gcl_message_agg": gcl_message_agg.launches,
+                        "egnn_forward_fused": egnn_forward_fused.launches}
+            expect = want["fused" if name == "fused" else "msgpass"]
+            if launches != expect:
+                raise AssertionError(f"run-all {name}: launches {launches}, expected {expect}")
+            validity = stats["valid_smiles"] / max(stats["raw_smiles"], 1)
+            index = json.loads((out_dir / "results.json").read_text())
+            for entry in index:
+                back = read_sdf(out_dir / entry["file"])
+                n = mol_from_smiles(entry["smiles"]).n_atoms
+                if not back or any(m.n_atoms != n or not np.isfinite(c).all() for m, c in back):
+                    raise AssertionError(f"run-all {name}: {entry['file']} does not parse")
+                if not np.isfinite(entry["rmsd"]):
+                    raise AssertionError(f"run-all {name}: RMSD {entry['rmsd']}")
+            rec = dict(stats, validity=validity, ms=ms, launches=launches, written=len(index))
+            out["runs"][name] = rec
+            log(f"run-all {name}: {json.dumps(rec)}")
+            if not (stats["aligned"] > 0 and validity >= RUN_ALL_VALID_MIN
+                    and len(index) == len(results)):
+                raise AssertionError(f"run-all {name}: aligned {stats['aligned']}, validity "
+                                     f"{validity} (floor {RUN_ALL_VALID_MIN}), {len(index)} "
+                                     f"written of {len(results)}")
     return out
 
 
@@ -1157,7 +1382,9 @@ def main():
         consensus = consensus_phase(dev, repo, hypothesis)
         consensus["options"] = options_phase(dev, repo)
         consensus["tf32_default"] = tf32
-        decode = decode_phase(dev, repo, hypothesis)
+        decode, smiles_t07 = decode_phase(dev, repo, hypothesis)
+        align = align_phase(dev, repo, hypothesis, smiles_t07)
+    run_all = run_all_phase(dev, repo)
 
     def entry(name, source, replaces, checks, launches):
         main_check = checks[-1]  # bf16, the flagship sampling dtype
@@ -1174,14 +1401,21 @@ def main():
             "checks": checks,
         }
 
+    # launches: run-all's (this slice's main path: msgpass for K1, --engine
+    # fused for K2); each earlier path's count beside it
     kernels = [
         entry("gcl_message_agg", "cmdgen_tpu_torch/csrc/egnn_msgpass.cu",
               "cmdgen_tpu/ops/egnn_msgpass.py:111", k1,
-              sampling["msgpass"][2]["gcl_message_agg"]),
+              run_all["runs"]["msgpass"]["launches"]["gcl_message_agg"]),
         entry("egnn_forward_fused", "cmdgen_tpu_torch/csrc/egnn_fused.cu",
               "cmdgen_tpu/ops/egnn_fused.py:209", k2,
-              sampling["fused"][2]["egnn_forward_fused"]),
+              run_all["runs"]["fused"]["launches"]["egnn_forward_fused"]),
     ]
+    for kern, engine in zip(kernels, ("msgpass", "fused")):
+        kern["launches_by_path"] = {
+            "flagship_sampling": sampling[engine][2][kern["name"]],
+            "trained_sample_phars": trained[engine][kern["name"]],
+            "run_all": kern["launches"]}
     kernels[0]["grid"] = k1[-1]["grid"]
     kernels[0]["stage_shares"] = k1[-1]["stage_shares"]
     kernels[0]["batch_132"] = {key: k1_wide[key] for key in (
@@ -1198,6 +1432,8 @@ def main():
     }))
     log(json.dumps({"consensus": consensus, "card": card}))
     log(json.dumps({"decode": decode, "card": card}))
+    log(json.dumps({"align": align, "card": card}))
+    log(json.dumps({"run_all": run_all, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,7 @@ the fitted linear map ``d*1.06068655 - 0.43105129``; ``.edgep`` files carry
 the distance matrix directly. Emits the same dense padded arrays as
 chem/ppgraph.py (pp_h [8,8], pp_e [8,8,1], pp_mask [8]).
 
-A copy of ``cmdgen_tpu/chem/posp.py`` that holds its one constant from
-``chem/ppgraph.py`` itself.
+A copy of ``cmdgen_tpu/chem/posp.py``.
 """
 from __future__ import annotations
 
@@ -18,8 +17,7 @@ from typing import List, Optional
 
 import numpy as np
 
-# padded pharmacophore-graph size (cmdgen_tpu/chem/ppgraph.py:27)
-MAX_NUM_PP_GRAPHS = 8
+from cmdgen_tpu_torch.chem.ppgraph import MAX_NUM_PP_GRAPHS
 
 IDX2PHAR = {
     0: "AROM", 1: "HYBL", 2: "POSC", 3: "HACC", 4: "HDON",

@@ -5,11 +5,16 @@
   python -m cmdgen_tpu_torch.cli get-phar OUT.json HYP.posp \\
       [--method gmm|kmeans|dbscan] [--dual-json T2.json [--dual-mode gmm|dbscan|indiv]]
       [--select-json ANTI.json] [--device cuda]
-  python -m cmdgen_tpu_torch.cli generate HYP.posp OUT_DIR GCPG_DIR [--n 128] \
+  python -m cmdgen_tpu_torch.cli generate HYP.posp OUT_DIR GCPG_DIR [--n 128] \\
       [--constrain-decode] [--constrain-valence] [--no-filter] [--device cuda]
+  python -m cmdgen_tpu_torch.cli align SMILES.txt HYP.posp OUT_DIR \\
+      [--n-conformers 10] [--num-keep 3] [--tolerance 0] [--device cuda]
+  python -m cmdgen_tpu_torch.cli run-all CKPT_DIR GCPG_DIR OUT_DIR POCKET.pdb [...] \\
+      --ref-ligand A:1 [--engine msgpass|fused] [--device cuda]
 
-Stages 1 (``sample-phars``), 2 (``get-phar``) and 3 (``generate``) are
-ported. ``CKPT_DIR`` is a port checkpoint directory (``params.npz`` +
+Stages 1 (``sample-phars``), 2 (``get-phar``), 3 (``generate``) and 4
+(``align``) are ported, and ``run-all`` chains all four as one streaming
+driver. ``CKPT_DIR`` is a port checkpoint directory (``params.npz`` +
 ``config.json``, see ``convert.py``), e.g. ``cmdgen_tpu_torch/assets/qrun_aa``;
 ``GCPG_DIR`` a GCPG one, e.g. ``cmdgen_tpu_torch/assets/grun_r5cn``. Every
 command runs on ``cuda`` unless given ``--device cpu``.
@@ -52,11 +57,12 @@ def _add_sample_phars(sub):
     p.set_defaults(run=run_sample_phars)
 
 
-def run_sample_phars(args):
+def _diffphar_model(ckpt_dir, args):
+    """The DiffPhar model of a port checkpoint with the sampling flags of
+    ``args`` applied, on ``args.device``: (model, config)."""
     from cmdgen_tpu_torch.convert import build_model, read_port_checkpoint
-    from cmdgen_tpu_torch.pipeline.sample_phars import sample_phars_to_json
 
-    cfg, params = read_port_checkpoint(args.ckpt_dir)
+    cfg, params = read_port_checkpoint(ckpt_dir)
     ddpm = cfg.ddpm
     if args.ddim_eta is not None:
         ddpm = dataclasses.replace(ddpm, ddim_eta=args.ddim_eta)
@@ -67,7 +73,13 @@ def run_sample_phars(args):
         dyn = dataclasses.replace(
             dyn, egnn=dataclasses.replace(dyn.egnn, neighbor_k=args.neighbor_k))
     cfg = dataclasses.replace(cfg, ddpm=ddpm, dynamics=dyn)
-    model = build_model(cfg, params, args.device, args.engine)
+    return build_model(cfg, params, args.device, args.engine), cfg
+
+
+def run_sample_phars(args):
+    from cmdgen_tpu_torch.pipeline.sample_phars import sample_phars_to_json
+
+    model, cfg = _diffphar_model(args.ckpt_dir, args)
     result = sample_phars_to_json(
         model, args.pdbfile, args.out_json, dataset=cfg.data.dataset,
         representation=cfg.data.pocket_representation,
@@ -188,12 +200,153 @@ def run_generate(args):
     return out
 
 
+def _add_align(sub):
+    p = sub.add_parser("align", help="align SMILES onto a .posp")
+    p.add_argument("smiles_file", help="SMILES list, one a line")
+    p.add_argument("posp_file")
+    p.add_argument("out_dir")
+    p.add_argument("--n-conformers", type=int, default=10)
+    p.add_argument("--num-keep", type=int, default=3)
+    p.add_argument("--tolerance", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(run=run_align)
+
+
+def run_align(args):
+    import json
+
+    from cmdgen_tpu_torch.device import resolve_device
+    from cmdgen_tpu_torch.pipeline.align import align_smiles_list
+
+    smiles = Path(args.smiles_file).read_text().strip().split("\n")
+    best = align_smiles_list(
+        smiles, args.posp_file, args.out_dir,
+        generator=make_generator(resolve_device(args.device), args.seed),
+        n_conformers=args.n_conformers, num_keep=args.num_keep,
+        tolerance=args.tolerance,
+    )
+    print(json.dumps({k: round(v, 3) for k, v in best.items()}))
+    return best
+
+
+def _add_run_all(sub):
+    p = sub.add_parser(
+        "run-all",
+        help="pocket PDB(s) -> aligned molecules, one overlapped run "
+             "(sample -> consensus -> generate -> align as a streaming "
+             "driver instead of four file-to-file stages)",
+    )
+    p.add_argument("diff_ckpt", help="DiffPhar port checkpoint dir")
+    p.add_argument("gcpg_ckpt", help="GCPG port checkpoint dir")
+    p.add_argument("out_dir")
+    p.add_argument("pdbfiles", nargs="+")
+    p.add_argument("--ref-ligand", default=None, help="chain:resid")
+    p.add_argument("--resi-list", nargs="*", default=None)
+    p.add_argument("--n-clouds", type=int, default=64)
+    p.add_argument("--timesteps", type=int, default=None)
+    p.add_argument("--consensus", default="gmm",
+                   choices=["gmm", "kmeans", "dbscan"])
+    p.add_argument("--cluster-counts", type=int, nargs="+", default=[4, 5])
+    p.add_argument("--smiles-per-hypothesis", type=int, default=256)
+    p.add_argument("--decode-batch", type=int, default=None,
+                   help="decode batch size (default: min(512, "
+                        "smiles-per-hypothesis))")
+    p.add_argument("--n-conformers", type=int, default=5)
+    p.add_argument("--neighbor-k", type=int, default=12)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--contact-filter", type=float, default=6.0,
+                   help="drop sampled points farther than this (Å) from "
+                        "the nearest pocket atom before consensus "
+                        "(0 disables; data p99 contact is ~4.1 Å)")
+    p.add_argument("--ddim-eta", type=float, default=None,
+                   help="DDIM reverse chain at this eta for the cloud "
+                        "sampler (0 = deterministic; default ancestral)")
+    p.add_argument("--clamp-x", type=float, default=None,
+                   help="static coordinate thresholding (Å) during cloud "
+                        "sampling")
+    p.add_argument("--keep-top-match", type=float, default=None,
+                   metavar="FRAC",
+                   help="rank aligned molecules by pharmacophore match "
+                        "score and keep only this top fraction (stats "
+                        "report the all-aligned and kept match means)")
+    p.add_argument("--decode-temperature", type=float, default=1.0,
+                   help="sampling-logit temperature for the SMILES "
+                        "decode (<1 sharpens)")
+    p.add_argument("--validity-gate", type=float, default=None,
+                   metavar="THRESH",
+                   help="per-hypothesis validity gate: decode a probe "
+                        "batch first and skip hypotheses whose probe "
+                        "validity is below THRESH")
+    p.add_argument("--gate-probe", type=int, default=256,
+                   help="probe decodes per hypothesis for --validity-gate")
+    p.add_argument("--constrain-decode", action="store_true",
+                   help="syntax-constrained SMILES decoding (mask "
+                        "unclosable/special tokens during sampling)")
+    p.add_argument("--constrain-valence", action="store_true",
+                   help="additionally mask valence-overflow "
+                        "continuations (per-atom bond budgets)")
+    p.add_argument("--engine", default="msgpass", choices=["msgpass", "fused"],
+                   help="stage 1's EGNN: msgpass (K1 per GCL) or fused (K2)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(run=run_run_all)
+
+
+def run_run_all(args):
+    """Prints the stats JSON and writes the posed SDFs and results.json;
+    returns (results, stats)."""
+    import json
+
+    from cmdgen_tpu_torch.convert import load_port_gcpg
+    from cmdgen_tpu_torch.pipeline.run_all import (
+        PipelineConfig,
+        run_pipeline,
+        write_pipeline_results,
+    )
+    from cmdgen_tpu_torch.pipeline.sample_phars import pocket_point_cloud
+
+    model, cfg = _diffphar_model(args.diff_ckpt, args)
+    gmodel, tokenizer = load_port_gcpg(args.gcpg_ckpt, args.device)
+    pockets = [
+        pocket_point_cloud(
+            f, cfg.data.dataset, cfg.data.pocket_representation,
+            ref_ligand=args.ref_ligand, resi_list=args.resi_list,
+        )
+        for f in args.pdbfiles
+    ]
+    pcfg = PipelineConfig(
+        n_clouds_per_pocket=args.n_clouds,
+        diff_timesteps=args.timesteps,
+        cluster_counts=tuple(args.cluster_counts),
+        consensus_method=args.consensus,
+        smiles_per_hypothesis=args.smiles_per_hypothesis,
+        decode_batch=(args.decode_batch if args.decode_batch
+                      else min(512, args.smiles_per_hypothesis)),
+        n_conformers=args.n_conformers,
+        contact_filter=(args.contact_filter
+                        if args.contact_filter > 0 else None),
+        keep_top_match_frac=args.keep_top_match,
+        decode_temperature=args.decode_temperature,
+        validity_gate=args.validity_gate,
+        validity_probe=args.gate_probe,
+        constrain_decode=args.constrain_decode,
+        constrain_valence=args.constrain_valence,
+    )
+    results, stats = run_pipeline(model, gmodel, tokenizer, pockets, args.seed, pcfg)
+    out = write_pipeline_results(results, args.out_dir)
+    print(json.dumps(stats))
+    print(f"wrote {out}")
+    return results, stats
+
+
 def main(argv: Optional[Sequence[str]] = None):
     parser = argparse.ArgumentParser(prog="cmdgen_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_sample_phars(sub)
     _add_get_phar(sub)
     _add_generate(sub)
+    _add_align(sub)
+    _add_run_all(sub)
     args = parser.parse_args(argv)
     return args.run(args)
 

@@ -1,8 +1,10 @@
 """The port's CLI on the CPU: ``sample-phars`` on the committed trained
 weights at a small T (the ``{Molecule_i: {family: [[x, y, z], ...]}}``
 schema the consensus stage reads, and ``--chain-gif``), ``get-phar``
-in every method and mode on synthetic clouds of four known sites, and
-``generate`` on the committed trained GCPG (``assets/grun_r5cn``)."""
+in every method and mode on synthetic clouds of four known sites,
+``generate`` on the committed trained GCPG (``assets/grun_r5cn``),
+``align`` with ``--tolerance 1``, and ``run-all`` on both committed
+checkpoints at T=4."""
 import json
 import os
 import subprocess
@@ -172,3 +174,65 @@ def test_cli_generate_defaults_to_cuda(tmp_path):
     posp.write_text(POSP)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["generate", str(posp), str(tmp_path), str(GRUN)])
+
+
+ALIGN_POSP = "AROM 0.0 0.0 0.0\nHACC 4.5 0.0 0.0\nHDON 1.0 4.0 0.5\n"
+
+
+def test_cli_align_cpu(tmp_path):
+    """Posed SDFs (num_keep conformers each) and rmsd_values.npy; a
+    molecule that matches no subset, and an invalid line, write nothing."""
+    from cmdgen_tpu_torch.chem.sdf import read_sdf
+
+    posp, smi = tmp_path / "hyp.posp", tmp_path / "smiles.txt"
+    posp.write_text(ALIGN_POSP)
+    smi.write_text("Oc1ccc(cc1)CCNC(=O)c1ccccc1O\nCOc1ccccc1\nnot_a_smiles\nCCCC\n")
+    best = cli.main(["align", str(smi), str(posp), str(tmp_path / "out"), "--n-conformers",
+                     "3", "--num-keep", "2", "--tolerance", "1", "--device", "cpu"])
+    assert set(best) == {"Oc1ccc(cc1)CCNC(=O)c1ccccc1O", "COc1ccccc1"}
+    assert np.load(tmp_path / "out" / "rmsd_values.npy").shape == (2,)
+    for i in (0, 1):
+        back = read_sdf(tmp_path / "out" / f"mol_{i}.sdf")
+        assert len(back) == 2 and all(np.isfinite(x).all() for _, x in back)
+
+
+def test_cli_run_all_cpu(tmp_path):
+    """run-all on the committed qrun_aa and grun_r5cn weights at T=4: the
+    stats JSON's counters and results.json's SDFs."""
+    from cmdgen_tpu_torch.chem.sdf import read_sdf
+
+    pdbs = []
+    for i in range(2):
+        pdbs.append(tmp_path / f"pocket_{i}.pdb")
+        pdbs[-1].write_text(synthetic_pocket_pdb(np.random.RandomState(i)))
+    out = tmp_path / "out"
+    results, stats = cli.main([
+        "run-all", str(CKPT), str(GRUN), str(out), *map(str, pdbs), "--ref-ligand", "L:1",
+        "--n-clouds", "8", "--timesteps", "4", "--clamp-x", "8", "--neighbor-k", "16",
+        "--cluster-counts", "4", "--smiles-per-hypothesis", "16", "--n-conformers", "2",
+        "--constrain-decode", "--constrain-valence", "--decode-temperature", "0.7",
+        "--contact-filter", "0", "--device", "cpu"])
+    assert stats["pockets"] == 2 and stats["hypotheses"] == 2
+    assert stats["raw_smiles"] == 32 >= stats["valid_smiles"] >= stats["unique_smiles"]
+    assert stats["unique_smiles"] >= stats["matched"] >= stats["aligned"] == len(results)
+    index = json.loads((out / "results.json").read_text())
+    assert len(index) == len(results)
+    for entry in index:
+        assert np.isfinite(entry["rmsd"])
+        back = read_sdf(out / entry["file"])
+        assert 1 <= len(back) <= 3 and all(np.isfinite(x).all() for _, x in back)
+
+
+def test_cli_align_and_run_all_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    posp, smi = tmp_path / "hyp.posp", tmp_path / "smiles.txt"
+    posp.write_text(ALIGN_POSP)
+    smi.write_text("COc1ccccc1\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["align", str(smi), str(posp), str(tmp_path / "out")])
+    pdb = tmp_path / "pocket.pdb"
+    pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(0)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["run-all", str(CKPT), str(GRUN), str(tmp_path / "ra"), str(pdb),
+                  "--ref-ligand", "L:1"])

@@ -445,3 +445,93 @@ def test_gcpg_decode_card_matches_cpu(dev):
             mem = m.prior_memory(*[v.to(d) for v in x], z=z.to(d))
             logits.append(m.word_pred(m.decoder_states(targets.to(d), *mem)).cpu())
     assert (logits[1] - logits[0]).abs().max() <= 1e-4 * logits[0].abs().max()
+
+
+# ------------------------------------------------------------------------
+# Stage 4 and run-all. The embedding (100 refinement steps, float32) and
+# the alignment of four molecules on the card against the CPU with the
+# same draws: coordinates within 1e-3 of max|CPU|, RMSDs within 1e-3 Å,
+# the same conformers kept (chip_smoke.py's limits). One run_pipeline on
+# the card with a tiny seeded DiffPhar (K1 or K2 in stage 1), the trained
+# grun_r5cn decode, a fixed two-point hypothesis and the real alignment.
+
+ALIGN_SMILES = ["OC(=O)c1ccccc1Nc1cccc(c1)C(F)(F)F", "Oc1ccc(cc1)CCNC(=O)c1ccccc1O",
+                "COc1cc(ccc1O)C=CC(=O)NCc1ccccc1", "CN1CCN(CC1)c1ccc(cc1)NC(=O)c1ccc(O)cc1"]
+ALIGN_POINTS = np.array([[0.0, 0.0, 0.0], [4.5, 0.0, 0.0], [1.0, 4.0, 0.5]], np.float32)
+
+
+def test_embedding_and_align_card_matches_cpu(dev, monkeypatch):
+    from cmdgen_tpu_torch.ops import dgeom
+    from cmdgen_tpu_torch.pipeline import align
+
+    ents = align.prepare_align_entries(ALIGN_SMILES, ["AROM", "HACC", "HDON"])
+    assert len(ents) == 4
+    nb, c = 32, 5
+    lo, up, amask = dgeom.padded_bounds([e[1] for e in ents], nb)
+    gmat = np.stack([align.group_matrix(g, nb) for _, _, g in ents])
+    targets = np.sqrt(((ALIGN_POINTS[:, None] - ALIGN_POINTS[None]) ** 2).sum(-1))
+    draws = dgeom.embed_draws(4, c, nb, torch.Generator().manual_seed(0), "cpu")
+    confs = []
+    for d in ("cpu", dev):
+        t = [torch.from_numpy(np.asarray(a, np.float32)).to(d)
+             for a in (lo, up, amask, gmat, targets)]
+        confs.append(dgeom.embed_conformers_padded(
+            *t[:3], c, 100, groups=t[3], targets=t[4].expand(4, 3, 3), centroid_weight=2.0,
+            draws=tuple(v.to(d) for v in draws)).cpu())
+    assert torch.isfinite(confs[0]).all()
+    assert (confs[1] - confs[0]).abs().max() <= 1e-3 * confs[0].abs().max()
+    res = []
+    for d in ("cpu", dev):
+        monkeypatch.setattr(dgeom, "embed_draws",
+                            lambda *a, d=d, **k: tuple(v.to(d) for v in draws))
+        res.append(align.align_entries(ents, ALIGN_POINTS, n_conformers=c, num_keep=c,
+                                       refine_steps=100, device=d))
+    assert sorted(res[0]) == sorted(res[1]) == [0, 1, 2, 3]
+    for idx in res[0]:
+        assert len(res[0][idx]) == len(res[1][idx])
+        np.testing.assert_allclose([e for e, _ in res[1][idx]], [e for e, _ in res[0][idx]],
+                                   atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("engine", ["msgpass", "fused"])
+def test_run_pipeline_on_card(dev, engine, monkeypatch):
+    from pathlib import Path
+
+    from cmdgen_tpu_torch.convert import load_port_gcpg
+    from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM, DDPMConfig
+    from cmdgen_tpu_torch.models.dynamics import DynamicsConfig, make_fused_apply
+    from cmdgen_tpu_torch.models.egnn import EGNNConfig
+    from cmdgen_tpu_torch.pipeline import run_all
+
+    torch.manual_seed(0)
+    dyn = EGNNDynamics(DynamicsConfig(
+        phar_nf=8, residue_nf=11, joint_nf=8, edge_cutoff=None,
+        egnn=EGNNConfig(hidden_nf=32, n_layers=2, inv_sublayers=1, neighbor_k=8))).to(dev).eval()
+    model = ConditionalDDPM(DDPMConfig(timesteps=10), dyn,
+                            apply_fn=make_fused_apply(dyn) if engine == "fused" else None)
+    grun = Path(__file__).resolve().parent.parent / "cmdgen_tpu_torch" / "assets" / "grun_r5cn"
+    gcpg, tok = load_port_gcpg(grun, dev)
+    rng = np.random.RandomState(0)
+    pockets = [(rng.randn(12, 3).astype(np.float32) * 3.0,
+                np.eye(11, dtype=np.float32)[rng.randint(0, 11, 12)]) for _ in range(2)]
+
+    def fixed_consensus(coords, families, n_clusters=4, seed=0, device=None):
+        c = np.asarray(coords).mean(0)
+        return [("HYBL", c), ("HACC", c + np.asarray([2.5, 0, 0]))]
+
+    monkeypatch.setitem(run_all._CONSENSUS, "gmm", fixed_consensus)
+    cfg = run_all.PipelineConfig(
+        n_clouds_per_pocket=8, n_phar_max=4, cluster_counts=(2,), smiles_per_hypothesis=64,
+        decode_batch=64, decode_temperature=0.7, constrain_decode=True, constrain_valence=True,
+        n_conformers=3, contact_filter=None)
+    mp.gcl_message_agg.launches = 0
+    ef.egnn_forward_fused.launches = 0
+    results, stats = run_all.run_pipeline(model, gcpg, tok, pockets, 0, cfg)
+    calls = 11 * 2  # T + 1 denoiser calls per pocket, one batch each
+    if engine == "msgpass":
+        assert (mp.gcl_message_agg.launches, ef.egnn_forward_fused.launches) == (2 * calls, 0)
+    else:
+        assert (mp.gcl_message_agg.launches, ef.egnn_forward_fused.launches) == (0, calls)
+    assert stats["hypotheses"] == 2 and stats["raw_smiles"] == 128
+    assert stats["aligned"] == len(results) > 0
+    assert all(np.isfinite(r.rmsd) and np.isfinite(r.conformers[0][1]).all() for r in results)
