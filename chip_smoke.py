@@ -53,22 +53,28 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    at run-all's settings (5 conformers, 100 refinement steps, chunks of 64
    molecules, 16-atom buckets; first chunk timed apart from the warm ones,
    conformers/s, matched, aligned, dropped conformers, the medians of the
-   best RMSD and of its bounds violation); the embedding and Kabsch of one
-   chunk on the card against the CPU with the same draws; a warm chunk
+   best RMSD and of its bounds violation); ``align_entries`` on one chunk
+   on the card against the CPU with the same draws; a warm chunk
    profiled at 100 and at 0 refinement steps (busy share, device ops per
    refinement step); the ``align`` CLI once through, its SDFs and
    ``rmsd_values.npy`` checked;
 9. ``run-all`` through the CLI on ``qrun_aa`` + ``grun_r5cn`` and two
    synthetic pockets at round 5's settings cut to the time limit (512
-   decodes per hypothesis, not 2,048; 2 pockets, not 8): once with the
-   msgpass engine, once more with ``--keep-top-match 0.25``, once with
-   ``--engine fused``; each run's stats, validity, aligned molecules/min
-   and kernel launches (K1 303 per pocket, K2 101), every written SDF
-   parsed, every RMSD finite, aligned > 0 and validity >= 0.5.
+   decodes per hypothesis, not 2,048; 2 pockets, not 8): first K1 and K2
+   at the shapes run-all gives them (64 clouds of 8 node slots, 5 used;
+   the pocket padded to 48 rows; H=128, K=16, float32), recorded from its
+   sampler's call at three steps of the chain, each wrapper call against
+   its plain version and the denoiser through each against the CPU, and
+   timed; then run-all once with the msgpass engine, once more with
+   ``--keep-top-match 0.25``, once with ``--engine fused``; each run's
+   stats, validity, aligned molecules/min and kernel launches (K1 303 per
+   pocket, K2 101), every written SDF parsed, every RMSD finite, aligned >
+   0 and validity >= 0.5.
 
-Prints the card, a ``kernels`` JSON line (``launches``: run-all's, K1 with
-the msgpass engine and K2 with the fused one; ``launches_by_path``: every
-path's), the throughput, a ``consensus`` JSON line, a ``decode`` JSON
+Prints the card, a ``kernels`` JSON line (``launches``, ``ms``,
+``plain_ms``, ``bound_ms``: run-all's, K1 with the msgpass engine and K2
+with the fused one, at its shapes; ``flagship``: step 2's bf16 times;
+``launches_by_path``: every path's), the throughput, a ``consensus`` JSON line, a ``decode`` JSON
 line, an ``align`` JSON line, a ``run_all`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
@@ -105,8 +111,10 @@ TOL_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 TOL_REL_FUSED = {"float32": {"h": 1e-4, "dx": 1e-4},
                  "bfloat16": {"h": 2e-2, "dx": 4e-3}}
 # trained-weights check: every sampled point within this many Å of the
-# pocket centroid (with --clamp-x 8, the repo's end-to-end setting)
+# pocket centroid (with --clamp-x 8, the repo's end-to-end setting); the
+# trained denoiser's outputs, card vs CPU plain (float32), absolute
 RADIUS = 30.0
+DENOISER_TOL = 1e-3
 B, N_P, N_Q, K, H, L = 48, 8, 110, 12, 256, 5
 # consensus phase: clouds sampled (about 5 points each), card vs CPU limit
 # (relative to max|CPU value|, same explicit initialisation), and the
@@ -263,6 +271,30 @@ def timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes):
                 bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
 
 
+def k1_work(b, n, k, h, es):
+    """K1's operations and bytes for b samples of n nodes, k neighbours
+    each, width h, es bytes an element (every slot, masked ones too: the
+    kernel computes them)."""
+    edges = b * n * k
+    flops = 2 * edges * h * h + 2 * edges * h
+    nbytes = 3 * b * n * h * es + 4 * edges * 4 + (h * h + 2 * h + h) * es + (h + 1) * 4
+    return flops, nbytes
+
+
+def k2_work(b, n, r, k, h, layers, es):
+    """K2's operations and bytes: layers of width h over b samples of n
+    nodes, k neighbours each, r of them moved."""
+    per_layer = (2 * 2 * n * h * h            # edge w_i, w_j
+                 + 2 * n * k * h * h + 2 * n * k * h   # edge_out, att
+                 + 3 * 2 * n * h * h          # node_in (two halves), node_out
+                 + 2 * n * h * h + 2 * r * h * h      # coord w_j, w_i
+                 + 2 * r * k * h * h + 2 * r * k * h)  # coord_mid, gate
+    nbytes = (b * n * h * es + b * n * 3 * 4 + 3 * b * n * k * 4 + b * n * 4
+              + layers * (9 * h * h + 6 * h) * es + layers * (7 * h) * 4
+              + b * n * h * 4 + b * n * 3 * 4)
+    return b * layers * per_layer, nbytes
+
+
 def check_k1(dev, dtype_name, b=B):
     """K1's wrapper at the flagship shape (batch b) on layer-0 weights,
     called as the msgpass engine calls it (``models/egnn.py: GCL``): the
@@ -314,10 +346,7 @@ def check_k1(dev, dtype_name, b=B):
             "units": plan["units"]}
     log(f"  grid: {grid}")
     es = 4 if dtype_name == "float32" else 2
-    n = N_P + N_Q
-    edges = b * n * K
-    flops = 2 * edges * H * H + 2 * edges * H
-    nbytes = 3 * b * n * H * es + 4 * edges * 4 + (H * H + 2 * H + H) * es + (H + 1) * 4
+    flops, nbytes = k1_work(b, N_P + N_Q, K, H, es)
     out = timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
     log(f"  kernel alone: kernel_ms={kernel_ms:.4f} ({kernel_ms / out['bound_ms']:.1f}x its bound)")
     log(f"  stages, share of block 0's clock over its {stages['tiles']} tiles "
@@ -400,16 +429,7 @@ def check_k2(dev, dtype_name, b=B):
         phases = phase_shares(stamps)
         plain_ms = cuda_ms(lambda: egnn_forward_fused_plain(*args, **kw), 5)
     es = 4 if dtype_name == "float32" else 2
-    r = N_P
-    per_layer = (2 * 2 * n * H * H            # edge w_i, w_j
-                 + 2 * n * K * H * H + 2 * n * K * H   # edge_out, att
-                 + 3 * 2 * n * H * H          # node_in (two halves), node_out
-                 + 2 * n * H * H + 2 * r * H * H      # coord w_j, w_i
-                 + 2 * r * K * H * H + 2 * r * K * H)  # coord_mid, gate
-    flops = b * L * per_layer
-    nbytes = (b * n * H * es + b * n * 3 * 4 + 3 * b * n * K * 4 + b * n * 4
-              + L * (9 * H * H + 6 * H) * es + L * (7 * H) * 4
-              + b * n * H * 4 + b * n * 3 * 4)
+    flops, nbytes = k2_work(b, n, N_P, K, H, L, es)
     out = timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
     log(f"  kernel alone: kernel_ms={kernel_ms:.4f} ({kernel_ms / out['bound_ms']:.1f}x its bound)")
     log("  phases, share of one launch's clock (ms at kernel_ms): " + ", ".join(
@@ -565,10 +585,137 @@ def trained_run(dev, repo):
             fn = make_fused_apply(model.dynamics) if engine == "fused" else model.dynamics
             out = fn(*[v.to(dev) for v in inputs])
             errs[engine] = max((o.cpu() - r).abs().max().item() for o, r in zip(out, ref))
-    log(f"trained denoiser, card vs CPU plain (f32): max_abs_err={errs} tol=1e-3")
-    if not all(e <= 1e-3 for e in errs.values()):
+    log(f"trained denoiser, card vs CPU plain (f32): max_abs_err={errs} tol={DENOISER_TOL}")
+    if not all(e <= DENOISER_TOL for e in errs.values()):
         raise AssertionError(f"trained denoiser disagrees with the CPU: {errs}")
     return launches
+
+
+def run_all_kernels(dev, repo, pdb):
+    """K1 and K2 at the shapes run-all gives them: qrun_aa (H=128, 3
+    layers, float32) with run-all's flags (K=16), its sampler's batch of
+    64 clouds in 8 node slots, the unused ones masked, and the pocket
+    padded to a multiple of 16 rows. The denoiser's inputs are recorded
+    from ``sample_pharmacophores`` called as run-all's sampler calls it,
+    on the card with the msgpass engine: its first, middle and last of
+    T + 1 calls. At each, the denoiser through K1 (msgpass) and through K2
+    (fused) on the card against the CPU's plain path (``DENOISER_TOL``),
+    and every wrapper call of those evaluations, recorded, kernel against
+    plain at the kernel's tolerance. The middle call's first K1 call and
+    its K2 call are timed against the plain version beside their bound."""
+    import torch
+
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.device import make_generator
+    from cmdgen_tpu_torch.models import dynamics as dyn_mod
+    from cmdgen_tpu_torch.models import egnn as egnn_mod
+    from cmdgen_tpu_torch.models.dynamics import make_fused_apply
+    from cmdgen_tpu_torch.ops import egnn_fused as fu
+    from cmdgen_tpu_torch.ops import egnn_msgpass as mp
+    from cmdgen_tpu_torch.pipeline.sample_phars import pocket_point_cloud, sample_pharmacophores
+
+    assets = repo / "cmdgen_tpu_torch" / "assets"
+    args = cli.parse_args(["run-all", str(assets / "qrun_aa"), str(assets / "grun_r5cn"), "out",
+                           str(pdb), "--ref-ligand", "L:1", *RUN_ALL_ARGS, "--device", "cpu"])
+    pcfg = cli.pipeline_config(args)
+    cpu_model, cfg = cli._diffphar_model(args.diff_ckpt, args)
+    args.device = "cuda"
+    model, _ = cli._diffphar_model(args.diff_ckpt, args)
+    ecfg = cfg.dynamics.egnn
+    fused = make_fused_apply(model.dynamics)
+    coords, onehot = pocket_point_cloud(pdb, cfg.data.dataset, cfg.data.pocket_representation,
+                                        ref_ligand=args.ref_ligand)
+    n_calls = pcfg.diff_timesteps + 1
+    recorded = {0: None, n_calls // 2: None, n_calls - 1: None}
+    seen = [0]
+
+    def record(module, inputs):
+        if seen[0] in recorded:
+            recorded[seen[0]] = tuple(v.clone() for v in inputs)
+        seen[0] += 1
+
+    hook = model.dynamics.register_forward_pre_hook(record)
+    try:
+        sample_pharmacophores(
+            model, coords, onehot, pcfg.n_clouds_per_pocket, n_phar_max=pcfg.n_phar_max,
+            batch_size=pcfg.n_clouds_per_pocket, timesteps=pcfg.diff_timesteps,
+            pocket_pad_bucket=pcfg.pocket_pad_bucket, generator=make_generator(dev, 0))
+    finally:
+        hook.remove()
+    xh_phar, xh_pocket, _, phar_mask, pocket_mask = recorded[0]
+    shape = {"batch": xh_phar.shape[0], "node_slots": xh_phar.shape[1],
+             "nodes_used": sorted(set(phar_mask.sum(1).int().tolist())),
+             "pocket_rows": xh_pocket.shape[1], "pocket_atoms": len(coords),
+             "hidden": ecfg.hidden_nf, "layers": ecfg.n_layers, "neighbor_k": ecfg.neighbor_k,
+             "dtype": str(ecfg.compute_dtype).split(".")[-1], "denoiser_calls": seen[0]}
+    log(f"run-all's kernel shapes: {shape}")
+    if not (seen[0] == n_calls and shape["batch"] == pcfg.n_clouds_per_pocket
+            and shape["node_slots"] == pcfg.n_phar_max and (phar_mask == 0).any()
+            and shape["pocket_rows"] % pcfg.pocket_pad_bucket == 0
+            and (pocket_mask == 0).any()):
+        raise AssertionError(f"the recorded inputs are not run-all's: {shape}")
+
+    k1_calls, k2_calls = [], []
+
+    def k1_recorder(*a, **kw):
+        k1_calls.append(a + (kw["compute_dtype"],))
+        return mp.gcl_message_agg(*a, **kw)
+
+    def k2_recorder(*a, **kw):
+        k2_calls.append((a, kw))
+        return fu.egnn_forward_fused(*a, **kw)
+
+    errs = {"msgpass": 0.0, "fused": 0.0}
+    with torch.no_grad():
+        refs = {step: cpu_model.dynamics(*(v.cpu() for v in inputs))
+                for step, inputs in recorded.items()}
+    egnn_mod.gcl_message_agg, dyn_mod.egnn_forward_fused = k1_recorder, k2_recorder
+    try:
+        with torch.no_grad():
+            for step in sorted(recorded):
+                for engine, fn in (("msgpass", model.dynamics), ("fused", fused)):
+                    out = fn(*recorded[step])
+                    errs[engine] = max(errs[engine], *((o.cpu() - r).abs().max().item()
+                                                       for o, r in zip(out, refs[step])))
+    finally:
+        egnn_mod.gcl_message_agg, dyn_mod.egnn_forward_fused = mp.gcl_message_agg, fu.egnn_forward_fused
+    log(f"run-all's denoiser at steps {sorted(recorded)}, card vs CPU plain: "
+        f"max_abs_err={errs} tol={DENOISER_TOL}")
+    if not all(e <= DENOISER_TOL for e in errs.values()):
+        raise AssertionError(f"run-all's denoiser disagrees with the CPU: {errs}")
+    if (len(k1_calls), len(k2_calls)) != (len(recorded) * ecfg.n_layers, len(recorded)):
+        raise AssertionError(f"{len(k1_calls)} K1 and {len(k2_calls)} K2 calls recorded")
+
+    dtype_name = shape["dtype"]
+    b, n = xh_phar.shape[0], xh_phar.shape[1] + xh_pocket.shape[1]
+    es = 4 if dtype_name == "float32" else 2
+    out = {"shape": shape, "steps": sorted(recorded), "denoiser_vs_cpu": dict(errs, tol=DENOISER_TOL)}
+    log(f"K1 at run-all's shape, {len(k1_calls)} recorded calls:")
+    with torch.no_grad():
+        checks = [compare(f"agg, call {i}", mp.gcl_message_agg(*a), mp.gcl_message_agg_plain(*a),
+                          TOL_REL[dtype_name]) for i, a in enumerate(k1_calls)]
+        a = k1_calls[ecfg.n_layers]  # the middle step's first GCL
+        ms = cuda_ms(lambda: mp.gcl_message_agg(*a), 50)
+        plain_ms = cuda_ms(lambda: mp.gcl_message_agg_plain(*a), 10)
+        out["k1"] = timed_check(dtype_name, checks, ms, plain_ms,
+                                *k1_work(b, n, ecfg.neighbor_k, ecfg.hidden_nf, es))
+        log(f"K2 at run-all's shape, {len(k2_calls)} recorded calls:")
+        checks = []
+        for i, (a, kw) in enumerate(k2_calls):
+            (oh, ox), (rh, rx) = fu.egnn_forward_fused(*a, **kw), fu.egnn_forward_fused_plain(*a, **kw)
+            x, r = a[2], kw["update_rows"]
+            if not torch.equal(ox[:, r:], x[:, r:]):
+                raise AssertionError(f"K2 at run-all's shape moved pocket rows, call {i}")
+            checks += [compare(f"h, call {i}", oh, rh, TOL_REL_FUSED[dtype_name]["h"]),
+                       compare(f"dx, call {i}", ox[:, :r] - x[:, :r], rx[:, :r] - x[:, :r],
+                               TOL_REL_FUSED[dtype_name]["dx"])]
+        a, kw = k2_calls[1]  # the middle step's
+        ms = cuda_ms(lambda: fu.egnn_forward_fused(*a, **kw), 20)
+        plain_ms = cuda_ms(lambda: fu.egnn_forward_fused_plain(*a, **kw), 5)
+        out["k2"] = timed_check(dtype_name, checks, ms, plain_ms,
+                                *k2_work(b, n, kw["update_rows"], ecfg.neighbor_k,
+                                         ecfg.hidden_nf, ecfg.n_layers, es))
+    return out
 
 
 def rigid_motion():
@@ -1152,16 +1299,14 @@ def align_phase(dev, repo, posp, smiles):
     from cmdgen_tpu_torch import cli
     from cmdgen_tpu_torch.chem.sdf import read_sdf
     from cmdgen_tpu_torch.device import make_generator
-    from cmdgen_tpu_torch.ops.dgeom import bounds_violation, embed_conformers_padded, embed_draws
-    from cmdgen_tpu_torch.ops.dgeom import padded_bounds
+    from cmdgen_tpu_torch.ops import dgeom
     from cmdgen_tpu_torch.pipeline import align as al
-    from cmdgen_tpu_torch.pipeline.run_all import align_chunks
 
     pp, types = al.load_pp_points(posp)
     t0 = time.perf_counter()
     entries = al.prepare_align_entries(smiles, types)
     prep_ms = (time.perf_counter() - t0) * 1e3
-    chunks = align_chunks(entries, ALIGN_BUCKET, ALIGN_CHUNK)
+    chunks = al.align_chunks(entries, ALIGN_BUCKET, ALIGN_CHUNK)
     if not chunks:
         raise AssertionError(f"align: none of {len(smiles)} SMILES matched {types}")
     gen = make_generator(dev, 0)
@@ -1186,45 +1331,47 @@ def align_phase(dev, repo, posp, smiles):
            "kept_conformers": kept,
            "median_best_rmsd": float(np.median([e for e, _ in best])) if best else None,
            "median_bounds_violation": float(np.median(
-               [bounds_violation(mols[i], r[0][1]) for i, r in results.items()])) if best else None}
+               [dgeom.bounds_violation(mols[i], r[0][1]) for i, r in results.items()])) if best else None}
     log(f"align: {len(smiles)} SMILES, {len(entries)} matched the {len(types)}-point "
         f"hypothesis, {len(results)} aligned in {len(chunks)} chunks; first chunk "
         f"{calls[0][1]:.1f} ms, {out['conformers_per_s']:.0f} conformers/s warm; "
         f"{out['dropped_conformers']} of {len(entries) * ALIGN_C} conformers dropped (not finite "
         f"or RMSD >= {al.MAX_RMSD:g} Å)")
 
-    # card vs CPU on the chunk that kept the most conformers (most diverge
-    # on these hypotheses; a diverged one is compared only as dropped on
-    # both), the same draws, every conformer
+    # card vs CPU: align_entries on the chunk that kept the most conformers
+    # (most diverge on these hypotheses; a diverged one is compared only as
+    # dropped on both), the same draws fed to both, every conformer kept
     chunk = chunks[int(np.argmax(kept_by_chunk))]
-    n_pad = -(-max(e[1].n_atoms for e in chunk) // ALIGN_BUCKET) * ALIGN_BUCKET
-    lo, up, amask = padded_bounds([e[1] for e in chunk], n_pad)
-    gmat = np.stack([al.group_matrix(g, n_pad) for _, _, g in chunk])
-    targets = np.sqrt(((pp[:, None] - pp[None]) ** 2).sum(-1)).astype(np.float32)
-    draws = embed_draws(len(chunk), ALIGN_C, n_pad, torch.Generator().manual_seed(1), "cpu")
-    posed = []
-    for d in ("cpu", dev):
-        t = [torch.from_numpy(a).to(d) for a in (lo, up, amask, gmat, targets)]
-        confs = embed_conformers_padded(
-            *t[:3], ALIGN_C, ALIGN_STEPS, groups=t[3],
-            targets=t[4].expand(len(chunk), *targets.shape), centroid_weight=2.0,
-            draws=tuple(v.to(d) for v in draws))
-        x, errs = al.pose_conformers(confs, t[3][:, None], torch.from_numpy(pp).to(d))
-        posed.append((x.cpu().double(), errs.cpu()))
-    (x_cpu, e_cpu), (x_dev, e_dev) = posed
-    keep_cpu = torch.isfinite(e_cpu) & (e_cpu < al.MAX_RMSD)
-    keep_dev = torch.isfinite(e_dev) & (e_dev < al.MAX_RMSD)
-    both = keep_cpu & keep_dev
-    rmsd_err = (e_dev - e_cpu)[both].abs().max().item() if both.any() else 0.0
-    ref = x_cpu[both]
-    coord_rel = ((x_dev[both] - ref).abs().max() / ref.abs().max()).item() if both.any() else 0.0
+    (n_pad,) = al.size_buckets(chunk, ALIGN_BUCKET)  # a chunk is one bucket
+    draws = dgeom.embed_draws(len(chunk), ALIGN_C, n_pad, torch.Generator().manual_seed(1), "cpu")
+    embed_draws = dgeom.embed_draws
+
+    def fixed_draws(m, c, nb, generator=None, device=None):
+        if (m, c, nb) != tuple(draws[0].shape[:3]):
+            raise AssertionError(f"align_entries drew ({m}, {c}, {nb}), not {draws[0].shape}")
+        return tuple(v.to(device) for v in draws)
+
+    res = []
+    dgeom.embed_draws = fixed_draws
+    try:
+        for d in ("cpu", dev):
+            res.append(al.align_entries(chunk, pp, device=d, **kw))
+    finally:
+        dgeom.embed_draws = embed_draws
+    cpu_res, dev_res = res
+    apart = sorted(set(cpu_res) ^ set(dev_res)) + [
+        i for i in cpu_res if i in dev_res and len(cpu_res[i]) != len(dev_res[i])]
+    pairs = [(a, b) for i in cpu_res if i in dev_res and i not in apart
+             for a, b in zip(cpu_res[i], dev_res[i])]
+    rmsd_err = max((abs(b[0] - a[0]) for a, b in pairs), default=0.0)
+    ref_max = max((np.abs(a[1]).max() for a, _ in pairs), default=1.0)
+    coord_rel = max((np.abs(b[1] - a[1]).max() for a, b in pairs), default=0.0) / ref_max
     out["card_vs_cpu"] = {"molecules": len(chunk), "atoms_padded": n_pad,
-                          "kept_both": int(both.sum()), "kept_apart": int((keep_cpu ^ keep_dev).sum()),
-                          "rmsd_max_abs_err": rmsd_err, "coords_rel_err": coord_rel}
-    log(f"align card vs CPU ({len(chunk)} molecules x {ALIGN_C} conformers, same draws): "
-        f"{out['card_vs_cpu']}")
-    if (not both.any() or out["card_vs_cpu"]["kept_apart"] or rmsd_err > ALIGN_RMSD_TOL
-            or coord_rel > ALIGN_REL):
+                          "kept_both": len(pairs), "molecules_apart": len(apart),
+                          "rmsd_max_abs_err": float(rmsd_err), "coords_rel_err": float(coord_rel)}
+    log(f"align_entries card vs CPU ({len(chunk)} molecules x {ALIGN_C} conformers, same "
+        f"draws): {out['card_vs_cpu']}")
+    if not pairs or apart or rmsd_err > ALIGN_RMSD_TOL or coord_rel > ALIGN_REL:
         raise AssertionError(f"align disagrees with the CPU: {out['card_vs_cpu']}")
 
     # one warm chunk (the largest) profiled at 100 and at 0 refinement steps
@@ -1267,7 +1414,9 @@ def run_all_phase(dev, repo):
     """run-all through the CLI on the trained qrun_aa and grun_r5cn, two
     synthetic pockets: msgpass, msgpass with --keep-top-match 0.25, fused.
     Each run's stats, validity = valid/raw, aligned molecules/min and the
-    kernels' launches (counts set to 0 just before the run)."""
+    kernels' launches (counts set to 0 just before the run). First K1 and
+    K2 at the shapes run-all gives them, against their plain versions
+    (``run_all_kernels``, on the first pocket)."""
     from cmdgen_tpu_torch import cli
     from cmdgen_tpu_torch.chem.mol import mol_from_smiles
     from cmdgen_tpu_torch.chem.sdf import read_sdf
@@ -1292,6 +1441,7 @@ def run_all_phase(dev, repo):
         for i in range(RUN_ALL_POCKETS):
             pdbs.append(tmp / f"pocket_{i}.pdb")
             pdbs[-1].write_text(synthetic_pocket_pdb(np.random.RandomState(i)))
+        out["kernels"] = run_all_kernels(dev, repo, pdbs[0])
         for name, extra in runs.items():
             out_dir = tmp / name
             gcl_message_agg.launches = 0
@@ -1386,29 +1536,36 @@ def main():
         align = align_phase(dev, repo, hypothesis, smiles_t07)
     run_all = run_all_phase(dev, repo)
 
-    def entry(name, source, replaces, checks, launches):
-        main_check = checks[-1]  # bf16, the flagship sampling dtype
-        # the comparison nearest its limit, over both dtypes
-        worst = max((c for chk in checks for c in chk["comparisons"]),
+    def entry(name, source, replaces, flagship, main_path, launches):
+        """The kernel's line: launches, times and bound at the main path's
+        (run-all's) shape; the flagship checks beside them (bf16, the
+        flagship sampling dtype, last); max_abs_err is the comparison
+        nearest its limit over every check."""
+        worst = max((c for chk in (*flagship, main_path) for c in chk["comparisons"]),
                     key=lambda c: c["max_abs_err"] / c["tol"])
+        bf16 = flagship[-1]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": worst["max_abs_err"], "tol": worst["tol"],
-            "ms": main_check["ms"], "kernel_ms": main_check.get("kernel_ms", main_check["ms"]),
-            "plain_ms": main_check["plain_ms"], "bound_ms": main_check["bound_ms"],
-            "bound_by": main_check["bound_by"], "library_ms": None,
-            "checks": checks,
+            "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+            "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
+            "library_ms": None,
+            "run_all_shape": dict(run_all["kernels"]["shape"],
+                                  comparisons=main_path["comparisons"]),
+            "flagship": {key: bf16[key] for key in (
+                "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "grid")},
+            "checks": flagship,
         }
 
-    # launches: run-all's (this slice's main path: msgpass for K1, --engine
-    # fused for K2); each earlier path's count beside it
+    # launches and times: run-all's (this slice's main path: msgpass for K1,
+    # --engine fused for K2); each earlier path's count beside it
     kernels = [
         entry("gcl_message_agg", "cmdgen_tpu_torch/csrc/egnn_msgpass.cu",
-              "cmdgen_tpu/ops/egnn_msgpass.py:111", k1,
+              "cmdgen_tpu/ops/egnn_msgpass.py:111", k1, run_all["kernels"]["k1"],
               run_all["runs"]["msgpass"]["launches"]["gcl_message_agg"]),
         entry("egnn_forward_fused", "cmdgen_tpu_torch/csrc/egnn_fused.cu",
-              "cmdgen_tpu/ops/egnn_fused.py:209", k2,
+              "cmdgen_tpu/ops/egnn_fused.py:209", k2, run_all["kernels"]["k2"],
               run_all["runs"]["fused"]["launches"]["egnn_forward_fused"]),
     ]
     for kern, engine in zip(kernels, ("msgpass", "fused")):
@@ -1416,11 +1573,9 @@ def main():
             "flagship_sampling": sampling[engine][2][kern["name"]],
             "trained_sample_phars": trained[engine][kern["name"]],
             "run_all": kern["launches"]}
-    kernels[0]["grid"] = k1[-1]["grid"]
-    kernels[0]["stage_shares"] = k1[-1]["stage_shares"]
+    kernels[0]["flagship"]["stage_shares"] = k1[-1]["stage_shares"]
     kernels[0]["batch_132"] = {key: k1_wide[key] for key in (
         "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "stage_shares", "comparisons")}
-    kernels[1]["grid"] = k2[-1]["grid"]
     kernels[1]["batch_132"] = {key: k2_wide[key] for key in (
         "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "phases", "comparisons")}
     log(json.dumps({"kernels": kernels}))

@@ -292,29 +292,11 @@ def _add_run_all(sub):
     p.set_defaults(run=run_run_all)
 
 
-def run_run_all(args):
-    """Prints the stats JSON and writes the posed SDFs and results.json;
-    returns (results, stats)."""
-    import json
+def pipeline_config(args):
+    """run-all's ``PipelineConfig`` from its parsed flags."""
+    from cmdgen_tpu_torch.pipeline.run_all import PipelineConfig
 
-    from cmdgen_tpu_torch.convert import load_port_gcpg
-    from cmdgen_tpu_torch.pipeline.run_all import (
-        PipelineConfig,
-        run_pipeline,
-        write_pipeline_results,
-    )
-    from cmdgen_tpu_torch.pipeline.sample_phars import pocket_point_cloud
-
-    model, cfg = _diffphar_model(args.diff_ckpt, args)
-    gmodel, tokenizer = load_port_gcpg(args.gcpg_ckpt, args.device)
-    pockets = [
-        pocket_point_cloud(
-            f, cfg.data.dataset, cfg.data.pocket_representation,
-            ref_ligand=args.ref_ligand, resi_list=args.resi_list,
-        )
-        for f in args.pdbfiles
-    ]
-    pcfg = PipelineConfig(
+    return PipelineConfig(
         n_clouds_per_pocket=args.n_clouds,
         diff_timesteps=args.timesteps,
         cluster_counts=tuple(args.cluster_counts),
@@ -332,14 +314,36 @@ def run_run_all(args):
         constrain_decode=args.constrain_decode,
         constrain_valence=args.constrain_valence,
     )
-    results, stats = run_pipeline(model, gmodel, tokenizer, pockets, args.seed, pcfg)
+
+
+def run_run_all(args):
+    """Prints the stats JSON and writes the posed SDFs and results.json;
+    returns (results, stats)."""
+    import json
+
+    from cmdgen_tpu_torch.convert import load_port_gcpg
+    from cmdgen_tpu_torch.pipeline.run_all import run_pipeline, write_pipeline_results
+    from cmdgen_tpu_torch.pipeline.sample_phars import pocket_point_cloud
+
+    model, cfg = _diffphar_model(args.diff_ckpt, args)
+    gmodel, tokenizer = load_port_gcpg(args.gcpg_ckpt, args.device)
+    pockets = [
+        pocket_point_cloud(
+            f, cfg.data.dataset, cfg.data.pocket_representation,
+            ref_ligand=args.ref_ligand, resi_list=args.resi_list,
+        )
+        for f in args.pdbfiles
+    ]
+    results, stats = run_pipeline(model, gmodel, tokenizer, pockets, args.seed,
+                                  pipeline_config(args))
     out = write_pipeline_results(results, args.out_dir)
     print(json.dumps(stats))
     print(f"wrote {out}")
     return results, stats
 
 
-def main(argv: Optional[Sequence[str]] = None):
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The parsed command line; ``args.run(args)`` runs its command."""
     parser = argparse.ArgumentParser(prog="cmdgen_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_sample_phars(sub)
@@ -347,7 +351,11 @@ def main(argv: Optional[Sequence[str]] = None):
     _add_generate(sub)
     _add_align(sub)
     _add_run_all(sub)
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = parse_args(argv)
     return args.run(args)
 
 

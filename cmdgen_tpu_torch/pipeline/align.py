@@ -202,6 +202,23 @@ def prepare_align_entries(
     return entries
 
 
+def size_buckets(entries: Sequence[Entry], bucket: int) -> Dict[int, List[Entry]]:
+    """Prepared entries grouped by atom count padded up to a multiple of
+    ``bucket``: {padded size: entries}, one embedding call each."""
+    buckets: Dict[int, List[Entry]] = {}
+    for e in entries:
+        buckets.setdefault(-(-e[1].n_atoms // bucket) * bucket, []).append(e)
+    return buckets
+
+
+def align_chunks(entries: Sequence[Entry], bucket: int, align_chunk: int) -> List[List[Entry]]:
+    """Prepared entries as run-all's align calls: each size bucket in
+    pieces of at most ``align_chunk`` molecules (only real rows: the JAX
+    package's fill to a fixed size served its compile cache)."""
+    return [ents[i : i + align_chunk] for ents in size_buckets(entries, bucket).values()
+            for i in range(0, len(ents), align_chunk)]
+
+
 def align_entries(
     entries: Sequence[Entry],
     pp_coords: np.ndarray,
@@ -228,12 +245,7 @@ def align_entries(
     points = torch.from_numpy(np.asarray(pp_coords, np.float32)).to(dev)
 
     results: Dict[int, list] = {}
-    buckets: Dict[int, list] = {}
-    for e in entries:
-        n_pad = -(-e[1].n_atoms // bucket) * bucket
-        buckets.setdefault(n_pad, []).append(e)
-
-    for n_pad, ents in buckets.items():
+    for n_pad, ents in size_buckets(entries, bucket).items():
         lo, up, amask = padded_bounds([e[1] for e in ents], n_pad)
         m = len(ents)
         gmat = np.stack([group_matrix(groups, n_pad) for _, _, groups in ents])

@@ -34,7 +34,7 @@ from cmdgen_tpu_torch.chem.sdf import write_sdf
 from cmdgen_tpu_torch.chem.tokenizer import Tokenizer, syntax_tables
 from cmdgen_tpu_torch.device import make_generator
 from cmdgen_tpu_torch.models import gcpg as gcpg_mod
-from cmdgen_tpu_torch.pipeline.align import align_entries, prepare_align_entries
+from cmdgen_tpu_torch.pipeline.align import align_chunks, align_entries, prepare_align_entries
 from cmdgen_tpu_torch.pipeline.generate_smiles import condition_grid
 from cmdgen_tpu_torch.pipeline.get_phar import (
     consensus_dbscan,
@@ -144,18 +144,6 @@ def contact_filter_points(
         [f for f, m in zip(fams, near) if m],
         int((~near).sum()),
     )
-
-
-def align_chunks(entries: Sequence, size_bucket: int, align_chunk: int) -> List[list]:
-    """Prepared align entries as the aligner's calls: grouped by atom count
-    padded up to a multiple of ``size_bucket``, at most ``align_chunk``
-    molecules each (only real rows: the JAX package's fill to a fixed size
-    served its compile cache)."""
-    buckets: Dict[int, list] = {}
-    for e in entries:
-        buckets.setdefault(-(-e[1].n_atoms // size_bucket) * size_bucket, []).append(e)
-    return [ents[i : i + align_chunk] for ents in buckets.values()
-            for i in range(0, len(ents), align_chunk)]
 
 
 _CONSENSUS = {
