@@ -69,14 +69,33 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    ``--keep-top-match 0.25``, once with ``--engine fused``; each run's
    stats, validity, aligned molecules/min and kernel launches (K1 303 per
    pocket, K2 101), every written SDF parsed, every RMSD finite, aligned >
-   0 and validity >= 0.5.
+   0 and validity >= 0.5;
+10. evaluation (between steps 8 and 9): ``eval-diffphar`` with ``qrun_aa``
+   (T=100, unclamped) on a synthetic test set of 8 complexes in
+   ``DiffPharDataset``'s format, ``eval-gcpg`` with ``grun_r5cn`` on 128 of
+   step 8's SMILES, ``align --pose-pdbs`` on pose PDBs of 16 of step 8's
+   posed molecules, each through the CLI with its metrics and wall time;
+   ``eval_alignment_rmsd_posed`` on those poses, card against CPU on the
+   same draws (the same poses fail, RMSDs within 1e-3 Å);
+11. the joint model at full width (``ca_config`` with ``train.mode="joint"``
+   and ``update_pocket_coords``: hidden 256, 5 layers, K=12, bf16, seeded
+   weights; a 110-CA pocket, 8 pharmacophore slots, B=48):
+   ``sample_pharmacophores``' joint branch (RePaint with the pocket fixed)
+   at T=``--timesteps`` on both engines, launches counted (K1 2,505, K2 501
+   at T=500), steps/s and a profile; every K1 and K2 call at three recorded
+   steps against its plain version (K2 with every row moving) and the
+   middle step's timed; in float32 the denoiser and a T=10 inpaint chain,
+   card against CPU; ``sample-phars`` on a joint port checkpoint through
+   the CLI.
 
 Prints the card, a ``kernels`` JSON line (``launches``, ``ms``,
 ``plain_ms``, ``bound_ms``: run-all's, K1 with the msgpass engine and K2
-with the fused one, at its shapes; ``flagship``: step 2's bf16 times;
-``launches_by_path``: every path's), the throughput, a ``consensus`` JSON line, a ``decode`` JSON
-line, an ``align`` JSON line, a ``run_all`` JSON line, and as the last line
-``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
+with the fused one, at its shapes, with ``kernel_ms`` there; ``flagship``:
+step 2's bf16 times; ``joint``: step 11's; ``launches_by_path``: every
+path's), the throughput, a ``consensus`` JSON line, a ``decode`` JSON
+line, an ``align`` JSON line, a ``run_all`` JSON line, an ``evaluate`` and
+a ``joint`` JSON line, and as the last line ``{"ok": true, "device":
+{...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
 ``--kernels-only`` stops after step 2 and prints the checks as one JSON
 line (no ``ok`` line): the quick way to compare two trees' kernels. Such
@@ -158,6 +177,8 @@ RUN_ALL_ARGS = ["--n-clouds", "64", "--timesteps", "100", "--clamp-x", "8",
                 "--constrain-valence", "--decode-temperature", "0.7"]
 RUN_ALL_POCKETS = 2
 RUN_ALL_VALID_MIN = 0.5
+# evaluate phase: pose PDBs written from the align phase's posed molecules
+EVAL_POSES = 16
 
 
 def log(*a):
@@ -243,9 +264,11 @@ def flagship_geometry(seed, b, dev):
     return pocket, x, edge_mask
 
 
-def flagship_dynamics(dev, dtype):
-    import torch
-
+def flagship_dynamics(dev, dtype, joint=False):
+    """The flagship configuration (``ca_config`` with K=12 in ``dtype``)
+    and its dynamics with seeded weights on ``dev``; ``joint``: the joint
+    model's (``train.mode="joint"``, ``update_pocket_coords``), the same
+    weights. Returns (config, dynamics)."""
     import dataclasses
 
     from cmdgen_tpu_torch.config import ca_config
@@ -253,7 +276,10 @@ def flagship_dynamics(dev, dtype):
 
     cfg = ca_config()
     egnn = dataclasses.replace(cfg.dynamics.egnn, compute_dtype=dtype, neighbor_k=K)
-    dyn_cfg = dataclasses.replace(cfg.dynamics, egnn=egnn)
+    dyn_cfg = dataclasses.replace(cfg.dynamics, egnn=egnn, update_pocket_coords=joint)
+    cfg = dataclasses.replace(cfg, dynamics=dyn_cfg)
+    if joint:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, mode="joint"))
     dyn = EGNNDynamics(dyn_cfg)
     seeded_init(dyn, seed=0)
     return cfg, dyn.to(dev).eval()
@@ -603,15 +629,9 @@ def run_all_kernels(dev, repo, pdb):
     and every wrapper call of those evaluations, recorded, kernel against
     plain at the kernel's tolerance. The middle call's first K1 call and
     its K2 call are timed against the plain version beside their bound."""
-    import torch
-
     from cmdgen_tpu_torch import cli
     from cmdgen_tpu_torch.device import make_generator
-    from cmdgen_tpu_torch.models import dynamics as dyn_mod
-    from cmdgen_tpu_torch.models import egnn as egnn_mod
     from cmdgen_tpu_torch.models.dynamics import make_fused_apply
-    from cmdgen_tpu_torch.ops import egnn_fused as fu
-    from cmdgen_tpu_torch.ops import egnn_msgpass as mp
     from cmdgen_tpu_torch.pipeline.sample_phars import pocket_point_cloud, sample_pharmacophores
 
     assets = repo / "cmdgen_tpu_torch" / "assets"
@@ -626,6 +646,46 @@ def run_all_kernels(dev, repo, pdb):
     coords, onehot = pocket_point_cloud(pdb, cfg.data.dataset, cfg.data.pocket_representation,
                                         ref_ligand=args.ref_ligand)
     n_calls = pcfg.diff_timesteps + 1
+    recorded, seen = record_denoiser_inputs(model.dynamics, n_calls, lambda: sample_pharmacophores(
+        model, coords, onehot, pcfg.n_clouds_per_pocket, n_phar_max=pcfg.n_phar_max,
+        batch_size=pcfg.n_clouds_per_pocket, timesteps=pcfg.diff_timesteps,
+        pocket_pad_bucket=pcfg.pocket_pad_bucket, generator=make_generator(dev, 0)))
+    xh_phar, xh_pocket, _, phar_mask, pocket_mask = recorded[0]
+    shape = {"batch": xh_phar.shape[0], "node_slots": xh_phar.shape[1],
+             "nodes_used": sorted(set(phar_mask.sum(1).int().tolist())),
+             "pocket_rows": xh_pocket.shape[1], "pocket_atoms": len(coords),
+             "hidden": ecfg.hidden_nf, "layers": ecfg.n_layers, "neighbor_k": ecfg.neighbor_k,
+             "dtype": str(ecfg.compute_dtype).split(".")[-1], "denoiser_calls": seen}
+    log(f"run-all's kernel shapes: {shape}")
+    if not (seen == n_calls and shape["batch"] == pcfg.n_clouds_per_pocket
+            and shape["node_slots"] == pcfg.n_phar_max and (phar_mask == 0).any()
+            and shape["pocket_rows"] % pcfg.pocket_pad_bucket == 0
+            and (pocket_mask == 0).any()):
+        raise AssertionError(f"the recorded inputs are not run-all's: {shape}")
+
+    outs, k1_calls, k2_calls = recorded_kernel_calls(
+        {"msgpass": model.dynamics, "fused": fused}, recorded)
+    errs = {engine: max(err for _, err, _ in by_step)
+            for engine, by_step in denoiser_vs_cpu(outs, cpu_model.dynamics, recorded).items()}
+    log(f"run-all's denoiser at steps {sorted(recorded)}, card vs CPU plain: "
+        f"max_abs_err={errs} tol={DENOISER_TOL}")
+    if not all(e <= DENOISER_TOL for e in errs.values()):
+        raise AssertionError(f"run-all's denoiser disagrees with the CPU: {errs}")
+    if (len(k1_calls), len(k2_calls)) != (len(recorded) * ecfg.n_layers, len(recorded)):
+        raise AssertionError(f"{len(k1_calls)} K1 and {len(k2_calls)} K2 calls recorded")
+    out = {"shape": shape, "steps": sorted(recorded), "denoiser_vs_cpu": dict(errs, tol=DENOISER_TOL)}
+    log(f"K1 and K2 at run-all's shape, {len(k1_calls)} and {len(k2_calls)} recorded calls:")
+    k1_checks, k2_checks = check_kernel_calls(k1_calls, k2_calls, shape["dtype"])
+    # the middle step's first GCL and its K2 call
+    out["k1"], out["k2"] = time_kernel_calls(k1_calls[ecfg.n_layers], k2_calls[1], shape["dtype"],
+                                             ecfg, k1_checks, k2_checks)
+    return out
+
+
+def record_denoiser_inputs(dynamics, n_calls, run):
+    """Call ``run()`` with a hook that keeps the inputs of the first,
+    middle and last of the ``n_calls`` calls of ``dynamics``: ({call index:
+    inputs}, the number of calls seen)."""
     recorded = {0: None, n_calls // 2: None, n_calls - 1: None}
     seen = [0]
 
@@ -634,28 +694,41 @@ def run_all_kernels(dev, repo, pdb):
             recorded[seen[0]] = tuple(v.clone() for v in inputs)
         seen[0] += 1
 
-    hook = model.dynamics.register_forward_pre_hook(record)
+    hook = dynamics.register_forward_pre_hook(record)
     try:
-        sample_pharmacophores(
-            model, coords, onehot, pcfg.n_clouds_per_pocket, n_phar_max=pcfg.n_phar_max,
-            batch_size=pcfg.n_clouds_per_pocket, timesteps=pcfg.diff_timesteps,
-            pocket_pad_bucket=pcfg.pocket_pad_bucket, generator=make_generator(dev, 0))
+        run()
     finally:
         hook.remove()
-    xh_phar, xh_pocket, _, phar_mask, pocket_mask = recorded[0]
-    shape = {"batch": xh_phar.shape[0], "node_slots": xh_phar.shape[1],
-             "nodes_used": sorted(set(phar_mask.sum(1).int().tolist())),
-             "pocket_rows": xh_pocket.shape[1], "pocket_atoms": len(coords),
-             "hidden": ecfg.hidden_nf, "layers": ecfg.n_layers, "neighbor_k": ecfg.neighbor_k,
-             "dtype": str(ecfg.compute_dtype).split(".")[-1], "denoiser_calls": seen[0]}
-    log(f"run-all's kernel shapes: {shape}")
-    if not (seen[0] == n_calls and shape["batch"] == pcfg.n_clouds_per_pocket
-            and shape["node_slots"] == pcfg.n_phar_max and (phar_mask == 0).any()
-            and shape["pocket_rows"] % pcfg.pocket_pad_bucket == 0
-            and (pocket_mask == 0).any()):
-        raise AssertionError(f"the recorded inputs are not run-all's: {shape}")
+    return recorded, seen[0]
 
-    k1_calls, k2_calls = [], []
+
+def denoiser_vs_cpu(outs, cpu_dynamics, recorded):
+    """Each engine's outputs (``outs`` of ``recorded_kernel_calls``)
+    against ``cpu_dynamics`` (the plain path) on the same recorded inputs:
+    {engine: [(step, largest |card - CPU|, largest |CPU output|), ...]}."""
+    import torch
+
+    with torch.no_grad():
+        refs = {step: cpu_dynamics(*(v.cpu() for v in inputs)) for step, inputs in recorded.items()}
+    return {engine: [(step, max((o.cpu() - r).abs().max().item()
+                                for o, r in zip(by_step[step], refs[step])),
+                      max(r.abs().max().item() for r in refs[step])) for step in recorded]
+            for engine, by_step in outs.items()}
+
+
+def recorded_kernel_calls(fns, recorded):
+    """Each denoiser of ``fns`` ({name: fn}) on each recorded input set
+    ({step: inputs}), with K1 and K2 wrapped where the models call them so
+    that every call is recorded (with its arguments) on its way through:
+    ({name: {step: outputs}}, K1 calls, K2 calls)."""
+    import torch
+
+    from cmdgen_tpu_torch.models import dynamics as dyn_mod
+    from cmdgen_tpu_torch.models import egnn as egnn_mod
+    from cmdgen_tpu_torch.ops import egnn_fused as fu
+    from cmdgen_tpu_torch.ops import egnn_msgpass as mp
+
+    k1_calls, k2_calls, outs = [], [], {}
 
     def k1_recorder(*a, **kw):
         k1_calls.append(a + (kw["compute_dtype"],))
@@ -665,57 +738,82 @@ def run_all_kernels(dev, repo, pdb):
         k2_calls.append((a, kw))
         return fu.egnn_forward_fused(*a, **kw)
 
-    errs = {"msgpass": 0.0, "fused": 0.0}
-    with torch.no_grad():
-        refs = {step: cpu_model.dynamics(*(v.cpu() for v in inputs))
-                for step, inputs in recorded.items()}
     egnn_mod.gcl_message_agg, dyn_mod.egnn_forward_fused = k1_recorder, k2_recorder
     try:
         with torch.no_grad():
             for step in sorted(recorded):
-                for engine, fn in (("msgpass", model.dynamics), ("fused", fused)):
-                    out = fn(*recorded[step])
-                    errs[engine] = max(errs[engine], *((o.cpu() - r).abs().max().item()
-                                                       for o, r in zip(out, refs[step])))
+                for name, fn in fns.items():
+                    outs.setdefault(name, {})[step] = fn(*recorded[step])
     finally:
         egnn_mod.gcl_message_agg, dyn_mod.egnn_forward_fused = mp.gcl_message_agg, fu.egnn_forward_fused
-    log(f"run-all's denoiser at steps {sorted(recorded)}, card vs CPU plain: "
-        f"max_abs_err={errs} tol={DENOISER_TOL}")
-    if not all(e <= DENOISER_TOL for e in errs.values()):
-        raise AssertionError(f"run-all's denoiser disagrees with the CPU: {errs}")
-    if (len(k1_calls), len(k2_calls)) != (len(recorded) * ecfg.n_layers, len(recorded)):
-        raise AssertionError(f"{len(k1_calls)} K1 and {len(k2_calls)} K2 calls recorded")
+    return outs, k1_calls, k2_calls
 
-    dtype_name = shape["dtype"]
-    b, n = xh_phar.shape[0], xh_phar.shape[1] + xh_pocket.shape[1]
-    es = 4 if dtype_name == "float32" else 2
-    out = {"shape": shape, "steps": sorted(recorded), "denoiser_vs_cpu": dict(errs, tol=DENOISER_TOL)}
-    log(f"K1 at run-all's shape, {len(k1_calls)} recorded calls:")
+
+def check_kernel_calls(k1_calls, k2_calls, dtype_name):
+    """Every recorded K1 and K2 call, kernel against plain at the kernel's
+    tolerance (K2: h, and the displacement of its movable rows, all of them
+    where ``update_rows`` is None; rows past them must not move). Returns
+    (K1 comparisons, K2 comparisons)."""
+    import torch
+
+    from cmdgen_tpu_torch.ops import egnn_fused as fu
+    from cmdgen_tpu_torch.ops import egnn_msgpass as mp
+
     with torch.no_grad():
-        checks = [compare(f"agg, call {i}", mp.gcl_message_agg(*a), mp.gcl_message_agg_plain(*a),
-                          TOL_REL[dtype_name]) for i, a in enumerate(k1_calls)]
-        a = k1_calls[ecfg.n_layers]  # the middle step's first GCL
-        ms = cuda_ms(lambda: mp.gcl_message_agg(*a), 50)
-        plain_ms = cuda_ms(lambda: mp.gcl_message_agg_plain(*a), 10)
-        out["k1"] = timed_check(dtype_name, checks, ms, plain_ms,
-                                *k1_work(b, n, ecfg.neighbor_k, ecfg.hidden_nf, es))
-        log(f"K2 at run-all's shape, {len(k2_calls)} recorded calls:")
-        checks = []
+        k1 = [compare(f"agg, call {i}", mp.gcl_message_agg(*a), mp.gcl_message_agg_plain(*a),
+                      TOL_REL[dtype_name]) for i, a in enumerate(k1_calls)]
+        k2 = []
         for i, (a, kw) in enumerate(k2_calls):
             (oh, ox), (rh, rx) = fu.egnn_forward_fused(*a, **kw), fu.egnn_forward_fused_plain(*a, **kw)
-            x, r = a[2], kw["update_rows"]
+            x = a[2]
+            r = x.shape[1] if kw["update_rows"] is None else kw["update_rows"]
             if not torch.equal(ox[:, r:], x[:, r:]):
-                raise AssertionError(f"K2 at run-all's shape moved pocket rows, call {i}")
-            checks += [compare(f"h, call {i}", oh, rh, TOL_REL_FUSED[dtype_name]["h"]),
-                       compare(f"dx, call {i}", ox[:, :r] - x[:, :r], rx[:, :r] - x[:, :r],
-                               TOL_REL_FUSED[dtype_name]["dx"])]
-        a, kw = k2_calls[1]  # the middle step's
-        ms = cuda_ms(lambda: fu.egnn_forward_fused(*a, **kw), 20)
-        plain_ms = cuda_ms(lambda: fu.egnn_forward_fused_plain(*a, **kw), 5)
-        out["k2"] = timed_check(dtype_name, checks, ms, plain_ms,
-                                *k2_work(b, n, kw["update_rows"], ecfg.neighbor_k,
-                                         ecfg.hidden_nf, ecfg.n_layers, es))
-    return out
+                raise AssertionError(f"K2 moved rows past update_rows, call {i}")
+            k2 += [compare(f"h, call {i}", oh, rh, TOL_REL_FUSED[dtype_name]["h"]),
+                   compare(f"dx, call {i} ({r} rows)", ox[:, :r] - x[:, :r], rx[:, :r] - x[:, :r],
+                           TOL_REL_FUSED[dtype_name]["dx"])]
+    return k1, k2
+
+
+def time_kernel_calls(k1_args, k2_call, dtype_name, ecfg, k1_checks, k2_checks):
+    """One recorded K1 call and one K2 call timed: the wrapper (``ms``),
+    the kernel alone (``kernel_ms``: K1 on prepared arguments, K2 without
+    its neighbour list and embeddings, with its phases' shares of one
+    launch), the plain version, and the bound for the work at this shape
+    (K2's r = its movable rows). Returns (K1 record, K2 record)."""
+    import torch
+
+    from cmdgen_tpu_torch.ops import egnn_fused as fu
+    from cmdgen_tpu_torch.ops import egnn_msgpass as mp
+
+    a, (a2, kw) = k1_args, k2_call
+    b, n = a2[1].shape[:2]
+    r = n if kw["update_rows"] is None else kw["update_rows"]
+    es = 4 if dtype_name == "float32" else 2
+    with torch.no_grad():
+        ms = cuda_ms(lambda: mp.gcl_message_agg(*a), 50)
+        kernel_ms = cuda_ms(mp.prepare_launch(*a), 100)
+        plain_ms = cuda_ms(lambda: mp.gcl_message_agg_plain(*a), 10)
+        k1 = timed_check(dtype_name, k1_checks, ms, plain_ms,
+                         *k1_work(b, n, ecfg.neighbor_k, ecfg.hidden_nf, es))
+        k1["kernel_ms"] = kernel_ms
+        log(f"  K1 kernel alone: kernel_ms={kernel_ms:.4f} ({kernel_ms / k1['bound_ms']:.1f}x "
+            f"its bound)")
+        ms = cuda_ms(lambda: fu.egnn_forward_fused(*a2, **kw), 20)
+        largs = fu.layer_args(*a2[:5], **kw)
+        kernel_ms = cuda_ms(lambda: fu._layers_kernel(*largs), 20)
+        stamps = torch.zeros(1 + len(fu.PHASES) * ecfg.n_layers, dtype=torch.int64,
+                             device=a2[1].device)
+        fu._layers_kernel(*largs, stamps=stamps)
+        phases = fu.phase_shares(stamps)
+        plain_ms = cuda_ms(lambda: fu.egnn_forward_fused_plain(*a2, **kw), 5)
+        k2 = timed_check(dtype_name, k2_checks, ms, plain_ms,
+                         *k2_work(b, n, r, ecfg.neighbor_k, ecfg.hidden_nf, ecfg.n_layers, es))
+        k2.update(kernel_ms=kernel_ms, phases=phases, update_rows=r)
+        log(f"  K2 kernel alone: kernel_ms={kernel_ms:.4f} ({kernel_ms / k2['bound_ms']:.1f}x "
+            f"its bound); phases (ms at kernel_ms): " + ", ".join(
+                f"{name} {v:.1%} ({v * kernel_ms:.3f})" for name, v in phases.items()))
+    return k1, k2
 
 
 def rigid_motion():
@@ -1293,7 +1391,9 @@ def align_phase(dev, repo, posp, smiles):
     """Stage 4 on the card: the decode phase's unique valid SMILES aligned
     onto its hypothesis in run-all's chunks (first chunk apart from the
     warm ones), card vs CPU on one chunk with the same draws, a warm chunk
-    profiled at 100 and at 0 refinement steps, and the align CLI once."""
+    profiled at 100 and at 0 refinement steps, and the align CLI once.
+    Returns (the phase's record, [(element symbols, posed coordinates)] of
+    up to ``EVAL_POSES`` aligned molecules)."""
     import torch
 
     from cmdgen_tpu_torch import cli
@@ -1407,7 +1507,11 @@ def align_phase(dev, repo, posp, smiles):
                              f"{len(best_cli)} molecules")
     out["cli"] = {"ms": ms, "aligned": len(best_cli), "median_rmsd": float(np.median(rmsds))}
     log(f"align CLI: {len(best_cli)} molecules posed in {ms:.0f} ms")
-    return out
+    # up to EVAL_POSES posed molecules (heavy atoms, best conformer) for
+    # the evaluate phase's pose PDBs
+    poses = [([a.symbol for a in mols[i].atoms], r[0][1])
+             for i, r in sorted(results.items())[:EVAL_POSES]]
+    return out, poses
 
 
 def run_all_phase(dev, repo):
@@ -1475,10 +1579,260 @@ def run_all_phase(dev, repo):
     return out
 
 
+def joint_phase(dev, repo, timesteps):
+    """The joint model at full width: ``ca_config`` with
+    ``train.mode="joint"`` and ``update_pocket_coords`` (hidden 256, 5
+    layers, K=12, bf16, the flagship's seeded weights), a 110-CA pocket,
+    8 pharmacophore slots, B=48. ``sample_pharmacophores``' joint branch
+    (RePaint, the pocket fixed, resamplings 1, jump 1) at T=``timesteps``
+    on both engines, launches counted (K1 5 per denoiser call, K2 1; T + 1
+    calls); a profile of a few steps; the denoiser's inputs recorded at
+    three steps of the msgpass chain, every K1 and K2 call there against
+    its plain version (K2 over all 118 rows), the middle step's calls
+    timed; in float32 (the same weights) the denoiser on those steps'
+    inputs (limit relative to its output's scale) and a T=10 inpaint chain
+    on the same draws, card against the CPU; ``sample-phars`` on a joint
+    port checkpoint of these weights through the CLI."""
+    import torch
+
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.containers import PointCloud, mask_from_sizes
+    from cmdgen_tpu_torch.convert import write_port_checkpoint
+    from cmdgen_tpu_torch.diffusion.joint import JointDDPM
+    from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, make_fused_apply
+    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+    from cmdgen_tpu_torch.pipeline.sample_phars import sample_pharmacophores
+    from cmdgen_tpu_torch.utils.synthetic import realistic_ca_pocket, synthetic_pocket_pdb
+
+    cfg, dyn = flagship_dynamics(dev, torch.bfloat16, joint=True)
+    ecfg = cfg.dynamics.egnn
+    rng = np.random.RandomState(0)
+    coords = realistic_ca_pocket(rng, N_Q)
+    onehot = np.eye(20, dtype=np.float32)[rng.randint(0, 20, N_Q)]
+    kw = dict(num_nodes=np.full(B, N_P), n_phar_max=N_P, batch_size=B)
+    models = {e: JointDDPM(cfg.ddpm, dyn, apply_fn=make_fused_apply(dyn) if e == "fused" else None)
+              for e in ("msgpass", "fused")}
+    out = {"config": {"hidden": ecfg.hidden_nf, "layers": ecfg.n_layers, "neighbor_k": K,
+                      "dtype": "bfloat16", "T": timesteps, "batch": B, "phar_slots": N_P,
+                      "pocket_atoms": N_Q, "update_rows": N_P + N_Q}, "engines": {}}
+    calls = timesteps + 1  # RePaint denoise ops (no jumps at resamplings 1) + the final decode
+    want = {"msgpass": {"gcl_message_agg": calls * L, "egnn_forward_fused": 0},
+            "fused": {"gcl_message_agg": 0, "egnn_forward_fused": calls}}
+    for engine, model in models.items():
+        gen = torch.Generator(device=dev).manual_seed(11)
+        sample_pharmacophores(model, coords, onehot, B, timesteps=2, generator=gen, **kw)  # warm-up
+        torch.cuda.synchronize()
+        gcl_message_agg.launches = 0
+        egnn_forward_fused.launches = 0
+        clouds, ms = synced_ms(lambda: sample_pharmacophores(
+            model, coords, onehot, B, timesteps=timesteps, generator=gen, **kw))
+        launches = {"gcl_message_agg": gcl_message_agg.launches,
+                    "egnn_forward_fused": egnn_forward_fused.launches}
+        if launches != want[engine]:
+            raise AssertionError(f"joint {engine}: launches {launches}, expected {want[engine]}")
+        pts = np.array([p for mol in clouds.values() for fam in mol.values() for p in fam])
+        if len(clouds) != B or pts.shape != (B * N_P, 3) or not np.isfinite(pts).all():
+            raise AssertionError(f"joint {engine}: {len(clouds)} clouds, points {pts.shape}")
+        reach = float(np.linalg.norm(pts - coords.mean(0), axis=1).max())
+        prof = device_profile(lambda: sample_pharmacophores(
+            model, coords, onehot, B, timesteps=5, generator=gen, **kw), 2)
+        rec = {"seconds": ms / 1e3, "denoise_steps_per_s": B * timesteps / (ms / 1e3),
+               "launches": launches, "max_distance_from_pocket_centroid": reach,
+               "profile_T5": prof}
+        out["engines"][engine] = rec
+        log(f"joint {engine}: B={B} T={timesteps} {ms / 1e3:.3f} s "
+            f"{rec['denoise_steps_per_s']:.1f} denoise steps/s launches={launches}; "
+            f"profile T=5: {json.dumps(prof)}")
+
+    # the denoiser's inputs at three steps of the msgpass chain; every
+    # kernel call there against its plain version
+    model = models["msgpass"]
+    recorded, seen = record_denoiser_inputs(dyn, calls, lambda: sample_pharmacophores(
+        model, coords, onehot, B, timesteps=timesteps,
+        generator=torch.Generator(device=dev).manual_seed(12), **kw))
+    if seen != calls:
+        raise AssertionError(f"joint: {seen} denoiser calls, expected {calls}")
+    outs, k1_calls, k2_calls = recorded_kernel_calls(
+        {"msgpass": dyn, "fused": models["fused"]._apply}, recorded)
+    if (len(k1_calls), len(k2_calls)) != (len(recorded) * L, len(recorded)):
+        raise AssertionError(f"joint: {len(k1_calls)} K1 and {len(k2_calls)} K2 calls recorded")
+    log(f"K1 and K2 at the joint shape (steps {sorted(recorded)}; every row moves):")
+    k1_checks, k2_checks = check_kernel_calls(k1_calls, k2_calls, "bfloat16")
+    out["k1"], out["k2"] = time_kernel_calls(k1_calls[L], k2_calls[1], "bfloat16", ecfg,
+                                             k1_checks, k2_checks)
+    out["recorded_steps"] = sorted(recorded)
+
+    # float32, the same weights: the denoiser on the recorded steps' inputs
+    # (8 samples each) and a T=10 inpaint chain (4 samples), card vs CPU.
+    # With random weights the chain does not denoise: z grows to ~1e5 by
+    # the last steps, so each step's limit is DENOISER_TOL x max(1,
+    # max|CPU output| at that step): absolute where the outputs are O(1)
+    cfg32, dyn32 = flagship_dynamics(dev, torch.float32, joint=True)
+    cpu_dyn = EGNNDynamics(cfg32.dynamics)
+    cpu_dyn.load_state_dict({k: v.cpu() for k, v in dyn32.state_dict().items()})
+    cpu_dyn.eval()
+    inputs = {step: tuple(v[:8].float() for v in inp) for step, inp in recorded.items()}
+    dev_outs, _, _ = recorded_kernel_calls({"msgpass": dyn32, "fused": make_fused_apply(dyn32)},
+                                           inputs)
+    by_step = denoiser_vs_cpu(dev_outs, cpu_dyn, inputs)
+    errs = {engine: {str(step): {"max_abs_err": err, "ref_max": ref,
+                                 "tol": DENOISER_TOL * max(1.0, ref)}
+                     for step, err, ref in rows} for engine, rows in by_step.items()}
+    b4 = 4
+    mask_p = mask_from_sizes(torch.tensor([8, 8, 6, 5]), N_P)
+    mask_q = torch.ones(b4, N_Q)
+    pocket = PointCloud(x=torch.from_numpy(np.broadcast_to(coords, (b4, N_Q, 3)).copy()),
+                        h=torch.from_numpy(np.broadcast_to(onehot, (b4, N_Q, 20)).copy()),
+                        mask=mask_q)
+    phar = PointCloud(x=torch.zeros(b4, N_P, 3), h=torch.zeros(b4, N_P, 8), mask=mask_p)
+    g = torch.Generator().manual_seed(13)
+    cpu_models = {e: JointDDPM(cfg32.ddpm, cpu_dyn,
+                               apply_fn=make_fused_apply(cpu_dyn) if e == "fused" else None)
+                  for e in ("msgpass", "fused")}
+    draw = cpu_models["msgpass"]._sample_joint_noise
+    noise = (draw(mask_p, mask_q, g), [(draw(mask_p, mask_q, g), draw(mask_p, mask_q, g))
+                                       for _ in range(10)], draw(mask_p, mask_q, g))
+    chain_err = {}
+    for engine in ("msgpass", "fused"):
+        card = JointDDPM(cfg32.ddpm, dyn32,
+                         apply_fn=make_fused_apply(dyn32) if engine == "fused" else None)
+        res = []
+        for m, on in ((cpu_models[engine], "cpu"), (card, dev)):
+            mv = [PointCloud(x=c.x.to(on), h=c.h.to(on), mask=c.mask.to(on)) for c in (phar, pocket)]
+            res.append(m.inpaint(*mv, torch.zeros(b4, N_P, device=on),
+                                 torch.ones(b4, N_Q, device=on), timesteps=10, noise=noise))
+        if not all(torch.equal(a.h, b.h.cpu()) for a, b in zip(*res)):
+            raise AssertionError(f"joint {engine} T=10 chain: types differ card vs CPU")
+        chain_err[engine] = max((a.x - b.x.cpu()).abs().max().item() for a, b in zip(*res))
+    out["float32_vs_cpu"] = {"denoiser": errs, "inpaint_T10": chain_err,
+                             "inpaint_tol": DENOISER_TOL}
+    log(f"joint float32 card vs CPU plain: denoiser by step {json.dumps(errs)}; T=10 inpaint "
+        f"chain {chain_err} (tol {DENOISER_TOL})")
+    if not (all(c["max_abs_err"] <= c["tol"] for e in errs.values() for c in e.values())
+            and all(e <= DENOISER_TOL for e in chain_err.values())):
+        raise AssertionError(f"the joint model disagrees with the CPU: {out['float32_vs_cpu']}")
+
+    # sample-phars on a joint port checkpoint of the bf16 weights
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_port_checkpoint(tmp / "joint", cfg, models["fused"])
+        pdb = tmp / "pocket.pdb"
+        pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(0)))
+        gcl_message_agg.launches = 0
+        egnn_forward_fused.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            mols, ms = synced_ms(lambda: cli.main([
+                "sample-phars", str(tmp / "joint"), str(pdb), str(tmp / "out.json"),
+                "--ref-ligand", "L:1", "--n-samples", str(B), "--timesteps", "100",
+                "--seed", "0", "--device", "cuda", "--engine", "fused"]))
+        launches = egnn_forward_fused.launches + gcl_message_agg.launches
+        pts = np.array([p for mol in mols.values() for fam in mol.values() for p in fam])
+    if launches != 101 or len(mols) != B or not np.isfinite(pts).all():
+        raise AssertionError(f"joint sample-phars CLI: {launches} launches, {len(mols)} clouds")
+    out["cli"] = {"ms": ms, "clouds": len(mols), "points": len(pts), "T": 100, "launches": launches}
+    log(f"joint sample-phars CLI (fused, T=100): {len(mols)} clouds in {ms:.0f} ms")
+    return out
+
+
+def evaluate_phase(dev, repo, posp, smiles, poses):
+    """The evaluation harnesses on the card through the CLI:
+    ``eval-diffphar`` with the trained qrun_aa (T=100, unclamped) on a
+    synthetic test set of 8 complexes in DiffPharDataset's format,
+    ``eval-gcpg`` with grun_r5cn on 128 of the align phase's SMILES, and
+    ``align --pose-pdbs`` on pose PDBs of the align phase's posed
+    conformers (heavy atoms, HETATM); then ``eval_alignment_rmsd_posed`` on
+    those poses, card against the CPU with the same draws."""
+    import torch
+
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.ops import dgeom
+    from cmdgen_tpu_torch.pipeline.evaluate import eval_alignment_rmsd_posed
+    from cmdgen_tpu_torch.utils.synthetic import ligand_pdb, synthetic_diffphar_npz
+
+    assets = repo / "cmdgen_tpu_torch" / "assets"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        synthetic_diffphar_npz(tmp / "test.npz", np.random.RandomState(0), n_complexes=8)
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics, ms = synced_ms(lambda: cli.main([
+                "eval-diffphar", str(assets / "qrun_aa"), str(tmp / "test.npz"),
+                "--device", "cuda"]))
+        if not (all(np.isfinite(v) for v in metrics.values()) and metrics["n_sampled"] > 0):
+            raise AssertionError(f"eval-diffphar: {metrics}")
+        out["eval_diffphar"] = dict(metrics, ms=ms, complexes=8, samples_per_complex=4, T=100)
+        log(f"eval-diffphar (qrun_aa, T=100, 8 synthetic complexes): {json.dumps(out['eval_diffphar'])}")
+
+        (tmp / "test.smi").write_text("\n".join(smiles) + "\n")
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics, ms = synced_ms(lambda: cli.main([
+                "eval-gcpg", str(assets / "grun_r5cn"), str(tmp / "test.smi"), "--n", "128",
+                "--device", "cuda"]))
+        if not (metrics["n_eval"] == 128 and all(np.isfinite(v) for v in metrics.values())):
+            raise AssertionError(f"eval-gcpg: {metrics}")
+        out["eval_gcpg"] = dict(metrics, ms=ms)
+        log(f"eval-gcpg (grun_r5cn, 128 SMILES): {json.dumps(out['eval_gcpg'])}")
+
+        pose_dir = tmp / "poses"
+        pose_dir.mkdir()
+        for i, (symbols, xyz) in enumerate(poses):
+            (pose_dir / f"pose_{i:02d}.pdb").write_text(ligand_pdb(symbols, xyz))
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary, ms = synced_ms(lambda: cli.main([
+                "align", str(pose_dir), str(posp), str(tmp / "aligned"), "--pose-pdbs",
+                "--tolerance", "1", "--device", "cuda"]))
+        # a pose whose every conformer diverged has a NaN RMSD, as in the
+        # JAX package (ROADMAP C): the mean and median then are NaN, so the
+        # finite values are summarised beside them
+        values = np.load(tmp / "aligned" / "rmsd_values.npy")
+        finite = values[np.isfinite(values)]
+        if not (len(finite) > 0 and len(values) == summary["n_aligned"]
+                and summary["n_aligned"] + summary["n_failed"] == len(poses)):
+            raise AssertionError(f"align --pose-pdbs: {summary}, RMSDs {values}")
+        out["align_pose_pdbs"] = dict(summary, ms=ms, poses=len(poses), n_finite=len(finite),
+                                      finite_rmsd_mean=float(finite.mean()),
+                                      finite_rmsd_median=float(np.median(finite)))
+        log(f"align --pose-pdbs ({len(poses)} poses): {json.dumps(out['align_pose_pdbs'])}")
+
+        # every pose, card vs CPU on the same embedding draws: the same
+        # poses fail, the same RMSDs (most fail before any draw: their
+        # rebuilt molecule matches no subset of the hypothesis)
+        paths = sorted(pose_dir.glob("*.pdb"))
+        embed_draws = dgeom.embed_draws
+        res = {}
+        for d in ("cpu", dev):
+            seeds = iter(range(100, 200))
+
+            def fixed_draws(m, c, nb, generator=None, device=None):
+                g = torch.Generator().manual_seed(next(seeds))
+                return tuple(v.to(device) for v in embed_draws(m, c, nb, g, "cpu"))
+
+            dgeom.embed_draws = fixed_draws
+            try:
+                res[str(d)] = eval_alignment_rmsd_posed(paths, posp, tolerance=1, device=d)
+            finally:
+                dgeom.embed_draws = embed_draws
+    cpu, card = (np.array(res[k]["rmsd_values"]) for k in ("cpu", str(dev)))
+    same_nan = cpu.shape == card.shape and np.array_equal(np.isnan(cpu), np.isnan(card))
+    both = np.isfinite(cpu) & np.isfinite(card) if same_nan else np.zeros(0, bool)
+    err = float(np.abs(cpu[both] - card[both]).max()) if both.any() else float("nan")
+    out["posed_card_vs_cpu"] = {"poses": len(paths), "rmsds_cpu": cpu.tolist(),
+                                "rmsds_card": card.tolist(),
+                                "rmsd_max_abs_err": err, "tol": ALIGN_RMSD_TOL}
+    log(f"eval_alignment_rmsd_posed card vs CPU ({len(paths)} poses, same draws): "
+        f"{out['posed_card_vs_cpu']}")
+    cpu_out, card_out = res["cpu"], res[str(dev)]
+    if not (same_nan and both.any() and cpu_out["n_failed"] == card_out["n_failed"]
+            and err <= ALIGN_RMSD_TOL):
+        raise AssertionError(f"eval_alignment_rmsd_posed disagrees with the CPU: {cpu} {card}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--timesteps", type=int, default=500,
-                    help="reverse steps of the flagship sampling runs (default 500)")
+                    help="reverse steps of the flagship and joint sampling runs (default 500)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels, print the checks and stop")
     args = ap.parse_args()
@@ -1533,15 +1887,18 @@ def main():
         consensus["options"] = options_phase(dev, repo)
         consensus["tf32_default"] = tf32
         decode, smiles_t07 = decode_phase(dev, repo, hypothesis)
-        align = align_phase(dev, repo, hypothesis, smiles_t07)
+        align, poses = align_phase(dev, repo, hypothesis, smiles_t07)
+        evaluate = evaluate_phase(dev, repo, hypothesis, smiles_t07, poses)
     run_all = run_all_phase(dev, repo)
+    joint = joint_phase(dev, repo, args.timesteps)
 
-    def entry(name, source, replaces, flagship, main_path, launches):
+    def entry(name, source, replaces, flagship, main_path, joint_path, launches):
         """The kernel's line: launches, times and bound at the main path's
         (run-all's) shape; the flagship checks beside them (bf16, the
-        flagship sampling dtype, last); max_abs_err is the comparison
-        nearest its limit over every check."""
-        worst = max((c for chk in (*flagship, main_path) for c in chk["comparisons"]),
+        flagship sampling dtype, last) and the joint shape's; max_abs_err
+        is the comparison nearest its limit over every check."""
+        worst = max((c for chk in (*flagship, main_path, joint_path)
+                     for c in chk["comparisons"]),
                     key=lambda c: c["max_abs_err"] / c["tol"])
         bf16 = flagship[-1]
         return {
@@ -1562,17 +1919,24 @@ def main():
     # --engine fused for K2); each earlier path's count beside it
     kernels = [
         entry("gcl_message_agg", "cmdgen_tpu_torch/csrc/egnn_msgpass.cu",
-              "cmdgen_tpu/ops/egnn_msgpass.py:111", k1, run_all["kernels"]["k1"],
+              "cmdgen_tpu/ops/egnn_msgpass.py:111", k1, run_all["kernels"]["k1"], joint["k1"],
               run_all["runs"]["msgpass"]["launches"]["gcl_message_agg"]),
         entry("egnn_forward_fused", "cmdgen_tpu_torch/csrc/egnn_fused.cu",
-              "cmdgen_tpu/ops/egnn_fused.py:209", k2, run_all["kernels"]["k2"],
+              "cmdgen_tpu/ops/egnn_fused.py:209", k2, run_all["kernels"]["k2"], joint["k2"],
               run_all["runs"]["fused"]["launches"]["egnn_forward_fused"]),
     ]
-    for kern, engine in zip(kernels, ("msgpass", "fused")):
+    for kern, engine, key in zip(kernels, ("msgpass", "fused"), ("k1", "k2")):
         kern["launches_by_path"] = {
             "flagship_sampling": sampling[engine][2][kern["name"]],
             "trained_sample_phars": trained[engine][kern["name"]],
-            "run_all": kern["launches"]}
+            "run_all": kern["launches"],
+            "joint_sample_phars": joint["engines"][engine]["launches"][kern["name"]]}
+        kern["joint"] = {k: joint[key][k] for k in (
+            "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "comparisons")}
+        kern["joint"]["shape"] = joint["config"]
+        kern["run_all_shape"]["kernel_ms"] = run_all["kernels"][key]["kernel_ms"]
+    kernels[1]["joint"]["phases"] = joint["k2"]["phases"]
+    kernels[1]["run_all_shape"]["phases"] = run_all["kernels"]["k2"]["phases"]
     kernels[0]["flagship"]["stage_shares"] = k1[-1]["stage_shares"]
     kernels[0]["batch_132"] = {key: k1_wide[key] for key in (
         "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "stage_shares", "comparisons")}
@@ -1589,6 +1953,9 @@ def main():
     log(json.dumps({"decode": decode, "card": card}))
     log(json.dumps({"align": align, "card": card}))
     log(json.dumps({"run_all": run_all, "card": card}))
+    log(json.dumps({"evaluate": evaluate, "card": card}))
+    log(json.dumps({"joint": {k: v for k, v in joint.items() if k not in ("k1", "k2")},
+                    "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,14 +10,17 @@ DiffPhar/analysis/metrics.py):
   and discarded — the reference also trains on non-isomeric SMILES,
   dataset.py:201-208),
 - implicit-hydrogen / valence model and molecule validity checking,
-- ring perception (networkx cycle space) and kekulization via maximum
-  matching (networkx),
+- ring perception (a cycle basis) and kekulization via perfect matching
+  (a fail-first backtracking search),
 - a canonical SMILES writer (iterative-refinement canonical ranks + DFS),
   self-consistent for uniqueness/novelty metrics (NOT guaranteed to equal
   RDKit's canonical form),
 - random-order SMILES enumeration for input augmentation.
 
-A verbatim copy of ``cmdgen_tpu/chem/mol.py`` (pure Python).
+A copy of ``cmdgen_tpu/chem/mol.py`` (pure Python). Where the
+kekulization search runs out of budget, the JAX package falls back to
+networkx's blossom matching; this copy runs the same search without a
+budget (``_perfect_matching_exact``), which reaches the same verdict.
 """
 from __future__ import annotations
 
@@ -109,7 +112,7 @@ def _perfect_matching(
 
     Returns a list of (i, j) pairs if a perfect matching exists, an empty
     tuple if provably none exists, or None if the node-expansion budget is
-    exhausted (caller falls back to the blossom solver).
+    exhausted (caller falls back to :func:`_perfect_matching_exact`).
     """
     if len(need) % 2:
         return ()
@@ -149,6 +152,58 @@ def _perfect_matching(
     if r is None:
         return None
     return pairs if r else ()
+
+
+def _perfect_matching_exact(need: set, adj: Dict[int, List[int]]):
+    """:func:`_perfect_matching`'s search without a budget: the same
+    fail-first order, so the same matching where that one finds one, but
+    each step first refuses a remainder with a connected component of odd
+    size, which no perfect matching covers (so a system with no matching
+    is refuted without walking every branch). Returns the pairs, or an
+    empty tuple if none exists."""
+    if len(need) % 2:
+        return ()
+    unmatched = set(need)
+    pairs: List[Tuple[int, int]] = []
+
+    def odd_component() -> bool:
+        left = set(unmatched)
+        while left:
+            stack = [left.pop()]
+            size = 0
+            while stack:
+                u = stack.pop()
+                size += 1
+                for v in adj[u]:
+                    if v in left:
+                        left.discard(v)
+                        stack.append(v)
+            if size % 2:
+                return True
+        return False
+
+    def bt() -> bool:
+        if not unmatched:
+            return True
+        if odd_component():
+            return False
+        u = min(
+            unmatched,
+            key=lambda i: (sum(1 for v in adj[i] if v in unmatched), i),
+        )
+        cands = [v for v in adj[u] if v in unmatched]
+        unmatched.discard(u)
+        for v in cands:
+            unmatched.discard(v)
+            pairs.append((u, v))
+            if bt():
+                return True
+            pairs.pop()
+            unmatched.add(v)
+        unmatched.add(u)
+        return False
+
+    return pairs if bt() else ()
 
 
 class Mol:
@@ -394,8 +449,9 @@ class Mol:
         problem on those atoms, solved with a fail-first backtracking search
         (_perfect_matching — aromatic subgraphs are tiny and max-degree-3,
         where backtracking beats the general blossom solver by ~30x and
-        removes networkx from the canonical_smiles hot path; networkx
-        remains as the budget-exhaustion fallback).
+        removes networkx from the canonical_smiles hot path; the same
+        search without a budget, pruned by component parity, is the
+        budget-exhaustion fallback).
         Returns False if no valid assignment exists (invalid aromaticity).
         """
         arom_atoms = [i for i, a in enumerate(self.atoms) if a.aromatic]
@@ -443,16 +499,9 @@ class Mol:
                 adj[b.a2].append(b.a1)
         matching = _perfect_matching(need, adj)
         if matching is None:
-            # budget exhausted on a pathological fused system: fall back to
-            # the general blossom solver
-            import networkx as nx
-
-            g = nx.Graph()
-            g.add_nodes_from(need)
-            for i, nbrs in adj.items():
-                for j in nbrs:
-                    g.add_edge(i, j)
-            matching = nx.max_weight_matching(g, maxcardinality=True)
+            # budget exhausted on a pathological fused system: the same
+            # search without a budget, pruned by component parity
+            matching = _perfect_matching_exact(need, adj)
         matched = {i for e in matching for i in e}
         if matched != need:
             return False

@@ -9,13 +9,21 @@
       [--constrain-decode] [--constrain-valence] [--no-filter] [--device cuda]
   python -m cmdgen_tpu_torch.cli align SMILES.txt HYP.posp OUT_DIR \\
       [--n-conformers 10] [--num-keep 3] [--tolerance 0] [--device cuda]
+  python -m cmdgen_tpu_torch.cli align POSES_DIR HYP.posp OUT_DIR --pose-pdbs \\
+      [--ref-ligand A:1] [--tolerance 0] [--device cuda]
   python -m cmdgen_tpu_torch.cli run-all CKPT_DIR GCPG_DIR OUT_DIR POCKET.pdb [...] \\
       --ref-ligand A:1 [--engine msgpass|fused] [--device cuda]
+  python -m cmdgen_tpu_torch.cli eval-diffphar CKPT_DIR TEST.npz [--n-pockets 20] \\
+      [--engine msgpass|fused] [--device cuda]
+  python -m cmdgen_tpu_torch.cli eval-gcpg GCPG_DIR SMILES.txt [--n 100] [--device cuda]
 
 Stages 1 (``sample-phars``), 2 (``get-phar``), 3 (``generate``) and 4
 (``align``) are ported, and ``run-all`` chains all four as one streaming
-driver. ``CKPT_DIR`` is a port checkpoint directory (``params.npz`` +
-``config.json``, see ``convert.py``), e.g. ``cmdgen_tpu_torch/assets/qrun_aa``;
+driver; ``eval-diffphar``, ``eval-gcpg`` and ``align --pose-pdbs`` are the
+evaluation harnesses. ``sample-phars`` on a joint checkpoint samples by
+RePaint inpainting with the pocket held fixed. ``CKPT_DIR`` is a port
+checkpoint directory (``params.npz`` + ``config.json``, see
+``convert.py``), e.g. ``cmdgen_tpu_torch/assets/qrun_aa``;
 ``GCPG_DIR`` a GCPG one, e.g. ``cmdgen_tpu_torch/assets/grun_r5cn``. Every
 command runs on ``cuda`` unless given ``--device cpu``.
 """
@@ -77,9 +85,13 @@ def _diffphar_model(ckpt_dir, args):
 
 
 def run_sample_phars(args):
+    from cmdgen_tpu_torch.diffusion.joint import JointDDPM
     from cmdgen_tpu_torch.pipeline.sample_phars import sample_phars_to_json
 
     model, cfg = _diffphar_model(args.ckpt_dir, args)
+    if args.chain_gif and isinstance(model, JointDDPM):
+        raise ValueError("--chain-gif renders the conditional model's chain; "
+                         "a joint checkpoint has none")
     result = sample_phars_to_json(
         model, args.pdbfile, args.out_json, dataset=cfg.data.dataset,
         representation=cfg.data.pocket_representation,
@@ -201,13 +213,21 @@ def run_generate(args):
 
 
 def _add_align(sub):
-    p = sub.add_parser("align", help="align SMILES onto a .posp")
-    p.add_argument("smiles_file", help="SMILES list, one a line")
+    p = sub.add_parser("align", help="align SMILES (or posed PDB ligands) onto a .posp")
+    p.add_argument("smiles_file", help="SMILES list, one a line, or a directory "
+                                       "(or one file) of pose PDBs with --pose-pdbs")
     p.add_argument("posp_file")
     p.add_argument("out_dir")
     p.add_argument("--n-conformers", type=int, default=10)
     p.add_argument("--num-keep", type=int, default=3)
     p.add_argument("--tolerance", type=int, default=0)
+    p.add_argument("--pose-pdbs", action="store_true",
+                   help="treat the first argument as a directory of docked-pose "
+                        "PDB ligands and run the RMSD-vs-pose eval "
+                        "(align_ligandpharm_gcpg_test.py)")
+    p.add_argument("--ref-ligand", default=None,
+                   help="chain:resid selector inside each pose PDB (default: all "
+                        "non-water HETATM/ATOM heavy atoms)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(run=run_align)
@@ -219,10 +239,23 @@ def run_align(args):
     from cmdgen_tpu_torch.device import resolve_device
     from cmdgen_tpu_torch.pipeline.align import align_smiles_list
 
+    generator = make_generator(resolve_device(args.device), args.seed)
+    if args.pose_pdbs:
+        from cmdgen_tpu_torch.pipeline.evaluate import eval_alignment_rmsd_posed
+
+        pose_dir = Path(args.smiles_file)
+        paths = sorted(pose_dir.glob("*.pdb")) if pose_dir.is_dir() else [pose_dir]
+        out = eval_alignment_rmsd_posed(
+            paths, args.posp_file, ref_ligand=args.ref_ligand, generator=generator,
+            n_conformers=args.n_conformers, tolerance=args.tolerance,
+            out_dir=args.out_dir)
+        out.pop("rmsd_values")
+        print(json.dumps({k: round(float(v), 4) for k, v in out.items()}))
+        return out
     smiles = Path(args.smiles_file).read_text().strip().split("\n")
     best = align_smiles_list(
         smiles, args.posp_file, args.out_dir,
-        generator=make_generator(resolve_device(args.device), args.seed),
+        generator=generator,
         n_conformers=args.n_conformers, num_keep=args.num_keep,
         tolerance=args.tolerance,
     )
@@ -342,6 +375,56 @@ def run_run_all(args):
     return results, stats
 
 
+def _add_eval(sub):
+    p = sub.add_parser("eval-diffphar", help="distribution-match eval")
+    p.add_argument("ckpt_dir")
+    p.add_argument("test_npz")
+    p.add_argument("--n-pockets", type=int, default=20)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--engine", default="msgpass", choices=["msgpass", "fused"],
+                   help="the sampler's EGNN: msgpass (K1 per GCL) or fused (K2)")
+    p.set_defaults(run=run_eval_diffphar)
+
+    q = sub.add_parser("eval-gcpg", help="generation quality eval")
+    q.add_argument("ckpt_dir", help="GCPG port checkpoint directory")
+    q.add_argument("test_smiles_file")
+    q.add_argument("--n", type=int, default=100)
+    q.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    q.set_defaults(run=run_eval_gcpg)
+
+
+def run_eval_diffphar(args):
+    """Prints and returns eval_diffphar's metrics (seed 0, as the JAX
+    package's command)."""
+    import json
+
+    from cmdgen_tpu_torch.convert import build_model, read_port_checkpoint
+    from cmdgen_tpu_torch.data.dataset import DiffPharDataset
+    from cmdgen_tpu_torch.pipeline.evaluate import eval_diffphar
+
+    cfg, params = read_port_checkpoint(args.ckpt_dir)
+    model = build_model(cfg, params, args.device, args.engine)
+    out = eval_diffphar(model, DiffPharDataset(args.test_npz), args.n_pockets,
+                        generator=make_generator(model.device, 0))
+    print(json.dumps(out))
+    return out
+
+
+def run_eval_gcpg(args):
+    """Prints and returns eval_gcpg's metrics (seed 0)."""
+    import json
+
+    from cmdgen_tpu_torch.convert import load_port_gcpg
+    from cmdgen_tpu_torch.pipeline.evaluate import eval_gcpg
+
+    model, tokenizer = load_port_gcpg(args.ckpt_dir, args.device)
+    smiles = Path(args.test_smiles_file).read_text().strip().split("\n")
+    out = eval_gcpg(model, tokenizer, smiles, args.n,
+                    generator=make_generator(model.pos.device, 0))
+    print(json.dumps(out))
+    return out
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The parsed command line; ``args.run(args)`` runs its command."""
     parser = argparse.ArgumentParser(prog="cmdgen_tpu_torch")
@@ -351,6 +434,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     _add_generate(sub)
     _add_align(sub)
     _add_run_all(sub)
+    _add_eval(sub)
     return parser.parse_args(argv)
 
 

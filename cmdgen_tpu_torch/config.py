@@ -1,7 +1,8 @@
 """Configuration dataclasses of DiffPhar and of the GCPG model
 (counterparts of ``cmdgen_tpu/config.py``). Field names and defaults are
 the JAX package's, so a checkpoint's ``config`` dict loads with
-:func:`from_dict`; the ``compute_dtype`` string maps to a torch dtype."""
+:func:`from_dict` and :func:`to_dict` writes one; the ``compute_dtype``
+string maps to a torch dtype."""
 from __future__ import annotations
 
 import dataclasses
@@ -138,3 +139,18 @@ def from_dict(cls, d: Dict[str, Any]):
         else:
             kwargs[f.name] = v
     return cls(**kwargs)
+
+
+def to_dict(obj) -> Dict[str, Any]:
+    """A config dataclass as the nested dict :func:`from_dict` reads (a
+    torch dtype as its name, tuples as lists)."""
+    def plain(v):
+        if dataclasses.is_dataclass(v):
+            return {f.name: plain(getattr(v, f.name)) for f in dataclasses.fields(v)}
+        if isinstance(v, torch.dtype):
+            return next(k for k, d in DTYPES.items() if d == v)
+        if isinstance(v, (tuple, list)):
+            return [plain(x) for x in v]
+        return v
+
+    return plain(obj)

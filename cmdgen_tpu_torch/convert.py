@@ -26,20 +26,22 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from cmdgen_tpu_torch.chem.tokenizer import Tokenizer
-from cmdgen_tpu_torch.config import DiffPharConfig, GCPGModelConfig, from_dict
+from cmdgen_tpu_torch.config import DiffPharConfig, GCPGModelConfig, from_dict, to_dict
 from cmdgen_tpu_torch.device import DeviceLike, resolve_device
 from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
+from cmdgen_tpu_torch.diffusion.joint import JointDDPM
 from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, make_fused_apply
 from cmdgen_tpu_torch.models.gcpg import GCPG, TRAINING_MODULES
 
 GAMMA_NET = "gamma_net/"
+Model = Union[ConditionalDDPM, JointDDPM]
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -119,6 +121,37 @@ def load_state(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
     module.load_state_dict(sd, strict=True)
 
 
+def flax_leaves(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`dynamics_state_dict`: ``module``'s weights as
+    the flattened flax tree (``a.b.weight [out, in]`` -> ``a/b/kernel
+    [in, out]``; a top-level parameter keeps its name)."""
+    flat = {}
+    for name, v in module.state_dict().items():
+        *mods, leaf = name.split(".")
+        arr = v.detach().cpu().numpy()
+        if not mods:
+            flat[leaf] = arr
+        elif leaf == "weight":
+            flat["/".join(mods) + "/kernel"] = arr.T
+        else:
+            flat["/".join(mods) + "/" + leaf] = arr
+    return flat
+
+
+def write_port_checkpoint(ckpt_dir, cfg: DiffPharConfig, model) -> Path:
+    """Write ``model``'s weights (the dynamics and, for the learned
+    schedule, the gamma network) and ``cfg`` as a port checkpoint
+    directory, which :func:`load_port_checkpoint` reads back."""
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    flat = flax_leaves(model.dynamics)
+    if model.gamma_net is not None:
+        flat.update({GAMMA_NET + k: v for k, v in flax_leaves(model.gamma_net).items()})
+    np.savez(ckpt_dir / "params.npz", **flat)
+    (ckpt_dir / "config.json").write_text(json.dumps(to_dict(cfg), indent=1))
+    return ckpt_dir
+
+
 def read_port_checkpoint(ckpt_dir) -> Tuple[DiffPharConfig, Dict[str, np.ndarray]]:
     """(config, flattened flax params) of a port checkpoint directory."""
     ckpt_dir = Path(ckpt_dir)
@@ -130,14 +163,14 @@ def read_port_checkpoint(ckpt_dir) -> Tuple[DiffPharConfig, Dict[str, np.ndarray
 
 def build_model(cfg: DiffPharConfig, flax_params: Mapping,
                 device: DeviceLike = None, engine: str = "msgpass",
-                size_histogram: Optional[np.ndarray] = None) -> ConditionalDDPM:
-    """The conditional DDPM of ``cfg`` with ``flax_params`` loaded, on
-    ``device`` (default ``cuda``; raises without CUDA). ``engine``:
-    ``msgpass`` (the module, K1 per GCL) or ``fused`` (K2).
-    ``size_histogram`` gives the model a size prior."""
+                size_histogram: Optional[np.ndarray] = None) -> Model:
+    """The DDPM of ``cfg`` with ``flax_params`` loaded, on ``device``
+    (default ``cuda``; raises without CUDA): a ``JointDDPM`` when
+    ``cfg.train.mode`` is ``joint`` (its dynamics move the pocket too),
+    else a ``ConditionalDDPM``. ``engine``: ``msgpass`` (the module, K1 per
+    GCL) or ``fused`` (K2). ``size_histogram`` gives the model a size
+    prior."""
     dev = resolve_device(device)
-    if cfg.train.mode == "joint":
-        raise NotImplementedError("the joint model is not ported yet")
     if engine not in ("msgpass", "fused"):
         raise ValueError(f"unknown engine {engine!r}")
     dyn_params, gamma_params = split_gamma_net(flax_params)
@@ -146,7 +179,8 @@ def build_model(cfg: DiffPharConfig, flax_params: Mapping,
     dynamics = dynamics.to(dev).eval()
     apply_fn = make_fused_apply(dynamics) if engine == "fused" else None
     prior = None if size_histogram is None else SizePrior(size_histogram, dev)
-    model = ConditionalDDPM(cfg.ddpm, dynamics, apply_fn=apply_fn, size_prior=prior)
+    model = (JointDDPM if cfg.train.mode == "joint" else ConditionalDDPM)(
+        cfg.ddpm, dynamics, apply_fn=apply_fn, size_prior=prior)
     if model.gamma_net is not None:
         load_flax_params(model.gamma_net, gamma_params, scalars=("gamma_0", "gamma_1"))
     elif gamma_params:
@@ -156,7 +190,7 @@ def build_model(cfg: DiffPharConfig, flax_params: Mapping,
 
 def load_port_checkpoint(ckpt_dir, device: DeviceLike = None,
                          engine: str = "msgpass"
-                         ) -> Tuple[ConditionalDDPM, DiffPharConfig]:
+                         ) -> Tuple[Model, DiffPharConfig]:
     """Read a port checkpoint and build its model on ``device``, with the
     size prior of its ``size_distribution.npy`` where it has one."""
     cfg, flat = read_port_checkpoint(ckpt_dir)

@@ -5,21 +5,23 @@ Parse a pocket from PDB (explicit residue list, or residues within 8 Å of a
 reference ligand), tile it across the batch, sample pharmacophore clouds
 with the conditional DDPM, shift them back into the pocket's frame, and
 emit the ``{Molecule_i: {family: [[x, y, z], ...]}}`` dict the consensus
-stage reads.
+stage reads. A joint model samples by RePaint inpainting with the pocket
+held fixed (lightning_modules.py:466-486).
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from cmdgen_tpu_torch.chem import pdb as pdbmod
 from cmdgen_tpu_torch.chem.constants import PHAR_DECODER
-from cmdgen_tpu_torch.containers import PointCloud
+from cmdgen_tpu_torch.containers import PointCloud, mask_from_sizes
 from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
+from cmdgen_tpu_torch.diffusion.joint import JointDDPM
 from cmdgen_tpu_torch.ops.masked import masked_mean
 
 
@@ -43,7 +45,7 @@ def pocket_point_cloud(pdb_file, dataset: str, representation: str,
 
 
 def sample_pharmacophores(
-    model: ConditionalDDPM,
+    model: Union[ConditionalDDPM, JointDDPM],
     pocket_coords: np.ndarray,
     pocket_onehot: np.ndarray,
     n_samples: int,
@@ -62,8 +64,11 @@ def sample_pharmacophores(
     granularity (mask-exact). Unless ``num_nodes`` gives them, node counts
     come from the model's size prior, p(n | pocket size), drawn from
     ``generator``, or are 5 without a prior; either is clipped to
-    [1, n_phar_max]. ``noise``: one (init, chain, final) triple per batch
-    for ``sample_given_pocket``, instead of ``generator``.
+    [1, n_phar_max]. ``noise``: one draw set per batch, instead of
+    ``generator``: the (init, chain, final) triple of
+    ``sample_given_pocket``, or for a joint model the ``noise`` of
+    ``JointDDPM.inpaint``, which runs with ``resamplings=1`` and
+    ``jump_length=1`` from a zero pharmacophore cloud.
     """
     dev = model.device
     nq, nf = pocket_onehot.shape
@@ -97,10 +102,20 @@ def sample_pharmacophores(
             nn_ = nn_.clamp(1, n_phar_max)
         else:
             nn_ = torch.as_tensor(np.asarray(num_nodes[done:done + b]), device=dev)
-        phar, pocket_out = model.sample_given_pocket(
-            pocket, nn_, n_phar_max, timesteps=timesteps, generator=generator,
-            noise=None if noise is None else noise[batch_i],
-        )
+        draws = None if noise is None else noise[batch_i]
+        if isinstance(model, JointDDPM):
+            phar_mask = mask_from_sizes(nn_, n_phar_max)
+            phar_init = PointCloud(x=torch.zeros(b, n_phar_max, 3, device=dev),
+                                   h=torch.zeros(b, n_phar_max, model.phar_nf, device=dev),
+                                   mask=phar_mask)
+            phar, pocket_out = model.inpaint(
+                phar_init, pocket, torch.zeros_like(phar_mask), torch.ones_like(pocket.mask),
+                resamplings=1, jump_length=1, timesteps=timesteps, generator=generator,
+                noise=draws)
+        else:
+            phar, pocket_out = model.sample_given_pocket(
+                pocket, nn_, n_phar_max, timesteps=timesteps, generator=generator,
+                noise=draws)
         # translate back into the original pocket frame
         pocket_com_after = masked_mean(pocket_out.x, pocket_out.mask).cpu().numpy()
         shift = pocket_com_before[None, :] - pocket_com_after
@@ -120,7 +135,7 @@ def sample_pharmacophores(
     return out
 
 
-def sample_phars_to_json(model: ConditionalDDPM, pdb_file, out_json,
+def sample_phars_to_json(model: Union[ConditionalDDPM, JointDDPM], pdb_file, out_json,
                          dataset: str = "crossdock_full",
                          representation: str = "full-atom",
                          ref_ligand: Optional[str] = None,

@@ -236,3 +236,131 @@ def test_cli_align_and_run_all_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["run-all", str(CKPT), str(GRUN), str(tmp_path / "ra"), str(pdb),
                   "--ref-ligand", "L:1"])
+
+
+# ------------------------------------------------ joint model and evaluation
+
+def _joint_checkpoint(path):
+    """A small joint port checkpoint (ca_config's families, hidden 32, 2
+    layers, K=10, T=10) with seeded random weights, written by
+    ``write_port_checkpoint``; read back, it is the same model."""
+    import dataclasses
+
+    from cmdgen_tpu_torch.config import ca_config
+    from cmdgen_tpu_torch.convert import (build_model, flax_leaves, load_port_checkpoint,
+                                          write_port_checkpoint)
+    from cmdgen_tpu_torch.diffusion.joint import JointDDPM
+    from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
+
+    cfg = ca_config()
+    egnn = dataclasses.replace(cfg.dynamics.egnn, hidden_nf=32, n_layers=2, neighbor_k=10)
+    cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, mode="joint"),
+        ddpm=dataclasses.replace(cfg.ddpm, timesteps=10),
+        dynamics=dataclasses.replace(cfg.dynamics, update_pocket_coords=True, egnn=egnn))
+    torch.manual_seed(0)
+    model = build_model(cfg, flax_leaves(EGNNDynamics(cfg.dynamics)), "cpu")
+    write_port_checkpoint(path, cfg, model)
+    back, cfg_back = load_port_checkpoint(path, "cpu")
+    assert isinstance(back, JointDDPM) and cfg_back == cfg
+    for (k, a), b in zip(model.dynamics.state_dict().items(), back.dynamics.state_dict().values()):
+        assert torch.equal(a, b), k
+    return path
+
+
+@pytest.mark.parametrize("engine", ["msgpass", "fused"])
+def test_cli_sample_phars_joint_checkpoint_cpu(tmp_path, engine):
+    """sample-phars on a joint checkpoint: RePaint inpainting with the
+    pocket fixed; clouds in the pocket's frame, as the conditional path
+    writes them."""
+    ckpt = _joint_checkpoint(tmp_path / "joint")
+    pdb = tmp_path / "pocket.pdb"
+    pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(0)))
+    out = tmp_path / "phars.json"
+    cli.main(["sample-phars", str(ckpt), str(pdb), str(out), "--ref-ligand", "L:1",
+              "--n-samples", "3", "--timesteps", "4", "--device", "cpu", "--engine", engine])
+    mols = json.loads(out.read_text())
+    assert list(mols) == ["Molecule_0", "Molecule_1", "Molecule_2"]
+    for mol in mols.values():
+        assert set(mol) <= set(PHAR_DECODER)
+        pts = np.array([p for fam in mol.values() for p in fam])
+        assert pts.shape == (5, 3) and np.isfinite(pts).all()
+    with pytest.raises(ValueError, match="joint checkpoint"):
+        cli.main(["sample-phars", str(ckpt), str(pdb), str(out), "--ref-ligand", "L:1",
+                  "--device", "cpu", "--chain-gif", str(tmp_path / "c.gif")])
+
+
+def test_cli_eval_diffphar_cpu(tmp_path):
+    """eval-diffphar on the trained qrun_aa (T=100) and a synthetic test
+    set in DiffPharDataset's format: finite metrics, 4 samples a pocket."""
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_diffphar_npz
+
+    npz = tmp_path / "test.npz"
+    synthetic_diffphar_npz(npz, np.random.RandomState(0), n_complexes=3, n_pocket=(20, 30))
+    out = cli.main(["eval-diffphar", str(CKPT), str(npz), "--n-pockets", "2", "--device", "cpu",
+                    "--engine", "fused"])
+    assert set(out) == {"com_dist_mean", "spread_gen_mean", "spread_ref_mean", "kl_types",
+                        "n_sampled"}
+    assert all(np.isfinite(v) for v in out.values()) and out["spread_gen_mean"] > 0
+    with np.load(npz) as f:
+        sizes = np.bincount(f["phar_mask"])
+    assert out["n_sampled"] == 4 * sizes[:2].sum()
+
+
+def test_cli_eval_gcpg_cpu(tmp_path):
+    """eval-gcpg on the trained grun_r5cn: the metric chain over n decodes."""
+    smi = tmp_path / "test.smi"
+    smi.write_text("CC(=O)Oc1ccccc1C(=O)O\nOc1ccc(cc1)CCNC(=O)c1ccccc1O\nCOc1ccccc1\n"
+                   "not a smiles\nCC(C)Cc1ccc(cc1)C(C)C(=O)O\n")
+    out = cli.main(["eval-gcpg", str(GRUN), str(smi), "--n", "3", "--device", "cpu"])
+    assert out["n_eval"] == 3
+    assert 0.0 <= out["validity"] <= 1.0 and -1.0 <= out["match_score"] <= 1.0
+    assert out["match_timeout_rate"] == 0.0
+
+
+def test_cli_align_pose_pdbs_cpu(tmp_path):
+    """align --pose-pdbs on a directory of pose PDBs: the RMSD summary and
+    rmsd_values.npy; a pose that matches no subset counts as failed."""
+    from cmdgen_tpu_torch.chem.mol import mol_from_smiles
+    from cmdgen_tpu_torch.ops.dgeom import embed_conformers
+    from cmdgen_tpu_torch.utils.synthetic import ligand_pdb
+
+    posp, poses = tmp_path / "hyp.posp", tmp_path / "poses"
+    posp.write_text(ALIGN_POSP)
+    poses.mkdir()
+    for i, s in enumerate(["Oc1ccc(cc1)CCNC(=O)c1ccccc1O", "CCCC"]):
+        mol = mol_from_smiles(s)
+        conf = embed_conformers(mol, 1, refine_steps=200, device="cpu",
+                                generator=torch.Generator().manual_seed(i))[0].numpy()
+        (poses / f"pose_{i}.pdb").write_text(ligand_pdb([a.symbol for a in mol.atoms], conf))
+    out = cli.main(["align", str(poses), str(posp), str(tmp_path / "out"), "--pose-pdbs",
+                    "--n-conformers", "3", "--tolerance", "1", "--device", "cpu"])
+    assert (out["n_aligned"], out["n_failed"]) == (1, 1)
+    assert np.isfinite(out["rmsd_mean"]) and out["rmsd_mean"] > 0
+    np.testing.assert_allclose(np.load(tmp_path / "out" / "rmsd_values.npy"),
+                               [out["rmsd_mean"]], rtol=1e-6)
+    one = cli.main(["align", str(poses / "pose_0.pdb"), str(posp), str(tmp_path / "one"),
+                    "--pose-pdbs", "--ref-ligand", "L:1", "--n-conformers", "3",
+                    "--tolerance", "1", "--device", "cpu"])
+    assert (one["n_aligned"], one["n_failed"]) == (1, 0)
+
+
+def test_cli_evaluation_and_joint_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_diffphar_npz
+
+    npz, smi, posp = tmp_path / "test.npz", tmp_path / "t.smi", tmp_path / "hyp.posp"
+    synthetic_diffphar_npz(npz, np.random.RandomState(0), n_complexes=2)
+    smi.write_text("COc1ccccc1\n")
+    posp.write_text(ALIGN_POSP)
+    pdb = tmp_path / "pocket.pdb"
+    pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(0)))
+    ckpt = _joint_checkpoint(tmp_path / "joint")
+    for argv in (["eval-diffphar", str(CKPT), str(npz)],
+                 ["eval-gcpg", str(GRUN), str(smi)],
+                 ["align", str(tmp_path), str(posp), str(tmp_path / "out"), "--pose-pdbs"],
+                 ["sample-phars", str(ckpt), str(pdb), str(tmp_path / "o.json"),
+                  "--ref-ligand", "L:1"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)

@@ -1,5 +1,6 @@
 """Hygiene of the port: it imports no JAX and nothing of ``cmdgen_tpu``,
-every module imports with JAX blocked, and entry points called without a
+every module imports with JAX blocked, nothing imports networkx (the
+card's machine need not have it), and entry points called without a
 device raise where CUDA is absent (no silent move to the CPU)."""
 import ast
 import subprocess
@@ -66,6 +67,39 @@ def test_every_module_imports_with_jax_blocked():
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and sys.modules[k] is not None"
         " for k in sys.modules)\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr[-3000:]
+
+
+def test_no_networkx_on_any_path():
+    """No port file imports networkx; every module imports with it
+    blocked, and the paths that reached it in the JAX package run: the
+    kekulization fallback (forced by a zero budget), fragments, and the
+    isomorphism RMSD."""
+    bad = [f"{f.relative_to(REPO)}: {node.lineno}" for f in _port_files()
+           for node in ast.walk(ast.parse(f.read_text()))
+           if (isinstance(node, ast.Import)
+               and any(a.name.split(".")[0] == "networkx" for a in node.names))
+           or (isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[0] == "networkx")]
+    assert not bad, bad
+    code = (
+        "import sys; sys.modules['networkx'] = None\n"
+        "import importlib\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from cmdgen_tpu_torch.chem import mol, mol_build, rmsd\n"
+        "real = mol._perfect_matching\n"
+        "mol._perfect_matching = lambda need, adj, budget=0: real(need, adj, 0)\n"
+        "assert mol.canonical_smiles('c1cc2ccc3cccc4ccc(c1)c2c34') is not None\n"
+        "assert mol.canonical_smiles('c1ccc1') is None\n"
+        "m = mol.mol_from_smiles('Cc1ccc(C)cc1')\n"
+        "x = np.random.RandomState(0).randn(m.n_atoms, 3)\n"
+        "assert rmsd.isomorphic_rmsd(m, x, m, x[::-1].copy()) is not None\n"
+        "assert len(mol_build._fragments(m)) == 1\n"
         "print('ok')\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -126,15 +126,17 @@ def _k2_args(dev, cdt, b, n, k, h, n_layers, r_true, tanh, seed):
             nmask.to(dev), r_true, n_layers, 1.0, 15.0, 100.0, tanh, cdt)
 
 
-def _flagship_model(dev, cdt, b, seed):
+def _flagship_model(dev, cdt, b, seed, joint=False):
     """The flagship configuration's dynamics and inputs, built as
     ``chip_smoke.py`` builds them: ``ca_config`` widths (H=256, 5 layers)
     with K=12, CA pockets of 110 residues and 8 pharmacophore points near
-    their centre, weights of std 1/sqrt(fan_in) from a seed. Returns
-    (dynamics, its EGNN config, its five inputs)."""
+    their centre, weights of std 1/sqrt(fan_in) from a seed; ``joint``:
+    the joint model's dynamics (``update_pocket_coords``, every row
+    moves). Returns (dynamics, its EGNN config, its five inputs)."""
     cfg = ca_config()
     ecfg = dataclasses.replace(cfg.dynamics.egnn, compute_dtype=cdt, neighbor_k=12)
-    dyn = EGNNDynamics(dataclasses.replace(cfg.dynamics, egnn=ecfg))
+    dyn = EGNNDynamics(dataclasses.replace(cfg.dynamics, egnn=ecfg,
+                                           update_pocket_coords=joint))
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in dyn.modules():
@@ -156,12 +158,13 @@ def _flagship_model(dev, cdt, b, seed):
     return dyn, ecfg, inputs
 
 
-def _k2_pocket_args(dev, cdt, b, seed):
+def _k2_pocket_args(dev, cdt, b, seed, joint=False):
     """The layer stack's arguments on the fused engine's own inputs at the
     flagship configuration (``_flagship_model``): the 6 Å cutoff, type
-    encoders and embedding, pocket rows held."""
-    dyn, ecfg, inputs = _flagship_model(dev, cdt, b, seed)
-    n_p = 8
+    encoders and embedding, pocket rows held (or, ``joint``, every row
+    moving)."""
+    dyn, ecfg, inputs = _flagship_model(dev, cdt, b, seed, joint)
+    n_p = None if joint else 8
     with torch.no_grad():
         h, x, mask, edge_mask, _ = dyn._inputs(*inputs, lambda mlp, v: mlp.forward_f32(v))
         return ef.layer_args(ef.fused_params(dyn.egnn, cdt), h, x, edge_mask, mask,
@@ -221,6 +224,61 @@ def test_egnn_fused_kernel_matches_plain_on_pocket_inputs(dev, cdt, b):
     # the bf16 plain version in dx by more than TOL_K2 at this shape; both
     # bf16 versions stray from float32 alike there (PERF.md, Accuracy)
     _check_k2(dev, _k2_pocket_args(dev, cdt, b, seed=3))
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+def test_egnn_fused_kernel_matches_plain_on_joint_inputs(dev, cdt):
+    """The joint model's flagship shape (B=48, N=8+110, K=12, H=256, 5
+    layers) with every row moving: the coordinate phase walks all 118 rows
+    (576 items against 48 with 8 movable rows), the displacement compared
+    over every row."""
+    args = _k2_pocket_args(dev, cdt, 48, seed=3, joint=True)
+    assert args[7] == 118
+    _check_k2(dev, args)
+
+
+@pytest.mark.parametrize("engine", ["msgpass", "fused"])
+def test_joint_denoiser_and_inpaint_card_match_cpu(dev, engine):
+    """The joint model at the flagship widths in float32 (K1 in every GCL,
+    or K2 over every row): one denoiser evaluation, and a T=10 RePaint
+    chain with the pocket fixed on the same draws, card against the CPU's
+    plain path within 1e-3."""
+    from cmdgen_tpu_torch.config import ca_config
+    from cmdgen_tpu_torch.containers import PointCloud, mask_from_sizes
+    from cmdgen_tpu_torch.diffusion.joint import JointDDPM
+    from cmdgen_tpu_torch.models.dynamics import make_fused_apply
+
+    b = 4
+    dyn, _, inputs = _flagship_model(dev, torch.float32, b, seed=6, joint=True)
+    cpu_dyn = EGNNDynamics(dyn.cfg)
+    cpu_dyn.load_state_dict({k: v.cpu() for k, v in dyn.state_dict().items()})
+    models = {}
+    for where, d in (("card", dyn), ("cpu", cpu_dyn.eval())):
+        models[where] = JointDDPM(dataclasses.replace(ca_config().ddpm, timesteps=500), d,
+                                  apply_fn=make_fused_apply(d) if engine == "fused" else None)
+    with torch.no_grad():
+        out = models["card"]._apply(*inputs)
+        ref = models["cpu"]._apply(*[v.cpu() for v in inputs])
+    assert max((o.cpu() - r).abs().max().item() for o, r in zip(out, ref)) <= 1e-3
+    xh_q = inputs[1].cpu()
+    mask_p = mask_from_sizes(torch.tensor([8, 8, 6, 5]), 8)
+    mask_q = inputs[4].cpu()
+    g = torch.Generator().manual_seed(7)
+    draws = models["cpu"]._sample_joint_noise
+    noise = (draws(mask_p, mask_q, g),
+             [(draws(mask_p, mask_q, g), draws(mask_p, mask_q, g)) for _ in range(10)],
+             draws(mask_p, mask_q, g))
+    phar = PointCloud(x=torch.zeros(b, 8, 3), h=torch.zeros(b, 8, 8), mask=mask_p)
+    pocket = PointCloud(x=xh_q[..., :3], h=xh_q[..., 3:], mask=mask_q)
+    res = {}
+    for where, m in models.items():
+        on = dev if where == "card" else torch.device("cpu")
+        mv = [PointCloud(x=c.x.to(on), h=c.h.to(on), mask=c.mask.to(on)) for c in (phar, pocket)]
+        res[where] = m.inpaint(*mv, torch.zeros(b, 8, device=on), torch.ones(b, 110, device=on),
+                               timesteps=10, noise=noise)
+    for o, r in zip(res["card"], res["cpu"]):
+        assert torch.equal(o.h.cpu(), r.h)
+        assert (o.x.cpu() - r.x).abs().max().item() <= 1e-3
 
 
 @pytest.mark.parametrize("cdt", DTYPES)
