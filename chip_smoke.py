@@ -86,16 +86,29 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    steps against its plain version (K2 with every row moving) and the
    middle step's timed; in float32 the denoiser and a T=10 inpaint chain,
    card against CPU; ``sample-phars`` on a joint port checkpoint through
-   the CLI.
+   the CLI;
+12. training (between steps 10 and 9), ``train_phase``: DiffPhar at
+   ``ca_config``'s width (float32) on synthetic complexes, one train step
+   card vs CPU (dense and K=12: loss terms, every gradient, the weights
+   after it; K1 launched 0 times, edge_in, edge_out and att with
+   gradients), warm steps timed and profiled (dense and K=12 at B=4 and
+   32), 50 steps on one batch, ``train-diffphar`` through the CLI and
+   ``train_diffphar`` with K=12, EMA and eval sampling (K1 5 x 501 times
+   per sampling call, its calls there against their plain versions and
+   timed), ``sample-phars`` on the trained ``best/``; the GCPG at its
+   default width on step 7's SMILES: one step card vs CPU, ``train-gcpg``
+   through the CLI (B=128), steps timed, ``generate`` from its checkpoint.
 
 Prints the card, a ``kernels`` JSON line (``launches``, ``ms``,
-``plain_ms``, ``bound_ms``: run-all's, K1 with the msgpass engine and K2
-with the fused one, at its shapes, with ``kernel_ms`` there; ``flagship``:
-step 2's bf16 times; ``joint``: step 11's; ``launches_by_path``: every
-path's), the throughput, a ``consensus`` JSON line, a ``decode`` JSON
-line, an ``align`` JSON line, a ``run_all`` JSON line, an ``evaluate`` and
-a ``joint`` JSON line, and as the last line ``{"ok": true, "device":
-{...}}``. Any failure raises (exit code != 0).
+``plain_ms``, ``bound_ms``: the train path's, K1 in its eval sampling and
+K2 in ``sample-phars --engine fused`` on its checkpoint, times at the eval
+sampling's shape, ``train_shape`` with ``kernel_ms`` there;
+``run_all_shape``: run-all's; ``flagship``: step 2's bf16 times;
+``joint``: step 11's; ``launches_by_path``: every path's), the
+throughput, a ``consensus`` JSON line, a ``decode`` JSON line, an
+``align`` JSON line, a ``run_all`` JSON line, an ``evaluate``, a
+``joint`` and a ``train`` JSON line, and as the last line ``{"ok": true,
+"device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
 ``--kernels-only`` stops after step 2 and prints the checks as one JSON
 line (no ``ok`` line): the quick way to compare two trees' kernels. Such
@@ -179,6 +192,20 @@ RUN_ALL_POCKETS = 2
 RUN_ALL_VALID_MIN = 0.5
 # evaluate phase: pose PDBs written from the align phase's posed molecules
 EVAL_POSES = 16
+# train phase: the batches timed; warm-up, timed and profiled steps; one
+# step card vs CPU: loss terms within 1e-4 of max(1, |CPU|), each gradient
+# leaf within 1e-3 of its largest |g| (plus 1e-5 of the tree's largest),
+# the weights after it within 1e-6 absolute for all but 0.5% of them and
+# within 2 lr for every one (Adam's first step moves each weight by about
+# lr times the sign of its gradient, which rounding may flip where the
+# gradient is near 0); the GCPG's batch, steps and check batch
+TRAIN_B = (4, 32)
+TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 3, 20, 5
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_WEIGHT_ATOL = 1e-6
+GCPG_TRAIN_B, GCPG_TRAIN_STEPS, GCPG_CHECK_B = 128, 30, 8
+TRAIN_CLI_STEPS = 40  # train-diffphar through the CLI, dense, B=4
 
 
 def log(*a):
@@ -464,10 +491,10 @@ def check_k2(dev, dtype_name, b=B):
     return out
 
 
-def device_profile(fn, reps):
+def device_profile(fn, reps, top=3):
     """Profile reps calls of fn (torch.profiler, CUDA activity): the wall
     ms and device ms per call, the device's busy share of the wall time and
-    the three kernels that take most of the device time."""
+    the ``top`` kernels that take most of the device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -483,9 +510,9 @@ def device_profile(fn, reps):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
             events += 1
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall,
-            "device_ops": events / reps, "top_kernels_ms": {k[:60]: v for k, v in top}}
+            "device_ops": events / reps, "top_kernels_ms": {k[:60]: v for k, v in ranked}}
 
 
 def flagship_sampling(dev, timesteps):
@@ -1829,6 +1856,500 @@ def evaluate_phase(dev, repo, posp, smiles, poses):
     return out
 
 
+# ------------------------------------------------------------------ train
+
+def train_clouds(batch, dev):
+    from cmdgen_tpu_torch.train.diffphar_train import to_clouds
+
+    return to_clouds(batch, dev)
+
+
+def leaf_check(name, got, ref, floor_of):
+    """Every leaf of ``got`` ({path: array}) within TRAIN_GRAD_TOL of its own
+    largest |ref| plus 1e-5 of the largest |ref| over ``floor_of``: the
+    worst ratio of an error to its limit."""
+    tree_max = max(float(np.abs(v).max()) for v in floor_of.values())
+    worst = 0.0
+    for path, r in ref.items():
+        tol = TRAIN_GRAD_TOL * float(np.abs(r).max()) + 1e-5 * tree_max
+        err = float(np.abs(got[path] - r).max())
+        if not (np.isfinite(got[path]).all() and err <= tol):
+            raise AssertionError(f"{name} {path}: card vs CPU {err} > {tol}")
+        worst = max(worst, err / tol if tol > 0 else 0.0)
+    return worst
+
+
+def weights_after_step(name, got, ref, lr):
+    """The weights after one step on the card against the CPU's: every
+    element within 2 lr (Adam's first step moves each element by about lr
+    times the sign of its gradient, so a gradient at rounding level may
+    flip) and all but 0.5% within TRAIN_WEIGHT_ATOL. Returns the share
+    within that."""
+    close = total = 0
+    for path, r in ref.items():
+        d = np.abs(got[path] - r)
+        if not d.max() <= 2 * lr:
+            raise AssertionError(f"{name} {path}: weight moved {d.max()} from the CPU's")
+        close += int((d <= TRAIN_WEIGHT_ATOL).sum())
+        total += r.size
+    if close < 0.995 * total:
+        raise AssertionError(f"{name}: {total - close} of {total} weights apart after the step")
+    return close / total
+
+
+def diffphar_configs():
+    """ca_config (hidden 256, 5 layers, T=500, float32): the dense engine
+    and K=12."""
+    import dataclasses
+
+    from cmdgen_tpu_torch.config import ca_config
+
+    cfg = ca_config()
+    k12 = dataclasses.replace(cfg, dynamics=dataclasses.replace(
+        cfg.dynamics, egnn=dataclasses.replace(cfg.dynamics.egnn, neighbor_k=K)))
+    return {"dense": cfg, "k12": k12}
+
+
+def diffphar_step_vs_cpu(cfg, ds, hist, dev, engine):
+    """One train step (clip on, fresh AMSGrad) on the card and on the CPU
+    from the same seeded weights, batch (B=4), times and noise: the loss
+    terms, every leaf's gradient and the weights after it; every gradient
+    finite and, in each GCL, edge_in's, edge_out's and att's non-zero;
+    K1 launched 0 times."""
+    import torch
+
+    from cmdgen_tpu_torch import convert
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+    from cmdgen_tpu_torch.train import state as tstate
+    from cmdgen_tpu_torch.train.diffphar_train import build_model
+
+    batch = ds.padded_batch(list(range(4)))
+    out, states = {}, {}
+    noise = None
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = build_model(cfg, hist, d, torch.Generator().manual_seed(0))
+        phar, pocket = train_clouds(batch, d)
+        if noise is None:
+            noise = model.draw_noise(phar, True, torch.Generator().manual_seed(1))
+        st = tstate.init_state(model, tstate.reference_optimizer(model.parameters(), cfg.train.lr))
+        gcl_message_agg.launches = 0
+        metrics = tstate.make_diffusion_train_step(clip_grad=True)(
+            st, phar, pocket, noise=[n.to(d) for n in noise])
+        if where == "card":
+            torch.cuda.synchronize()
+            if gcl_message_agg.launches:
+                raise AssertionError(f"{engine}: K1 launched {gcl_message_agg.launches} times "
+                                     "in a train step")
+        out[where] = ({k: float(v) for k, v in metrics.items()},
+                      convert.model_leaves(model, {n: p.grad for n, p in model.named_parameters()}),
+                      convert.model_leaves(model))
+        states[where] = model
+    (m_cpu, g_cpu, w_cpu), (m_card, g_card, w_card) = out["cpu"], out["card"]
+    worst_loss = 0.0
+    for k, v in m_cpu.items():
+        tol = TRAIN_LOSS_TOL * max(1.0, abs(v))
+        err = abs(m_card[k] - v)
+        if not err <= tol:
+            raise AssertionError(f"{engine} {k}: card {m_card[k]} vs CPU {v}")
+        worst_loss = max(worst_loss, err / tol)
+    worst_grad = leaf_check(f"{engine} gradient", g_card, g_cpu, g_cpu)
+    share = weights_after_step(f"{engine}", w_card, w_cpu, cfg.train.lr)
+    dead = [p for p, g in g_card.items()
+            if any(s in p for s in ("/edge_in/", "/edge_out/", "/att/"))
+            and not np.abs(g).max() > 0]
+    if dead:
+        raise AssertionError(f"{engine}: no gradient on the card for {dead}")
+    log(f"train step card vs CPU ({engine}, B=4): loss {m_card['loss']:.6g} vs "
+        f"{m_cpu['loss']:.6g}; worst ratio to the limit: loss terms {worst_loss:.3g}, "
+        f"gradients {worst_grad:.3g}; weights within {TRAIN_WEIGHT_ATOL}: {share:.6f}")
+    return {"loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
+            "worst_loss_term_ratio": worst_loss, "worst_gradient_ratio": worst_grad,
+            "weights_within_atol": share, "weight_atol": TRAIN_WEIGHT_ATOL,
+            "leaves": len(g_card), "k1_launches": 0}
+
+
+def diffphar_timing(cfg, ds, hist, dev, b):
+    """Warm train steps at batch b: the median ms of TRAIN_TIMED steps after
+    TRAIN_WARM, samples/s, the peak memory, and a profile of
+    TRAIN_PROFILED steps (busy share, top 5 device ops)."""
+    import torch
+
+    from cmdgen_tpu_torch.train import state as tstate
+    from cmdgen_tpu_torch.train.diffphar_train import build_model
+
+    model = build_model(cfg, hist, dev, torch.Generator().manual_seed(0))
+    st = tstate.init_state(model, tstate.reference_optimizer(model.parameters(), cfg.train.lr))
+    step = tstate.make_diffusion_train_step(clip_grad=True)
+    phar, pocket = train_clouds(ds.padded_batch(list(range(b))), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(TRAIN_WARM):
+        step(st, phar, pocket, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = [synced_ms(lambda: step(st, phar, pocket, generator=gen))[1]
+             for _ in range(TRAIN_TIMED)]
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: step(st, phar, pocket, generator=gen), TRAIN_PROFILED, top=5)
+    ms = float(np.median(times))
+    return {"batch": b, "ms_per_step": ms, "ms_min": min(times), "ms_max": max(times),
+            "samples_per_s": b / ms * 1e3, "max_memory_allocated": peak, "profile": prof}
+
+
+def diffphar_loss_falls(cfg, ds, hist, dev):
+    """50 steps on one batch (B=4, K=12) with fixed times and noise: the
+    last loss below the first."""
+    import torch
+
+    from cmdgen_tpu_torch.train import state as tstate
+    from cmdgen_tpu_torch.train.diffphar_train import build_model
+
+    model = build_model(cfg, hist, dev, torch.Generator().manual_seed(0))
+    st = tstate.init_state(model, tstate.reference_optimizer(model.parameters(), cfg.train.lr))
+    step = tstate.make_diffusion_train_step(clip_grad=True)
+    phar, pocket = train_clouds(ds.padded_batch(list(range(4, 8))), dev)
+    noise = model.draw_noise(phar, True, torch.Generator(device=dev).manual_seed(2))
+    losses = [float(step(st, phar, pocket, noise=noise)["loss"]) for _ in range(50)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"50 steps on one batch: loss {losses[0]} -> {losses[-1]}")
+    return {"first": losses[0], "last": losses[-1], "steps": 50}
+
+
+def train_eval_sampling_run(cfg, data, out_dir, dev):
+    """train_diffphar with K=12, EMA 0.999 and eval-epoch sampling every
+    epoch (B=32, one epoch of 8 steps): K1's launches counted in every
+    train step (0) and every eval sampling call (n_layers x (T + 1)); the
+    last sampling call's denoiser inputs recorded (first, middle, last of
+    its T + 1 calls) with its evaluation copy of the model. Returns
+    (record, recorded inputs, the evaluation model)."""
+    import dataclasses
+
+    import torch
+
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+    from cmdgen_tpu_torch.train import diffphar_train as dt
+    from cmdgen_tpu_torch.train import state as tstate
+
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=32, n_epochs=1, eval_epochs=1, ema_decay=0.999))
+    n_layers, calls = cfg.dynamics.egnn.n_layers, cfg.ddpm.timesteps + 1
+    step_launches, sample_launches, seen = [], [], {}
+    real_make, real_sample = tstate.make_diffusion_train_step, dt.sampling_metrics
+
+    def counted_make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def counted(*sa, **skw):
+            before = gcl_message_agg.launches
+            out = step(*sa, **skw)
+            step_launches.append(gcl_message_agg.launches - before)
+            return out
+
+        return counted
+
+    def counted_sample(model, *a, **kw):
+        before = gcl_message_agg.launches
+        t0 = time.perf_counter()
+        if len(sample_launches) == cfg.train.n_epochs - 1:
+            res = {}
+            seen["recorded"], seen["calls"] = record_denoiser_inputs(
+                model.dynamics, calls, lambda: res.update(real_sample(model, *a, **kw)))
+            seen["model"] = model
+        else:
+            res = real_sample(model, *a, **kw)
+        torch.cuda.synchronize()
+        seen.setdefault("ms", []).append((time.perf_counter() - t0) * 1e3)
+        sample_launches.append(gcl_message_agg.launches - before)
+        return res
+
+    logs = []
+    tstate.make_diffusion_train_step, dt.sampling_metrics = counted_make, counted_sample
+    try:
+        gcl_message_agg.launches = 0
+        state, ms = synced_ms(lambda: dt.train_diffphar(
+            cfg, data, out_dir, log_fn=lambda s, m: logs.append(m), device=dev))
+        total = gcl_message_agg.launches
+    finally:
+        tstate.make_diffusion_train_step, dt.sampling_metrics = real_make, real_sample
+    if any(step_launches) or len(step_launches) != 8 * cfg.train.n_epochs:
+        raise AssertionError(f"K1 in training steps: {step_launches}")
+    if sample_launches != [n_layers * calls] * cfg.train.n_epochs or seen["calls"] != calls:
+        raise AssertionError(f"K1 per eval sampling call: {sample_launches}, expected "
+                             f"{n_layers * calls} each")
+    sampled = [m for m in logs if "sampling/kl_types" in m]
+    vals = [m["loss/val"] for m in logs if "loss/val" in m]
+    if len(sampled) != cfg.train.n_epochs \
+            or not all(np.isfinite(m["sampling/kl_types"]) for m in sampled) \
+            or not np.isfinite(vals).all():
+        raise AssertionError(f"train_diffphar logged {logs}")
+    files = sorted(p.name for p in (out_dir / "best").iterdir())
+    if files != ["config.json", "ema_params.npz", "opt_state.npz", "params.npz"]:
+        raise AssertionError(f"best/ holds {files}")
+    rec = {"steps": state.step, "ms": ms, "k1_launches_per_train_step": 0,
+           "k1_launches_per_eval_sampling": sample_launches, "k1_launches_total": total,
+           "eval_sampling_ms": seen["ms"], "eval_sampling_T": calls - 1,
+           "val_loss": vals, "sampling": sampled}
+    log(f"train_diffphar K=12 EMA: {state.step} steps in {ms:.0f} ms; K1 per eval sampling "
+        f"call {sample_launches} ({seen['ms'][-1]:.0f} ms each at T={calls - 1}), 0 in "
+        f"{len(step_launches)} train steps; val {vals}")
+    return rec, seen["recorded"], seen["model"]
+
+
+def trained_sample_phars(ckpt, dev, cfg):
+    """sample-phars on a training run's directory (its best/) with both
+    engines, T=100, 16 clouds: launches and finite clouds."""
+    import torch
+
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_pocket_pdb
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pdb = Path(tmp) / "pocket.pdb"
+        pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(3)))
+        for engine in ("msgpass", "fused"):
+            gcl_message_agg.launches = egnn_forward_fused.launches = 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, ms = synced_ms(lambda: cli.main([
+                    "sample-phars", str(ckpt), str(pdb), str(Path(tmp) / "o.json"),
+                    "--ref-ligand", "L:1", "--n-samples", "16", "--timesteps", "100",
+                    "--device", "cuda", "--engine", engine]))
+            torch.cuda.synchronize()
+            launches = {"gcl_message_agg": gcl_message_agg.launches,
+                        "egnn_forward_fused": egnn_forward_fused.launches}
+            mols = json.loads((Path(tmp) / "o.json").read_text())
+            pts = np.array([p for m in mols.values() for f in m.values() for p in f])
+            calls = min(100, cfg.ddpm.timesteps) + 1
+            want = ({"gcl_message_agg": calls * cfg.dynamics.egnn.n_layers,
+                     "egnn_forward_fused": 0} if engine == "msgpass"
+                    else {"gcl_message_agg": 0, "egnn_forward_fused": calls})
+            if launches != want or len(mols) != 16 or not np.isfinite(pts).all():
+                raise AssertionError(f"sample-phars {engine} on the trained checkpoint: "
+                                     f"{launches}, {len(mols)} clouds")
+            out[engine] = {"ms": ms, "clouds": len(mols), "points": len(pts),
+                           "launches": launches}
+            log(f"sample-phars on the trained best/ ({engine}, T=100): 16 clouds in "
+                f"{ms:.0f} ms, launches {launches}")
+    return out
+
+
+def gcpg_train_checks(smiles, props, dev, tmp):
+    """The GCPG at its default width: one step on the card against the CPU
+    (B=8, dropout off, the same posterior draw), train-gcpg through the CLI
+    (B=128, 30 steps), warm steps timed and profiled at B=128, and
+    generate from the checkpoint the CLI wrote."""
+    import copy
+
+    import torch
+
+    from cmdgen_tpu_torch import cli, convert
+    from cmdgen_tpu_torch.chem.tokenizer import Tokenizer, gen_vocabs
+    from cmdgen_tpu_torch.config import GCPGModelConfig, GCPGTrainConfig
+    from cmdgen_tpu_torch.data.dataset import GCPGSmilesDataset
+    from cmdgen_tpu_torch.models.gcpg import GCPG
+    from cmdgen_tpu_torch.models.init import init_gcpg_
+    from cmdgen_tpu_torch.models.transformer import set_dropout_generator
+    from cmdgen_tpu_torch.train import gcpg_train as gt
+
+    mcfg, tcfg = GCPGModelConfig(), GCPGTrainConfig()
+    tok = Tokenizer(gen_vocabs(smiles))
+    data = GCPGSmilesDataset(smiles, props, tok, max_len=mcfg.max_len,
+                             use_random_input_smiles=True, corrupt=True, seed=0)
+    base = GCPG(mcfg, len(tok))
+    init_gcpg_(base, torch.Generator().manual_seed(0))
+    step = gt.make_gcpg_train_step(tcfg.condition_gate, tcfg.grad_clip)
+    batch = data.padded_batch(list(range(GCPG_CHECK_B)))
+    eps = torch.randn((GCPG_CHECK_B, mcfg.hidden_dim), generator=torch.Generator().manual_seed(1))
+    res = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = copy.deepcopy(base).to(d).eval()  # dropout off
+        opt = gt.gcpg_optimizer(model, tcfg, 10)
+        met = step(model, opt, gt.batch_to_device(batch, d), 1e-3, eps=eps.to(d))
+        res[where] = ({k: float(v) for k, v in met.items()},
+                      convert.model_leaves(model, {n: torch.zeros_like(p) if p.grad is None
+                                                   else p.grad
+                                                   for n, p in model.named_parameters()}),
+                      convert.model_leaves(model))
+    (m_cpu, g_cpu, w_cpu), (m_card, g_card, w_card) = res["cpu"], res["card"]
+    worst_loss = max(abs(m_card[k] - m_cpu[k]) / (TRAIN_LOSS_TOL * max(1.0, abs(m_cpu[k])))
+                     for k in ("lm_loss", "kl_loss", "mapping_loss", "loss"))
+    if not worst_loss <= 1.0:
+        raise AssertionError(f"GCPG step card vs CPU: {m_card} vs {m_cpu}")
+    worst_grad = leaf_check("GCPG gradient", g_card, g_cpu, g_cpu)
+    share = weights_after_step("GCPG", w_card, w_cpu, gt.cosine_decay(tcfg.lr, 40)(0))
+    check = {"batch": GCPG_CHECK_B, "losses_card": m_card, "losses_cpu": m_cpu,
+             "worst_loss_ratio": worst_loss, "worst_gradient_ratio": worst_grad,
+             "weights_within_atol": share}
+    log(f"GCPG step card vs CPU (B={GCPG_CHECK_B}): lm {m_card['lm_loss']:.6g}/"
+        f"{m_cpu['lm_loss']:.6g}, worst ratios loss {worst_loss:.3g} gradient "
+        f"{worst_grad:.3g}, weights within {TRAIN_WEIGHT_ATOL}: {share:.6f}")
+
+    # train-gcpg through the CLI: the corpus repeated to one epoch of the
+    # steps (each item is drawn anew: random SMILES, corruption, graph),
+    # its properties computed once and passed as --props-json
+    reps = -(-GCPG_TRAIN_STEPS * GCPG_TRAIN_B // len(smiles))
+    smi, props_json = tmp / "corpus.txt", tmp / "props.json"
+    smi.write_text("\n".join(smiles * reps))
+    props_json.write_text(json.dumps({k: list(v) * reps for k, v in props.items()}))
+    ck = tmp / "gcpg_run"
+    with contextlib.redirect_stderr(io.StringIO()):
+        (model, ctok), ms = synced_ms(lambda: cli.main([
+            "train-gcpg", str(smi), str(ck), "--props-json", str(props_json),
+            "--batch-size", str(GCPG_TRAIN_B), "--max-steps", str(GCPG_TRAIN_STEPS),
+            "--epochs", "1", "--device", "cuda"]))
+    epochs = 1
+    meta = json.loads((ck / "last.json").read_text())
+    if meta["step"] != GCPG_TRAIN_STEPS or not np.isfinite(meta["monitor"]):
+        raise AssertionError(f"train-gcpg: {meta['step']} steps, loss {meta['monitor']}")
+    cli_rec = {"ms": ms, "steps": meta["step"], "epochs": epochs, "last_loss": meta["monitor"],
+               "unique_smiles": len(smiles), "corpus": len(smiles) * reps}
+    log(f"train-gcpg CLI: {meta['step']} steps at B={GCPG_TRAIN_B} on {len(smiles)} SMILES "
+        f"in {ms:.0f} ms, last epoch's loss {meta['monitor']:.4f}")
+
+    # warm steps timed at B=128 (train mode, dropout on)
+    model = copy.deepcopy(base).to(dev).train()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    set_dropout_generator(model, gen)
+    opt = gt.gcpg_optimizer(model, tcfg, 10)
+    big = gt.batch_to_device(data.padded_batch([i % len(data) for i in range(GCPG_TRAIN_B)]),
+                             dev)
+    for _ in range(TRAIN_WARM):
+        step(model, opt, big, 1e-3, generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    times = [synced_ms(lambda: step(model, opt, big, 1e-3, generator=gen))[1]
+             for _ in range(TRAIN_TIMED)]
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_profile(lambda: step(model, opt, big, 1e-3, generator=gen), TRAIN_PROFILED,
+                          top=5)
+    timing = {"batch": GCPG_TRAIN_B, "ms_per_step": float(np.median(times)),
+              "ms_min": min(times), "ms_max": max(times),
+              "samples_per_s": GCPG_TRAIN_B / float(np.median(times)) * 1e3,
+              "max_memory_allocated": peak, "profile": prof}
+    log(f"GCPG train step B={GCPG_TRAIN_B}: {timing['ms_per_step']:.2f} ms, busy "
+        f"{prof['busy_share']:.2f}")
+
+    # generate from the checkpoint the CLI wrote
+    posp = tmp / "hyp.posp"
+    posp.write_text("AROM 0.0 0.0 0.0\nHACC 4.5 0.0 0.0\nHDON 1.0 4.0 0.5\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        res, gms = synced_ms(lambda: cli.main([
+            "generate", str(posp), str(tmp / "gen"), str(ck), "--n", "64", "--no-filter",
+            "--device", "cuda"]))
+    lines = Path(res).read_text().splitlines()
+    if len(lines) != 64:
+        raise AssertionError(f"generate from the trained GCPG: {len(lines)} lines")
+    gen_rec = {"ms": gms, "n": 64, "lines": len(lines)}
+    return {"card_vs_cpu": check, "cli": cli_rec, "timing": timing, "generate": gen_rec}
+
+
+def train_phase(dev, repo, smiles):
+    """Training at the flagship family's width on the card; the ``train``
+    line and the train path's K1 and K2 records (the kernels line).
+
+    DiffPhar: ``ca_config`` (hidden 256, 5 layers, 20 residue classes,
+    T=500, float32) on synthetic complexes (256 train, 32 val; CA pockets
+    of 80-130 residues, 3-8 pharmacophore points) with their size
+    histogram. One train step card vs CPU (dense and K=12); warm steps
+    timed and profiled (dense and K=12, B=4 and 32); 50 steps on one batch
+    (the loss falls); ``train-diffphar`` through the CLI (dense, B=4, 40
+    steps); ``train_diffphar`` with K=12, EMA and eval sampling every
+    epoch, K1 counted in its steps (0) and sampling calls (5 x 501),
+    the last call's K1 and K2 calls (recorded) against their plain
+    versions and timed; ``sample-phars`` on its ``best/`` with both
+    engines. GCPG: ``gcpg_train_checks`` on the decode phase's SMILES."""
+    import copy
+
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.data.dataset import DiffPharDataset
+    from cmdgen_tpu_torch.diffusion.size_prior import smoothed_size_histogram
+    from cmdgen_tpu_torch.models.dynamics import make_fused_apply
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_diffphar_npz
+
+    out = {"diffphar": {}, "card": card_line()}
+    t_phase = time.perf_counter()
+    cfgs = diffphar_configs()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "data"
+        data.mkdir()
+        synthetic_diffphar_npz(data / "train.npz", np.random.RandomState(0), 256,
+                               n_pocket=(80, 131), n_phar=(3, 9))
+        synthetic_diffphar_npz(data / "val.npz", np.random.RandomState(1), 32,
+                               n_pocket=(80, 131), n_phar=(3, 9))
+        ds = DiffPharDataset(data / "train.npz")
+        hist = smoothed_size_histogram(*ds.sizes())
+        np.save(data / "size_distribution.npy", hist)
+        dp = out["diffphar"]
+        dp["data"] = {"train": len(ds), "pocket_rows": ds.n_pocket_max,
+                      "phar_slots": ds.n_phar_max}
+        dp["card_vs_cpu"] = {e: diffphar_step_vs_cpu(c, ds, hist, dev, e)
+                             for e, c in cfgs.items()}
+        log(f"train phase: card vs CPU steps done at {time.perf_counter() - t_phase:.1f} s")
+        dp["timing"] = {}
+        for e, c in cfgs.items():
+            for b in TRAIN_B:
+                rec = diffphar_timing(c, ds, hist, dev, b)
+                dp["timing"][f"{e}_b{b}"] = rec
+                log(f"train step {e} B={b}: {rec['ms_per_step']:.2f} ms "
+                    f"({rec['samples_per_s']:.1f} samples/s), peak "
+                    f"{rec['max_memory_allocated'] / 2**30:.2f} GiB, busy "
+                    f"{rec['profile']['busy_share']:.2f}, top {rec['profile']['top_kernels_ms']}")
+        dp["loss_falls"] = diffphar_loss_falls(cfgs["k12"], ds, hist, dev)
+        log(f"train phase: timing and 50 steps done at {time.perf_counter() - t_phase:.1f} s")
+        # run 1: the CLI, dense
+        ck1 = tmp / "run_dense"
+        with contextlib.redirect_stderr(io.StringIO()):
+            st, ms = synced_ms(lambda: cli.main([
+                "train-diffphar", str(data), str(ck1), "--config", "ca", "--batch-size", "4",
+                "--max-steps", str(TRAIN_CLI_STEPS), "--device", "cuda"]))
+        meta = json.loads((ck1 / "last.json").read_text())
+        if not (st.step == meta["step"] == TRAIN_CLI_STEPS and np.isfinite(meta["monitor"])):
+            raise AssertionError(f"train-diffphar CLI: {st.step} steps, {meta}")
+        dp["cli"] = {"ms": ms, "steps": TRAIN_CLI_STEPS, "batch": 4, "val_loss": meta["monitor"]}
+        log(f"train-diffphar CLI (dense, B=4): {TRAIN_CLI_STEPS} steps and validation in "
+            f"{ms:.0f} ms, "
+            f"val loss {meta['monitor']:.4g}")
+        # run 2: K=12, EMA, eval sampling through K1
+        ck2 = tmp / "run_k12"
+        with contextlib.redirect_stderr(io.StringIO()):
+            dp["eval_sampling_run"], recorded, emodel = train_eval_sampling_run(
+                cfgs["k12"], data, ck2, dev)
+        ecfg = cfgs["k12"].dynamics.egnn
+        outs, k1_calls, k2_calls = recorded_kernel_calls(
+            {"msgpass": emodel.dynamics, "fused": make_fused_apply(emodel.dynamics)}, recorded)
+        cpu_dynamics = copy.deepcopy(emodel.dynamics).cpu()
+        errs = {e: max(err for _, err, _ in by_step)
+                for e, by_step in denoiser_vs_cpu(outs, cpu_dynamics, recorded).items()}
+        if not all(e <= DENOISER_TOL for e in errs.values()):
+            raise AssertionError(f"the trained denoiser disagrees with the CPU: {errs}")
+        xh_phar, xh_pocket = recorded[0][:2]
+        shape = {"batch": xh_phar.shape[0], "node_slots": xh_phar.shape[1],
+                 "pocket_rows": xh_pocket.shape[1], "hidden": ecfg.hidden_nf,
+                 "layers": ecfg.n_layers, "neighbor_k": ecfg.neighbor_k, "dtype": "float32"}
+        log(f"K1 and K2 at the train path's eval-sampling shape {shape}, "
+            f"{len(k1_calls)} and {len(k2_calls)} recorded calls; denoiser card vs CPU {errs}")
+        # K2 on the first call's inputs only: at the later ones an untrained
+        # model's chain has spread the clouds so far that a layer's
+        # displacement is lost to float32 rounding of the coordinates
+        k1_checks, k2_checks = check_kernel_calls(k1_calls, k2_calls[:1], "float32")
+        k1, k2 = time_kernel_calls(k1_calls[0], k2_calls[0], "float32", ecfg,
+                                   k1_checks, k2_checks)
+        dp["sample_phars"] = trained_sample_phars(ck2, dev, cfgs["k12"])
+        # GCPG on the decode phase's SMILES
+        corpus = tmp / "decode_smiles.txt"
+        corpus.write_text("\n".join(smiles))
+        props_smiles, props = cli.read_smiles_and_props(corpus)
+        log(f"train phase: DiffPhar done at {time.perf_counter() - t_phase:.1f} s")
+        out["gcpg"] = gcpg_train_checks(props_smiles, props, dev, tmp)
+    out["seconds"] = time.perf_counter() - t_phase
+    kernels = {"k1": dict(k1, shape=shape, denoiser_vs_cpu=errs,
+                          launches=sum(dp["eval_sampling_run"]["k1_launches_per_eval_sampling"])),
+               "k2": dict(k2, shape=shape,
+                          launches=dp["sample_phars"]["fused"]["launches"]["egnn_forward_fused"])}
+    return out, kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--timesteps", type=int, default=500,
@@ -1889,54 +2410,61 @@ def main():
         decode, smiles_t07 = decode_phase(dev, repo, hypothesis)
         align, poses = align_phase(dev, repo, hypothesis, smiles_t07)
         evaluate = evaluate_phase(dev, repo, hypothesis, smiles_t07, poses)
+        train, train_kernels = train_phase(dev, repo, smiles_t07)
     run_all = run_all_phase(dev, repo)
     joint = joint_phase(dev, repo, args.timesteps)
 
-    def entry(name, source, replaces, flagship, main_path, joint_path, launches):
+    def entry(name, source, replaces, flagship, main_path, run_all_path, joint_path):
         """The kernel's line: launches, times and bound at the main path's
-        (run-all's) shape; the flagship checks beside them (bf16, the
-        flagship sampling dtype, last) and the joint shape's; max_abs_err
-        is the comparison nearest its limit over every check."""
-        worst = max((c for chk in (*flagship, main_path, joint_path)
+        (training's) shape; run-all's, the flagship checks (bf16, the
+        flagship sampling dtype, last) and the joint shape's beside them;
+        max_abs_err is the comparison nearest its limit over every check."""
+        worst = max((c for chk in (*flagship, main_path, run_all_path, joint_path)
                      for c in chk["comparisons"]),
                     key=lambda c: c["max_abs_err"] / c["tol"])
         bf16 = flagship[-1]
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches,
+            "launches": main_path["launches"],
             "max_abs_err": worst["max_abs_err"], "tol": worst["tol"],
             "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
             "library_ms": None,
-            "run_all_shape": dict(run_all["kernels"]["shape"],
-                                  comparisons=main_path["comparisons"]),
+            "train_shape": dict(main_path["shape"], kernel_ms=main_path["kernel_ms"],
+                                comparisons=main_path["comparisons"]),
+            "run_all_shape": dict(run_all["kernels"]["shape"], **{
+                key: run_all_path[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "comparisons")}),
             "flagship": {key: bf16[key] for key in (
                 "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "grid")},
             "checks": flagship,
         }
 
-    # launches and times: run-all's (this slice's main path: msgpass for K1,
-    # --engine fused for K2); each earlier path's count beside it
+    # launches and times: training's (this slice's main path: K1 in its
+    # eval-epoch sampling, K2 in sample-phars --engine fused on its
+    # checkpoint); each earlier path's count beside it
     kernels = [
         entry("gcl_message_agg", "cmdgen_tpu_torch/csrc/egnn_msgpass.cu",
-              "cmdgen_tpu/ops/egnn_msgpass.py:111", k1, run_all["kernels"]["k1"], joint["k1"],
-              run_all["runs"]["msgpass"]["launches"]["gcl_message_agg"]),
+              "cmdgen_tpu/ops/egnn_msgpass.py:111", k1, train_kernels["k1"],
+              run_all["kernels"]["k1"], joint["k1"]),
         entry("egnn_forward_fused", "cmdgen_tpu_torch/csrc/egnn_fused.cu",
-              "cmdgen_tpu/ops/egnn_fused.py:209", k2, run_all["kernels"]["k2"], joint["k2"],
-              run_all["runs"]["fused"]["launches"]["egnn_forward_fused"]),
+              "cmdgen_tpu/ops/egnn_fused.py:209", k2, train_kernels["k2"],
+              run_all["kernels"]["k2"], joint["k2"]),
     ]
     for kern, engine, key in zip(kernels, ("msgpass", "fused"), ("k1", "k2")):
         kern["launches_by_path"] = {
             "flagship_sampling": sampling[engine][2][kern["name"]],
             "trained_sample_phars": trained[engine][kern["name"]],
-            "run_all": kern["launches"],
-            "joint_sample_phars": joint["engines"][engine]["launches"][kern["name"]]}
+            "run_all": run_all["runs"][engine]["launches"][kern["name"]],
+            "joint_sample_phars": joint["engines"][engine]["launches"][kern["name"]],
+            "train": kern["launches"], "train_diffphar_steps": 0}
         kern["joint"] = {k: joint[key][k] for k in (
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "comparisons")}
         kern["joint"]["shape"] = joint["config"]
         kern["run_all_shape"]["kernel_ms"] = run_all["kernels"][key]["kernel_ms"]
     kernels[1]["joint"]["phases"] = joint["k2"]["phases"]
     kernels[1]["run_all_shape"]["phases"] = run_all["kernels"]["k2"]["phases"]
+    kernels[1]["train_shape"]["phases"] = train_kernels["k2"]["phases"]
     kernels[0]["flagship"]["stage_shares"] = k1[-1]["stage_shares"]
     kernels[0]["batch_132"] = {key: k1_wide[key] for key in (
         "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "stage_shares", "comparisons")}
@@ -1956,6 +2484,7 @@ def main():
     log(json.dumps({"evaluate": evaluate, "card": card}))
     log(json.dumps({"joint": {k: v for k, v in joint.items() if k not in ("k1", "k2")},
                     "card": card}))
+    log(json.dumps({"train": train, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,11 +16,20 @@
   python -m cmdgen_tpu_torch.cli eval-diffphar CKPT_DIR TEST.npz [--n-pockets 20] \\
       [--engine msgpass|fused] [--device cuda]
   python -m cmdgen_tpu_torch.cli eval-gcpg GCPG_DIR SMILES.txt [--n 100] [--device cuda]
+  python -m cmdgen_tpu_torch.cli train-diffphar DATA_DIR OUT_DIR [--config full|ca] \
+      [--epochs N] [--batch-size B] [--max-steps S] [--neighbor-k K] [--ema-decay D] \
+      [--stratified-t] [--seed S] [--device cuda]
+  python -m cmdgen_tpu_torch.cli train-gcpg SMILES.txt OUT_DIR [--epochs 32] \
+      [--batch-size 128] [--max-steps S] [--finetune-from DIR] [--score-only-gate] \
+      [--legacy-no-condition] [--consensus-noise F] [--seed S] [--device cuda]
 
 Stages 1 (``sample-phars``), 2 (``get-phar``), 3 (``generate``) and 4
 (``align``) are ported, and ``run-all`` chains all four as one streaming
 driver; ``eval-diffphar``, ``eval-gcpg`` and ``align --pose-pdbs`` are the
-evaluation harnesses. ``sample-phars`` on a joint checkpoint samples by
+evaluation harnesses; ``train-diffphar`` and ``train-gcpg`` train the two
+models and write port checkpoints under ``OUT_DIR/best`` and ``OUT_DIR/last``,
+which every other command reads (``OUT_DIR`` itself means its ``best/``).
+``sample-phars`` on a joint checkpoint samples by
 RePaint inpainting with the pocket held fixed. ``CKPT_DIR`` is a port
 checkpoint directory (``params.npz`` + ``config.json``, see
 ``convert.py``), e.g. ``cmdgen_tpu_torch/assets/qrun_aa``;
@@ -425,6 +434,125 @@ def run_eval_gcpg(args):
     return out
 
 
+def _add_train(sub):
+    p = sub.add_parser("train-diffphar", help="train the diffusion model")
+    p.add_argument("datadir", help="train.npz, val.npz [, size_distribution.npy]")
+    p.add_argument("out_dir")
+    p.add_argument("--config", default="full", choices=["full", "ca"])
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--neighbor-k", type=int, default=None,
+                   help="fixed-K neighbor-list EGNN engine (default dense)")
+    p.add_argument("--steps-per-call", type=int, default=None,
+                   help="steps per group of the device-resident batch plan")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="keep an EMA of the weights for evaluation (e.g. 0.999)")
+    p.add_argument("--stratified-t", action="store_true",
+                   help="stratified diffusion times across the batch")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard weights and optimizer state (not ported: ROADMAP A18)")
+    p.add_argument("--seed", type=int, default=None, help="the run's seed (default 0)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(run=run_train_diffphar)
+
+    q = sub.add_parser("train-gcpg", help="train the SMILES generator")
+    q.add_argument("smiles_file")
+    q.add_argument("out_dir")
+    q.add_argument("--props-json", default=None)
+    q.add_argument("--epochs", type=int, default=32)
+    q.add_argument("--batch-size", type=int, default=128)
+    q.add_argument("--max-steps", type=int, default=None)
+    q.add_argument("--finetune-from", default=None,
+                   help="a port GCPG checkpoint (or run directory) to start from")
+    q.add_argument("--score-only-gate", action="store_true",
+                   help="docking-finetune condition gate [0,0,0,0,0,1,0]")
+    q.add_argument("--legacy-no-condition", action="store_true",
+                   help="unconditional baseline: zero condition gate and inputs, "
+                        "no descriptors computed")
+    q.add_argument("--consensus-noise", type=float, default=0.0,
+                   help="fraction of training pp-graphs re-drawn consensus-style")
+    q.add_argument("--seed", type=int, default=None, help="the run's seed (default 42)")
+    q.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    q.set_defaults(run=run_train_gcpg)
+
+
+def run_train_diffphar(args):
+    """Train DiffPhar; returns the final TrainState."""
+    from cmdgen_tpu_torch import config as cfgmod
+    from cmdgen_tpu_torch.train.diffphar_train import train_diffphar
+    from cmdgen_tpu_torch.utils.logging import MetricsLogger
+
+    cfg = cfgmod.full_atom_config() if args.config == "full" else cfgmod.ca_config()
+    tr = cfg.train
+    for flag, field in (("epochs", "n_epochs"), ("batch_size", "batch_size"),
+                        ("steps_per_call", "steps_per_call"), ("ema_decay", "ema_decay"),
+                        ("seed", "seed")):
+        if getattr(args, flag) is not None:
+            tr = dataclasses.replace(tr, **{field: getattr(args, flag)})
+    if args.fsdp:
+        tr = dataclasses.replace(tr, fsdp=True)
+    cfg = dataclasses.replace(cfg, train=tr)
+    if args.stratified_t:
+        cfg = dataclasses.replace(cfg, ddpm=dataclasses.replace(cfg.ddpm, stratified_t=True))
+    if args.neighbor_k:
+        dyn = cfg.dynamics
+        cfg = dataclasses.replace(cfg, dynamics=dataclasses.replace(
+            dyn, egnn=dataclasses.replace(dyn.egnn, neighbor_k=args.neighbor_k)))
+    with MetricsLogger(args.out_dir, cfg.train.run_name) as logger:
+        return train_diffphar(cfg, args.datadir, args.out_dir, max_steps=args.max_steps,
+                              log_fn=logger.log, device=args.device)
+
+
+def read_smiles_and_props(smiles_file, props_file=None):
+    """(SMILES, {property: values}): the properties from ``props_file``
+    (JSON) or computed, dropping SMILES whose descriptors fail."""
+    import json
+
+    smiles = Path(smiles_file).read_text().strip().split("\n")
+    if props_file:
+        return smiles, json.loads(Path(props_file).read_text())
+    from cmdgen_tpu_torch.chem.descriptors import all_properties
+
+    keys = ["MW", "logP", "QED", "SAS", "HBA", "HBD", "RotaNumBonds"]
+    props = {k: [] for k in keys}
+    kept = []
+    for s in smiles:
+        p = all_properties(s)
+        if p is None:
+            continue
+        kept.append(s)
+        for k in keys:
+            props[k].append(p[k])
+    return kept, props
+
+
+def run_train_gcpg(args):
+    """Train the GCPG; returns (model, tokenizer)."""
+    from cmdgen_tpu_torch.config import GCPGModelConfig, GCPGTrainConfig
+    from cmdgen_tpu_torch.data.dataset import PROPERTY_KEYS
+    from cmdgen_tpu_torch.train.gcpg_train import FINETUNE_GATE, train_gcpg
+    from cmdgen_tpu_torch.utils.logging import MetricsLogger
+
+    if args.legacy_no_condition:
+        smiles = [s for s in Path(args.smiles_file).read_text().strip().split("\n") if s]
+        props = {k: [0.0] * len(smiles) for k in PROPERTY_KEYS}
+    else:
+        smiles, props = read_smiles_and_props(args.smiles_file, args.props_json)
+    tcfg = GCPGTrainConfig(batch_size=args.batch_size, n_epochs=args.epochs,
+                           consensus_noise=args.consensus_noise)
+    if args.seed is not None:
+        tcfg = dataclasses.replace(tcfg, seed=args.seed)
+    if args.score_only_gate:
+        tcfg = dataclasses.replace(tcfg, condition_gate=FINETUNE_GATE)
+    if args.legacy_no_condition:
+        tcfg = dataclasses.replace(tcfg, condition_gate=(0,) * 7)
+    with MetricsLogger(args.out_dir, "gcpg") as logger:
+        return train_gcpg(GCPGModelConfig(), tcfg, smiles, props, args.out_dir,
+                          max_steps=args.max_steps, finetune_from=args.finetune_from,
+                          log_fn=logger.log, device=args.device)
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The parsed command line; ``args.run(args)`` runs its command."""
     parser = argparse.ArgumentParser(prog="cmdgen_tpu_torch")
@@ -435,6 +563,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     _add_align(sub)
     _add_run_all(sub)
     _add_eval(sub)
+    _add_train(sub)
     return parser.parse_args(argv)
 
 

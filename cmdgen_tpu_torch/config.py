@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import typing
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -116,6 +116,30 @@ class GCPGModelConfig:
     # never influence generation). Off in production, but switchable so the
     # full forward can be compared against the reference's actual numerics.
     mask_cond_token: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class GCPGTrainConfig:
+    """The JAX package's GCPG training settings (train_chembl33_baseline.py)."""
+
+    batch_size: int = 128
+    n_epochs: int = 32
+    lr: float = 3e-4
+    grad_clip: float = 5.0
+    kl_beta_min: float = 3e-4
+    kl_beta_max: float = 1e-2
+    cosine_t_max: int = 4  # epochs of the cosine decay, then lr 0
+    # condition gate over the 7 scalars: the baseline trains on the first 5;
+    # the docking finetune is score-only (train/gcpg_train.py FINETUNE_GATE)
+    condition_gate: Tuple[int, ...] = (1, 1, 1, 1, 1, 0, 0)
+    save_freq: int = 4  # checkpoint every N epochs
+    seed: int = 42
+    # 'auto' | 'on' | 'off': an epoch as a plan of rows drawn from
+    # resident_variants pre-drawn augmentations per molecule, on the device
+    resident_data: str = "auto"
+    resident_variants: int = 8
+    # fraction of training pp-graphs re-drawn consensus-style
+    consensus_noise: float = 0.0
 
 
 def from_dict(cls, d: Dict[str, Any]):

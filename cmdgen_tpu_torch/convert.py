@@ -15,6 +15,13 @@ A port checkpoint is a directory with ``params.npz`` (the flattened tree),
 ``config.json`` (the JAX checkpoint's ``config``) and optionally
 ``size_distribution.npy`` (the size prior's histogram).
 
+A port training run (``train/checkpoint.py``) writes the same layout under
+``best/`` and ``last/``, with the optimizer's state (``opt_state.npz``:
+``count`` and ``mu``/``nu``/``nu_max`` per flax path) and the EMA of the
+weights (``ema_params.npz``) beside it; a reader takes the EMA where there
+is one, and a run's directory means its ``best/``. ``optax_state`` and
+``port_opt_state`` carry an optax AMSGrad or AdamW state across both ways.
+
 The GCPG model maps the same way by name (``gcpg_state_dict``), with
 flax's other leaves: a LayerNorm ``scale`` and an Embed ``embedding``
 become ``weight``, a PReLU's scalar ``negative_slope`` the weight [1] of
@@ -30,6 +37,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from cmdgen_tpu_torch.chem.tokenizer import Tokenizer
 from cmdgen_tpu_torch.config import DiffPharConfig, GCPGModelConfig, from_dict, to_dict
@@ -138,6 +146,168 @@ def flax_leaves(module: torch.nn.Module) -> Dict[str, np.ndarray]:
     return flat
 
 
+def flax_path(module: nn.Module, name: str) -> str:
+    """The flax path of ``module``'s parameter ``name``: a Linear's (or
+    PositiveLinear's) ``weight`` is a ``kernel``, a LayerNorm's a
+    ``scale``, an Embedding's an ``embedding``, a PReLU's a
+    ``negative_slope``; other leaves keep their name."""
+    *mods, leaf = name.split(".")
+    if not mods:
+        return leaf
+    if leaf == "weight":
+        owner = module.get_submodule(".".join(mods))
+        leaf = ("scale" if isinstance(owner, nn.LayerNorm)
+                else "embedding" if isinstance(owner, nn.Embedding)
+                else "negative_slope" if isinstance(owner, nn.PReLU) else "kernel")
+    return "/".join(mods + [leaf])
+
+
+def flax_names(model) -> Dict[str, str]:
+    """{parameter name: flax path} of a DDPM (its dynamics, and its gamma
+    network as ``gamma_net.`` / ``gamma_net/``) or of any module (the
+    GCPG), in the order of ``model.named_parameters()``."""
+    if isinstance(model, nn.Module):
+        roots = [("", "", model)]
+    else:
+        roots = [("", "", model.dynamics)]
+        if model.gamma_net is not None:
+            roots.append(("gamma_net.", GAMMA_NET, model.gamma_net))
+    return {tp + name: fp + flax_path(root, name)
+            for tp, fp, root in roots for name, _ in root.named_parameters()}
+
+
+def to_flax(path: str, v: torch.Tensor) -> np.ndarray:
+    """A port tensor as the flax leaf at ``path`` (kernels transposed, a
+    PReLU slope a scalar)."""
+    arr = v.detach().float().cpu().numpy()
+    if path.endswith("/kernel"):
+        return arr.T
+    if path.endswith("/negative_slope"):
+        return arr.reshape(())
+    return arr
+
+
+def from_flax(path: str, arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_flax`, shaped, typed and placed as ``like``."""
+    arr = np.asarray(arr)
+    if path.endswith("/kernel"):
+        arr = arr.T
+    return torch.as_tensor(np.array(arr).reshape(like.shape), dtype=like.dtype,
+                           device=like.device)
+
+
+def model_leaves(model, tensors: Optional[Mapping[str, torch.Tensor]] = None
+                 ) -> Dict[str, np.ndarray]:
+    """The model's weights as flattened flax leaves; or, with ``tensors``
+    ({parameter name: tensor of its shape}, e.g. gradients or an EMA),
+    those in the same layout."""
+    src = dict(model.named_parameters()) if tensors is None else tensors
+    return {path: to_flax(path, src[name]) for name, path in flax_names(model).items()}
+
+
+def leaves_to_tensors(model, leaves: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flattened flax leaves as {parameter name: tensor} shaped and placed
+    as the model's parameters; raises on a leaf missing or left over."""
+    names = flax_names(model)
+    missing = sorted(set(names.values()) - set(leaves))
+    extra = sorted(set(leaves) - set(names.values()))
+    if missing or extra:
+        raise KeyError(f"parameters left unfilled: {missing}; leaves left unmapped: {extra}")
+    params = dict(model.named_parameters())
+    return {name: from_flax(path, leaves[path], params[name]) for name, path in names.items()}
+
+
+def load_leaves(model, leaves: Mapping[str, np.ndarray]) -> None:
+    """Copy flattened flax leaves into the model's parameters."""
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, v in leaves_to_tensors(model, leaves).items():
+            params[name].copy_(v)
+
+
+_MOMENTS = ("mu", "nu", "nu_max")
+
+
+def optimizer_arrays(model, optimizer) -> Dict[str, np.ndarray]:
+    """The port optimizer's state (``train.state.AMSGrad`` or ``AdamW``) as
+    flat numpy arrays: ``count`` and ``{mu,nu,nu_max}/<flax path>`` in the
+    flax layout."""
+    out = {"count": np.asarray(optimizer.count, dtype=np.int32)}
+    params = dict(model.named_parameters())
+    for name, path in flax_names(model).items():
+        st = optimizer.state[params[name]]
+        for key in _MOMENTS:
+            if key in st:
+                out[f"{key}/{path}"] = to_flax(path, st[key])
+    return out
+
+
+def load_optimizer_arrays(model, optimizer, arrays: Mapping[str, np.ndarray]) -> None:
+    """Set the port optimizer's state from :func:`optimizer_arrays`' form."""
+    count = int(np.asarray(arrays["count"]))
+    params = dict(model.named_parameters())
+    for name, path in flax_names(model).items():
+        p = params[name]
+        st = optimizer.state[p]
+        st["count"] = count
+        for key in _MOMENTS:
+            if f"{key}/{path}" in arrays:
+                st[key] = from_flax(path, arrays[f"{key}/{path}"], p)
+            elif key != "nu_max" or getattr(optimizer, "amsgrad", False):
+                raise KeyError(f"optimizer state {key}/{path} is missing")
+
+
+def port_opt_state(optax_state) -> Dict[str, np.ndarray]:
+    """An optax ``reference_optimizer`` (AMSGrad) or ``gcpg_optimizer``
+    (AdamW) state, as numpy, in :func:`optimizer_arrays`' form: its first
+    element's ``count`` and moments; the chain's other states carry the
+    same count or nothing."""
+    first = optax_state[0]
+    out = {"count": np.asarray(first.count, dtype=np.int32)}
+    for key in _MOMENTS:
+        if hasattr(first, key):
+            out.update({f"{key}/{path}": v
+                        for path, v in _flat_tree(getattr(first, key)).items()})
+    return out
+
+
+def optax_state(arrays: Mapping[str, np.ndarray], template):
+    """The optax state of the same optimizer as ``template`` (its ``init``
+    of the params), filled from :func:`optimizer_arrays`' form: every
+    ``count`` field of the chain takes ``count``."""
+    def fill(state):
+        if isinstance(state, tuple) and hasattr(state, "_fields"):
+            vals = {}
+            for key in state._fields:
+                v = getattr(state, key)
+                if key == "count":
+                    vals[key] = np.asarray(arrays["count"], dtype=np.int32)
+                elif key in _MOMENTS:
+                    vals[key] = _unflatten({p[len(key) + 1:]: a for p, a in arrays.items()
+                                            if p.startswith(key + "/")}, v)
+                else:
+                    vals[key] = v
+            return type(state)(**vals)
+        if isinstance(state, tuple):
+            return type(state)(fill(x) for x in state)
+        return state
+
+    return fill(template)
+
+
+def _unflatten(flat: Mapping[str, np.ndarray], like):
+    """Flattened leaves into the nesting of the tree ``like`` (with or
+    without its top-level ``params`` key)."""
+    def build(node, prefix):
+        if isinstance(node, Mapping):
+            return {k: build(v, f"{prefix}{k}/") for k, v in node.items()}
+        return np.asarray(flat[prefix[:-1]], dtype=np.asarray(node).dtype)
+
+    if isinstance(like, Mapping) and set(like) == {"params"}:
+        return {"params": build(like["params"], "")}
+    return build(like, "")
+
+
 def write_port_checkpoint(ckpt_dir, cfg: DiffPharConfig, model) -> Path:
     """Write ``model``'s weights (the dynamics and, for the learned
     schedule, the gamma network) and ``cfg`` as a port checkpoint
@@ -152,13 +322,30 @@ def write_port_checkpoint(ckpt_dir, cfg: DiffPharConfig, model) -> Path:
     return ckpt_dir
 
 
-def read_port_checkpoint(ckpt_dir) -> Tuple[DiffPharConfig, Dict[str, np.ndarray]]:
-    """(config, flattened flax params) of a port checkpoint directory."""
+def checkpoint_dir(ckpt_dir) -> Path:
+    """A port checkpoint directory, or a training run's ``best/`` where
+    ``ckpt_dir`` is the run's directory."""
     ckpt_dir = Path(ckpt_dir)
+    if not (ckpt_dir / "params.npz").exists() and (ckpt_dir / "best" / "params.npz").exists():
+        return ckpt_dir / "best"
+    return ckpt_dir
+
+
+def read_leaves(ckpt_dir) -> Dict[str, np.ndarray]:
+    """The weights to evaluate with of a checkpoint directory: its EMA
+    (``ema_params.npz``) where it has one, else ``params.npz``."""
+    ckpt_dir = Path(ckpt_dir)
+    path = ckpt_dir / "ema_params.npz"
+    with np.load(path if path.exists() else ckpt_dir / "params.npz") as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def read_port_checkpoint(ckpt_dir) -> Tuple[DiffPharConfig, Dict[str, np.ndarray]]:
+    """(config, flattened flax params) of a port checkpoint directory (or
+    of a training run's ``best/``): the EMA weights where there are some."""
+    ckpt_dir = checkpoint_dir(ckpt_dir)
     cfg = from_dict(DiffPharConfig, json.loads((ckpt_dir / "config.json").read_text()))
-    with np.load(ckpt_dir / "params.npz") as npz:
-        flat = {k: npz[k] for k in npz.files}
-    return cfg, flat
+    return cfg, read_leaves(ckpt_dir)
 
 
 def build_model(cfg: DiffPharConfig, flax_params: Mapping,
@@ -193,8 +380,9 @@ def load_port_checkpoint(ckpt_dir, device: DeviceLike = None,
                          ) -> Tuple[Model, DiffPharConfig]:
     """Read a port checkpoint and build its model on ``device``, with the
     size prior of its ``size_distribution.npy`` where it has one."""
+    ckpt_dir = checkpoint_dir(ckpt_dir)
     cfg, flat = read_port_checkpoint(ckpt_dir)
-    hist_path = Path(ckpt_dir) / "size_distribution.npy"
+    hist_path = ckpt_dir / "size_distribution.npy"
     hist = np.load(hist_path) if hist_path.exists() else None
     return build_model(cfg, flat, device, engine, size_histogram=hist), cfg
 
@@ -245,13 +433,11 @@ def build_gcpg(cfg: GCPGModelConfig, flax_params: Mapping, vocab_size: int,
 
 def read_port_gcpg(ckpt_dir) -> Tuple[GCPGModelConfig, Tokenizer, Dict[str, np.ndarray]]:
     """(model config, tokenizer, flattened flax params) of a GCPG port
-    checkpoint directory."""
-    ckpt_dir = Path(ckpt_dir)
+    checkpoint directory (or of a training run's ``best/``)."""
+    ckpt_dir = checkpoint_dir(ckpt_dir)
     meta = json.loads((ckpt_dir / "config.json").read_text())
-    with np.load(ckpt_dir / "params.npz") as npz:
-        flat = {k: npz[k] for k in npz.files}
     return (from_dict(GCPGModelConfig, meta["model"]), Tokenizer.from_list(meta["tokenizer"]),
-            flat)
+            read_leaves(ckpt_dir))
 
 
 def load_port_gcpg(ckpt_dir, device: DeviceLike = None) -> Tuple[GCPG, Tokenizer]:

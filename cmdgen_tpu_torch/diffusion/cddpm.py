@@ -1,4 +1,4 @@
-"""Pocket-conditional E(3) DDPM, sampling half (counterpart of
+"""Pocket-conditional E(3) DDPM, its loss and its samplers (counterpart of
 ``cmdgen_tpu/diffusion/cddpm.py``).
 
 Only the pharmacophore nodes are diffused; the pocket is fixed context. The
@@ -8,11 +8,19 @@ the caller's noise tensors (``noise=``) so a test can feed both packages the
 same draws. The noise schedule is a fixed gamma table or, for
 ``noise_schedule="learned"``, a ``GammaNetwork`` whose weights the model
 holds in ``gamma_net``.
+
+``loss`` draws the diffusion times and the noise and ``loss_given_noise``
+assembles the per-example NLL from them, term for term as the JAX package
+(l2 in training, the vlb otherwise; at evaluation a second forward pass at
+t=0). Gradients reach the dynamics and, for the learned schedule, the
+gamma network: ``named_parameters`` lists both under the flax tree's
+names. The samplers run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+import math
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +31,7 @@ from cmdgen_tpu_torch.diffusion.gamma_net import GammaNetwork
 from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
 from cmdgen_tpu_torch.ops import schedules as sch
-from cmdgen_tpu_torch.ops.masked import masked_mean, remove_mean_conditional
+from cmdgen_tpu_torch.ops.masked import masked_mean, remove_mean_conditional, sum_except_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +58,35 @@ def _inflate(v: torch.Tensor) -> torch.Tensor:
     return v[:, None, None]
 
 
+def sample_t_int(b: int, lowest_t: int, timesteps: int, stratified: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 device=None) -> torch.Tensor:
+    """[B] integer diffusion times from {lowest_t..timesteps}, as float32:
+    iid uniform, or ``stratified``: one uniform offset strided across the
+    batch (each sample's marginal unchanged)."""
+    if not stratified:
+        return torch.randint(lowest_t, timesteps + 1, (b,), generator=generator,
+                             device=device).float()
+    u0 = torch.rand((), generator=generator, device=device)
+    u = (u0 + torch.arange(b, dtype=torch.float32, device=device) / b) % 1.0
+    return torch.floor(u * (timesteps + 1 - lowest_t)) + lowest_t
+
+
+def _gaussian_kl(mu_norm2, q_sigma, p_sigma, d):
+    """KL between isotropic normals of dimension d (en_diffusion.py:833-848)."""
+    return (d * torch.log(p_sigma / q_sigma)
+            + 0.5 * (d * q_sigma ** 2 + mu_norm2) / p_sigma ** 2 - 0.5 * d)
+
+
+def named_parameters(model) -> Iterator[Tuple[str, torch.nn.Parameter]]:
+    """The trainable weights of a DDPM: the dynamics' and, for the learned
+    schedule, the gamma network's under ``gamma_net.``."""
+    yield from model.dynamics.named_parameters()
+    if model.gamma_net is not None:
+        for name, p in model.gamma_net.named_parameters():
+            yield "gamma_net." + name, p
+
+
 def respaced_st_pairs(t_full: int, s_steps: int) -> torch.Tensor:
     """[S, 2] float32 (s, t) rows of an evenly spaced subsequence
     0 = tau_0 < ... < tau_S = t_full, from t = t_full down."""
@@ -59,7 +96,7 @@ def respaced_st_pairs(t_full: int, s_steps: int) -> torch.Tensor:
 
 
 class ConditionalDDPM:
-    """Samplers for the pocket-conditional diffusion model.
+    """Loss and samplers of the pocket-conditional diffusion model.
 
     ``dynamics`` is the EGNNDynamics module; ``apply_fn`` overrides its
     forward (e.g. ``models.dynamics.make_fused_apply``) with the same
@@ -126,11 +163,189 @@ class ConditionalDDPM:
         t = torch.as_tensor(t_norm, dtype=torch.float32, device=self.device).clamp(0.0, 1.0)
         if self.gamma_net is None:
             return sch.gamma_at(self.gamma, t)
-        with torch.no_grad():
-            return self.gamma_net(t.reshape(-1, 1)).reshape(t.shape)
+        # differentiable: the loss trains the network; the samplers run
+        # under no_grad
+        return self.gamma_net(t.reshape(-1, 1)).reshape(t.shape)
 
     def _gamma0(self) -> torch.Tensor:
         return self._gamma_t_norm(torch.zeros(()))
+
+    def _gammaT(self) -> torch.Tensor:
+        return self._gamma_t_norm(torch.ones(()))
+
+    def _gamma_at_int(self, t_int: torch.Tensor) -> torch.Tensor:
+        return self._gamma_t_norm(torch.as_tensor(t_int, dtype=torch.float32,
+                                                  device=self.device) / self.cfg.timesteps)
+
+    named_parameters = named_parameters
+
+    def parameters(self):
+        return [p for _, p in self.named_parameters()]
+
+    def subspace_dim(self, n: torch.Tensor) -> torch.Tensor:
+        """Dimension of the coordinates' subspace: translation-free when
+        ``com_free``."""
+        if self.cfg.com_free:
+            return (n - 1.0) * self.cfg.n_dims
+        return n * self.cfg.n_dims
+
+    # ----------------------------------------------------------------- loss
+
+    def draw_noise(self, phar: PointCloud, training: bool = True,
+                   generator: Optional[torch.Generator] = None):
+        """The draws of :meth:`loss`: (t_int [B], eps, eps0 [B, Np, 3+F],
+        masked), from ``generator``."""
+        cfg = self.cfg
+        dev = self.device
+        t_int = sample_t_int(phar.batch, 0 if training else 1, cfg.timesteps,
+                             cfg.stratified_t, generator, dev)
+        shape = (*phar.mask.shape, cfg.n_dims + self.phar_nf)
+        m = phar.mask.to(dev)[..., None]
+        eps = torch.randn(shape, generator=generator, device=dev) * m
+        eps0 = torch.randn(shape, generator=generator, device=dev) * m
+        return t_int, eps, eps0
+
+    def loss(self, phar: PointCloud, pocket: PointCloud, training: bool = True,
+             generator: Optional[torch.Generator] = None):
+        """Per-example NLL [B] and an info dict, with the times and noise
+        drawn from ``generator``."""
+        t_int, eps, eps0 = self.draw_noise(phar, training, generator)
+        return self.loss_given_noise(phar, pocket, t_int, eps, eps0, training)
+
+    def loss_given_noise(self, phar: PointCloud, pocket: PointCloud, t_int: torch.Tensor,
+                         eps: torch.Tensor, eps0: torch.Tensor, training: bool = True,
+                         return_terms: bool = False):
+        """The NLL [B] given the times ``t_int`` [B] and the standard-normal
+        draws ``eps``/``eps0`` [B, Np, 3+F] (``eps0`` is read only by the
+        evaluation's second forward pass at t=0). Returns (nll, info);
+        ``return_terms`` adds the raw per-example terms under ``terms``."""
+        cfg = self.cfg
+        nd = cfg.n_dims
+        b = phar.batch
+        dev = self.device
+        phar = self.normalize(phar)
+        pocket = self.normalize(pocket)
+        if not cfg.com_free:
+            # the simple variant: move to the pocket's CoM frame first
+            pocket_com = masked_mean(pocket.x, pocket.mask)
+            phar = phar.replace(x=phar.x - pocket_com[:, None, :])
+            pocket = pocket.replace(x=pocket.x - pocket_com[:, None, :])
+        n_phar = phar.size
+        delta_log_px = -self.subspace_dim(n_phar) * math.log(cfg.norm_x)
+
+        t_int = torch.as_tensor(t_int, dtype=torch.float32, device=dev)
+        t_is_zero = (t_int == 0).float()
+        t_is_not_zero = 1.0 - t_is_zero
+        gamma_s = self._gamma_at_int(t_int - 1.0)  # s = -1 is never read at t = 0
+        gamma_t = self._gamma_at_int(t_int)
+
+        x_phar_c, x_pocket_c = self._center(phar.x, pocket.x, phar.mask, pocket.mask)
+        xh0_phar = torch.cat([x_phar_c, phar.h], dim=-1)
+        xh0_pocket = torch.cat([x_pocket_c, pocket.h], dim=-1)
+
+        # q(z_t | x): only the pharmacophore nodes are noised
+        z_t, xh_pocket = self._noised(xh0_phar, xh0_pocket, gamma_t, eps, phar.mask,
+                                      pocket.mask)
+        net_out, _ = self._apply(z_t, xh_pocket, (t_int / cfg.timesteps)[:, None],
+                                 phar.mask, pocket.mask)
+
+        error_t = sum_except_batch((eps - net_out) ** 2, phar.mask)
+        snr_weight = 1.0 - sch.snr(gamma_s - gamma_t)  # negative, by design
+        # the constants of the L0 term (en_diffusion.py:170-180)
+        d_x = self.subspace_dim(n_phar)
+        neg_log_constants = -d_x * (-0.5 * self._gamma0() - 0.5 * math.log(2 * math.pi))
+        kl_prior = self._kl_prior(xh0_phar, phar.mask, n_phar)
+
+        if training:
+            loss0_x, loss0_h = self._neg_log_pxh_given_z0(phar, z_t, eps, net_out, gamma_t)
+            loss0_x = loss0_x * t_is_zero
+            loss0_h = loss0_h * t_is_zero
+            error_t = error_t * t_is_not_zero
+        else:
+            # a second forward pass at t=0 for a lower-variance L0 estimate
+            gamma_0 = self._gamma0().expand(b)
+            z_0, xh_pocket0 = self._noised(xh0_phar, xh0_pocket, gamma_0, eps0, phar.mask,
+                                           pocket.mask)
+            net_out0, _ = self._apply(z_0, xh_pocket0, torch.zeros((b, 1), device=dev),
+                                      phar.mask, pocket.mask)
+            loss0_x, loss0_h = self._neg_log_pxh_given_z0(phar, z_0, eps0, net_out0, gamma_0)
+
+        if self.size_prior is not None:
+            log_pN = self.size_prior.log_prob_n1_given_n2(n_phar, pocket.size)
+        else:
+            log_pN = torch.zeros((b,), device=dev)
+
+        # assembly (lightning_modules.py:196-231)
+        if cfg.loss_type == "l2" and training:
+            loss_t = 0.5 * error_t / ((nd + self.phar_nf) * n_phar.clamp_min(1.0))
+            loss_0 = loss0_x / (nd * n_phar.clamp_min(1.0)) + loss0_h
+            nll = loss_t + loss_0 + kl_prior
+        else:
+            loss_t = -cfg.timesteps * 0.5 * snr_weight * error_t
+            loss_0 = loss0_x + loss0_h + neg_log_constants
+            nll = loss_t + loss_0 + kl_prior - delta_log_px - log_pN
+
+        info = {
+            "error_t": error_t.mean(),
+            "snr_weight": snr_weight.mean(),
+            "loss_0": loss_0.mean(),
+            "kl_prior": kl_prior.mean(),
+            "neg_log_const_0": neg_log_constants.mean(),
+            "log_pN": log_pN.mean(),
+            "delta_log_px": delta_log_px.mean(),
+            "eps_hat_x": (net_out[..., :nd].abs().sum(dim=(-1, -2))
+                          / (nd * n_phar.clamp_min(1.0))).mean(),
+        }
+        if return_terms:
+            info["terms"] = {
+                "delta_log_px": delta_log_px, "error_t": error_t, "snr_weight": snr_weight,
+                "loss0_x": loss0_x, "loss0_h": loss0_h,
+                "neg_log_constants": neg_log_constants, "kl_prior": kl_prior,
+                "log_pN": log_pN, "t_int": t_int,
+            }
+        return nll, info
+
+    def _noised(self, xh0_phar, xh0_pocket, gamma, eps, phar_mask, pocket_mask):
+        """z = alpha x + sigma eps over the pharmacophore nodes, then both
+        clouds CoM-projected: (z, xh_pocket)."""
+        nd = self.cfg.n_dims
+        z = _inflate(sch.alpha(gamma)) * xh0_phar + _inflate(sch.sigma(gamma)) * eps
+        z_x, pocket_x = self._center(z[..., :nd], xh0_pocket[..., :nd], phar_mask,
+                                     pocket_mask)
+        return (torch.cat([z_x, z[..., nd:]], dim=-1),
+                torch.cat([pocket_x, xh0_pocket[..., nd:]], dim=-1))
+
+    def _kl_prior(self, xh0_phar, mask_phar, n_phar):
+        """KL(q(z_T | x) || N(0, I)) (conditional_model.py:20-57)."""
+        nd = self.cfg.n_dims
+        gamma_T = self._gammaT()
+        mu_T = sch.alpha(gamma_T) * xh0_phar
+        sigma_T = sch.sigma(gamma_T)
+        kl_h = _gaussian_kl(sum_except_batch(mu_T[..., nd:] ** 2, mask_phar), sigma_T, 1.0, 1.0)
+        kl_x = _gaussian_kl(sum_except_batch(mu_T[..., :nd] ** 2, mask_phar), sigma_T, 1.0,
+                            self.subspace_dim(n_phar))
+        return kl_x + kl_h
+
+    def _log_ph_given_z0(self, z_0, onehot_norm, mask, sigma_0):
+        """log p(h | z0) of the one-hot types, summed per example: the
+        probability mass of each category's unit interval around z0's
+        (unnormalized) h channels, normalized over the categories."""
+        cfg = self.cfg
+        sigma_0_cat = _inflate(sigma_0 * cfg.norm_h)
+        centered = self.unnormalize_h(z_0[..., cfg.n_dims:]) - 1.0
+        log_ph_prop = torch.log(
+            sch.cdf_standard_gaussian((centered + 0.5) / sigma_0_cat)
+            - sch.cdf_standard_gaussian((centered - 0.5) / sigma_0_cat)
+            + 1e-10)
+        log_probs = log_ph_prop - torch.logsumexp(log_ph_prop, dim=-1, keepdim=True)
+        return sum_except_batch(log_probs * self.unnormalize_h(onehot_norm), mask)
+
+    def _neg_log_pxh_given_z0(self, phar, z_0, eps, net_out, gamma_0):
+        """-log p(x, h | z0) without constants (conditional_model.py:59-108):
+        (loss0_x [B], loss0_h [B])."""
+        nd = self.cfg.n_dims
+        loss0_x = 0.5 * sum_except_batch((eps[..., :nd] - net_out[..., :nd]) ** 2, phar.mask)
+        return loss0_x, -self._log_ph_given_z0(z_0, phar.h, phar.mask, sch.sigma(gamma_0))
 
     # ------------------------------------------------------------- sampling
 

@@ -11,11 +11,12 @@ the device once per chain.
 
 Randomness comes from an explicit ``torch.Generator``, or from the caller's
 CoM-projected draws (``noise=``) so that a test can feed both packages the
-same noise. The training half (``loss``, ``loss_given_noise``, the prior
-KL and the t=0 likelihood) is not ported yet.
+same noise. ``loss`` and ``loss_given_noise`` are the training half, term
+for term as the JAX package's, with both clouds' error terms.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -23,11 +24,20 @@ import torch
 import torch.nn.functional as F
 
 from cmdgen_tpu_torch.containers import PointCloud, mask_from_sizes
-from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM, DDPMConfig, respaced_st_pairs
+from cmdgen_tpu_torch.diffusion.cddpm import (
+    ConditionalDDPM,
+    DDPMConfig,
+    _gaussian_kl,
+    _inflate,
+    named_parameters,
+    respaced_st_pairs,
+    sample_t_int,
+)
 from cmdgen_tpu_torch.diffusion.gamma_net import GammaNetwork
 from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
 from cmdgen_tpu_torch.ops import schedules as sch
+from cmdgen_tpu_torch.ops.masked import sum_except_batch
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -121,9 +131,142 @@ class JointDDPM:
     # the same schedule plumbing as ConditionalDDPM
     _gamma_t_norm = ConditionalDDPM._gamma_t_norm
     _gamma0 = ConditionalDDPM._gamma0
+    _gammaT = ConditionalDDPM._gammaT
     check_norm_values = ConditionalDDPM.check_norm_values
     normalize = ConditionalDDPM.normalize
     unnormalize_x = ConditionalDDPM.unnormalize_x
+    unnormalize_h = ConditionalDDPM.unnormalize_h
+    _log_ph_given_z0 = ConditionalDDPM._log_ph_given_z0
+    named_parameters = named_parameters
+    parameters = ConditionalDDPM.parameters
+
+    def subspace_dim(self, n_total: torch.Tensor) -> torch.Tensor:
+        return (n_total - 1.0) * self.cfg.n_dims
+
+    # ----------------------------------------------------------------- loss
+
+    def draw_noise(self, phar: PointCloud, pocket: PointCloud, training: bool = True,
+                   generator: Optional[torch.Generator] = None):
+        """The draws of :meth:`loss`: (t_int [B], eps pair, eps0 pair), the
+        pairs CoM-projected over the combined cloud."""
+        dev = self.device
+        t_int = sample_t_int(phar.batch, 0 if training else 1, self.cfg.timesteps,
+                             self.cfg.stratified_t, generator, dev)
+        mask_p, mask_q = phar.mask.to(dev), pocket.mask.to(dev)
+        eps = self._sample_joint_noise(mask_p, mask_q, generator)
+        eps0 = self._sample_joint_noise(mask_p, mask_q, generator)
+        return t_int, eps, eps0
+
+    def loss(self, phar: PointCloud, pocket: PointCloud, training: bool = True,
+             generator: Optional[torch.Generator] = None):
+        """Per-example joint NLL [B] and an info dict, the times and noise
+        drawn from ``generator``."""
+        t_int, eps, eps0 = self.draw_noise(phar, pocket, training, generator)
+        return self.loss_given_noise(phar, pocket, t_int, *eps, *eps0, training)
+
+    def loss_given_noise(self, phar: PointCloud, pocket: PointCloud, t_int, eps_p, eps_q,
+                         eps0_p, eps0_q, training: bool = True, return_terms: bool = False):
+        """The joint NLL [B] given the times ``t_int`` [B] and CoM-projected
+        noise pairs (``eps0_*`` read only by the evaluation's second forward
+        pass at t=0, en_diffusion.py:423-443). Returns (nll, info)."""
+        cfg = self.cfg
+        nd = cfg.n_dims
+        b = phar.batch
+        dev = self.device
+        phar = self.normalize(phar)
+        pocket = self.normalize(pocket)
+        n_total = phar.size + pocket.size
+        delta_log_px = -self.subspace_dim(n_total) * math.log(cfg.norm_x)
+
+        t_int = torch.as_tensor(t_int, dtype=torch.float32, device=dev)
+        t_is_zero = (t_int == 0).float()
+        gamma_s = self._gamma_at_int(t_int - 1.0)
+        gamma_t = self._gamma_at_int(t_int)
+        xh_p, xh_q = phar.xh, pocket.xh
+
+        alpha_t, sigma_t = _inflate(sch.alpha(gamma_t)), _inflate(sch.sigma(gamma_t))
+        z_t_p = alpha_t * xh_p + sigma_t * eps_p
+        z_t_q = alpha_t * xh_q + sigma_t * eps_q
+        net_p, net_q = self._apply(z_t_p, z_t_q, (t_int / cfg.timesteps)[:, None],
+                                   phar.mask, pocket.mask)
+
+        error_t_phar = sum_except_batch((eps_p - net_p) ** 2, phar.mask)
+        error_t_pocket = sum_except_batch((eps_q - net_q) ** 2, pocket.mask)
+        snr_weight = 1.0 - sch.snr(gamma_s - gamma_t)
+        gamma_0_scalar = self._gamma0()
+        neg_log_constants = -self.subspace_dim(n_total) * (
+            -0.5 * gamma_0_scalar - 0.5 * math.log(2 * math.pi))
+        kl_prior = self._kl_prior_with_pocket(xh_p, xh_q, phar.mask, pocket.mask, n_total)
+
+        if training:
+            loss0_x_p, loss0_x_q, loss0_h = self._neg_log_pxh_given_z0(
+                phar, pocket, z_t_p, z_t_q, eps_p, eps_q, net_p, net_q, gamma_t)
+            loss0_x_p = loss0_x_p * t_is_zero
+            loss0_x_q = loss0_x_q * t_is_zero
+            loss0_h = loss0_h * t_is_zero
+            error_t_phar = error_t_phar * (1.0 - t_is_zero)
+            error_t_pocket = error_t_pocket * (1.0 - t_is_zero)
+        else:
+            gamma_0 = gamma_0_scalar.expand(b)
+            a0, s0 = _inflate(sch.alpha(gamma_0)), _inflate(sch.sigma(gamma_0))
+            z_0_p = a0 * xh_p + s0 * eps0_p
+            z_0_q = a0 * xh_q + s0 * eps0_q
+            net0_p, net0_q = self._apply(z_0_p, z_0_q, torch.zeros((b, 1), device=dev),
+                                         phar.mask, pocket.mask)
+            loss0_x_p, loss0_x_q, loss0_h = self._neg_log_pxh_given_z0(
+                phar, pocket, z_0_p, z_0_q, eps0_p, eps0_q, net0_p, net0_q, gamma_0)
+
+        if self.size_prior is not None:
+            log_pN = self.size_prior.log_prob(phar.size, pocket.size)
+        else:
+            log_pN = torch.zeros((b,), device=dev)
+
+        if cfg.loss_type == "l2" and training:
+            n_p, n_q = phar.size.clamp_min(1.0), pocket.size.clamp_min(1.0)
+            loss_t = 0.5 * (error_t_phar / ((nd + self.phar_nf) * n_p)
+                            + error_t_pocket / ((nd + self.residue_nf) * n_q))
+            loss_0 = loss0_x_p / (nd * n_p) + loss0_x_q / (nd * n_q) + loss0_h
+            nll = loss_t + loss_0 + kl_prior
+        else:
+            loss_t = -cfg.timesteps * 0.5 * snr_weight * (error_t_phar + error_t_pocket)
+            loss_0 = loss0_x_p + loss0_x_q + loss0_h + neg_log_constants
+            nll = loss_t + loss_0 + kl_prior - delta_log_px - log_pN
+
+        info = {"error_t_phar": error_t_phar.mean(), "error_t_pocket": error_t_pocket.mean(),
+                "kl_prior": kl_prior.mean()}
+        if return_terms:
+            info["terms"] = {
+                "delta_log_px": delta_log_px, "error_t_phar": error_t_phar,
+                "error_t_pocket": error_t_pocket, "snr_weight": snr_weight,
+                "loss0_x_p": loss0_x_p, "loss0_x_q": loss0_x_q, "loss0_h": loss0_h,
+                "neg_log_constants": neg_log_constants, "kl_prior": kl_prior,
+                "log_pN": log_pN, "t_int": t_int,
+            }
+        return nll, info
+
+    def _kl_prior_with_pocket(self, xh_p, xh_q, mask_p, mask_q, n_total):
+        nd = self.cfg.n_dims
+        gamma_T = self._gammaT()
+        alpha_T, sigma_T = sch.alpha(gamma_T), sch.sigma(gamma_T)
+        mu_p, mu_q = alpha_T * xh_p, alpha_T * xh_q
+        mu2_h = (sum_except_batch(mu_p[..., nd:] ** 2, mask_p)
+                 + sum_except_batch(mu_q[..., nd:] ** 2, mask_q))
+        mu2_x = (sum_except_batch(mu_p[..., :nd] ** 2, mask_p)
+                 + sum_except_batch(mu_q[..., :nd] ** 2, mask_q))
+        return (_gaussian_kl(mu2_x, sigma_T, 1.0, self.subspace_dim(n_total))
+                + _gaussian_kl(mu2_h, sigma_T, 1.0, 1.0))
+
+    def _neg_log_pxh_given_z0(self, phar, pocket, z0_p, z0_q, eps_p, eps_q, net_p, net_q,
+                              gamma_0):
+        """(loss0_x_p, loss0_x_q, loss0_h), each [B]."""
+        nd = self.cfg.n_dims
+        loss0_x_p = 0.5 * sum_except_batch((eps_p[..., :nd] - net_p[..., :nd]) ** 2, phar.mask)
+        loss0_x_q = 0.5 * sum_except_batch((eps_q[..., :nd] - net_q[..., :nd]) ** 2,
+                                           pocket.mask)
+        sigma_0 = sch.sigma(gamma_0)
+        log_ph = (self._log_ph_given_z0(z0_p, phar.h, phar.mask, sigma_0)
+                  + self._log_ph_given_z0(z0_q, pocket.h, pocket.mask, sigma_0))
+        return loss0_x_p, loss0_x_q, -log_ph
 
     def _gamma_at_int(self, t_int: torch.Tensor) -> torch.Tensor:
         return self._gamma_t_norm(torch.as_tensor(t_int, dtype=torch.float32,

@@ -9,9 +9,16 @@ Two engines, as in the JAX package:
   message pass goes through ``ops.egnn_msgpass.gcl_message_agg`` (the CUDA
   kernel on the GPU, its plain version on the CPU), as the JAX package
   sends only such GCLs to its Pallas kernel; with ``sin_embedding`` (24
-  edge features), or at a hidden width the kernel does not take
-  (``ops.egnn_msgpass.kernel_takes``, a static rule of width and dtype),
-  it runs in PyTorch.
+  edge features), at a hidden width the kernel does not take, or where
+  autograd records the forward pass (``ops.egnn_msgpass.kernel_route``: the
+  kernel has no backward pass, as the JAX package's has none), it runs in
+  PyTorch. Training therefore takes the torch message path, as the JAX
+  package's training takes XLA's, and every sampler, under
+  ``torch.no_grad()``, takes the kernel.
+
+Under autograd each ``EquivariantBlock`` is checkpointed (``remat``, the
+JAX package's ``nn.remat`` default): the backward pass recomputes a
+block's pair activations instead of keeping them.
 
 ``GNN`` is the plain (non-equivariant) network of the ``gnn_dynamics``
 mode: GCLs without edge features over the dense adjacency.
@@ -29,8 +36,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from cmdgen_tpu_torch.ops.egnn_msgpass import gather_rows, gcl_message_agg, kernel_takes
+from cmdgen_tpu_torch.ops.egnn_msgpass import gather_rows, gcl_message_agg, kernel_route
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +70,9 @@ _SIN_FREQS = 2.0 * math.pi * (4.0 ** torch.arange(_SIN_N_FREQ)) / 15.0
 
 
 def sinusoids_embedding(d2: torch.Tensor) -> torch.Tensor:
-    """Sin/cos of sqrt(d2) at 6 geometric frequencies: [..., 1] -> [..., 12]."""
-    emb = torch.sqrt(d2 + 1e-8) * _SIN_FREQS.to(d2.device)
+    """Sin/cos of sqrt(d2) at 6 geometric frequencies: [..., 1] -> [..., 12],
+    constant features (detached, as the JAX package stops their gradient)."""
+    emb = torch.sqrt(d2.detach() + 1e-8) * _SIN_FREQS.to(d2.device)
     return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
 
 
@@ -164,9 +173,10 @@ class GCL(nn.Module):
         dt = cfg.compute_dtype
         hdim = cfg.hidden_nf
         # K1 takes neighbor-list GCLs with sum aggregation, the two edge
-        # scalars and a width it supports; the rest take the torch path
+        # scalars and a width it supports, outside autograd; the rest take
+        # the torch path
         if (nbr_idx is not None and cfg.aggregation_method == "sum"
-                and edge_attr.shape[-1] == 2 and kernel_takes(hdim, dt)):
+                and edge_attr.shape[-1] == 2 and kernel_route(hdim, dt)):
             wi, wj = self.edge_in.project(h, dt)
             att = (self.att.weight.reshape(hdim), self.att.bias) if cfg.attention else None
             agg = gcl_message_agg(
@@ -272,9 +282,11 @@ class EGNN(nn.Module):
     both float32.
     """
 
-    def __init__(self, cfg: EGNNConfig, in_node_nf: int, out_node_nf: int):
+    def __init__(self, cfg: EGNNConfig, in_node_nf: int, out_node_nf: int,
+                 remat: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.embedding = nn.Linear(in_node_nf, cfg.hidden_nf)
         # the reference hands the full coords_range to every block
         for i in range(cfg.n_layers):
@@ -298,10 +310,13 @@ class EGNN(nn.Module):
         dist0 = dist0.to(dt)
         h = linear(h, self.embedding, dt)
         for i in range(cfg.n_layers):
-            h, x = getattr(self, f"e_block_{i}")(
-                h, x, dist0, edge_mask, node_mask, update_coords_mask,
-                nbr_idx, update_rows,
-            )
+            block = getattr(self, f"e_block_{i}")
+            args = (h, x, dist0, edge_mask, node_mask, update_coords_mask, nbr_idx,
+                    update_rows)
+            if self.remat and torch.is_grad_enabled():
+                h, x = checkpoint(block, *args, use_reentrant=False)
+            else:
+                h, x = block(*args)
         h = linear(h, self.embedding_out, dt)
         h = h * node_mask[..., None]
         return h.float(), x.float()

@@ -104,7 +104,8 @@ class GCPG(nn.Module):
         self.training_modules = training_modules
         h = cfg.hidden_dim
         tcfg = TransformerConfig(dim=h, ff_dim=cfg.ff_dim, n_head=cfg.n_head,
-                                 n_layers=cfg.n_layers)
+                                 n_layers=cfg.n_layers, dropout=cfg.dropout,
+                                 attention_dropout=cfg.dropout)
         self.cond_embedding = MLPBlock(cfg.cond_dim, h)
         self.pp_v_init = nn.Linear(cfg.pp_v_dim, h)
         self.pp_e_init = nn.Linear(cfg.pp_e_dim, h)

@@ -12,8 +12,10 @@ in float32, so every step attends over the whole fixed cache.
 Module and parameter names are the flax ones (``q``/``k``/``v``/``out``,
 ``ln1``..``ln3``, ``ff.Dense_0``, ``layer_{i}``, ``final_ln``), so
 ``convert.py`` maps a flax tree by name. LayerNorms use flax's
-``epsilon=1e-6``. Inference only: the JAX package's dropout is off at
-evaluation and has no counterpart here.
+``epsilon=1e-6``. Dropout sits where the JAX package's does, at its rate:
+on the attention weights and after the feed-forward's ReLU. It acts only
+in ``train()`` mode; in ``eval()`` mode, which every decode uses, the
+modules compute exactly what they did without it.
 
 Mask convention: ``valid`` masks are 1.0 for attendable positions.
 """
@@ -53,6 +55,34 @@ class TransformerConfig:
     ff_dim: int = 1024
     n_head: int = 8
     n_layers: int = 8
+    dropout: float = 0.0  # after the feed-forward's ReLU
+    attention_dropout: float = 0.0  # on the attention weights
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in ``train()`` mode each element is kept with
+    probability 1 - p (and scaled by 1 / (1 - p)), the keep mask drawn from
+    ``self.generator`` (a ``torch.Generator`` the trainer sets with
+    :func:`set_dropout_generator`; the device's default one when None).
+    In ``eval()`` mode, or at p = 0, the input passes unchanged."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def set_dropout_generator(module: nn.Module, generator) -> None:
+    """Draw every ``Dropout`` of ``module`` from ``generator``."""
+    for mod in module.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator
 
 
 def valid_bias(valid_kv: torch.Tensor) -> torch.Tensor:
@@ -63,7 +93,7 @@ def valid_bias(valid_kv: torch.Tensor) -> torch.Tensor:
 class MHA(nn.Module):
     """Multi-head attention with a single-step KV-cache path."""
 
-    def __init__(self, dim: int, n_head: int):
+    def __init__(self, dim: int, n_head: int, dropout: float = 0.0):
         super().__init__()
         if dim % n_head:
             raise ValueError(f"dim {dim} not divisible by {n_head} heads")
@@ -72,6 +102,7 @@ class MHA(nn.Module):
         self.k = nn.Linear(dim, dim)
         self.v = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
+        self.attn_drop = Dropout(dropout)
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:
         """[B, S, D] -> [B, heads, S, D / heads]."""
@@ -83,7 +114,7 @@ class MHA(nn.Module):
         logits = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
         if bias is not None:
             logits = logits + bias
-        w = torch.softmax(logits, dim=-1)
+        w = self.attn_drop(torch.softmax(logits, dim=-1))
         out = w @ v
         b, _, s, _ = out.shape
         return self.out(out.transpose(1, 2).reshape(b, s, self.dim))
@@ -126,9 +157,10 @@ class FeedForward(nn.Module):
         super().__init__()
         self.Dense_0 = nn.Linear(cfg.dim, cfg.ff_dim)
         self.Dense_1 = nn.Linear(cfg.ff_dim, cfg.dim)
+        self.drop = Dropout(cfg.dropout)
 
     def forward(self, x):
-        return self.Dense_1(torch.relu(self.Dense_0(x)))
+        return self.Dense_1(self.drop(torch.relu(self.Dense_0(x))))
 
 
 class EncoderLayer(nn.Module):
@@ -136,7 +168,7 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.ln1 = layer_norm(cfg.dim)
         self.ln2 = layer_norm(cfg.dim)
-        self.attn = MHA(cfg.dim, cfg.n_head)
+        self.attn = MHA(cfg.dim, cfg.n_head, cfg.attention_dropout)
         self.ff = FeedForward(cfg)
 
     def forward(self, x, valid=None):
@@ -168,8 +200,8 @@ class DecoderLayer(nn.Module):
         self.ln1 = layer_norm(cfg.dim)
         self.ln2 = layer_norm(cfg.dim)
         self.ln3 = layer_norm(cfg.dim)
-        self.self_attn = MHA(cfg.dim, cfg.n_head)
-        self.cross_attn = MHA(cfg.dim, cfg.n_head)
+        self.self_attn = MHA(cfg.dim, cfg.n_head, cfg.attention_dropout)
+        self.cross_attn = MHA(cfg.dim, cfg.n_head, cfg.attention_dropout)
         self.ff = FeedForward(cfg)
 
     def forward(self, x, mem, mem_valid=None):

@@ -27,6 +27,7 @@ from cmdgen_tpu_torch.ops.egnn_msgpass import (
     gather_rows,
     kernel_takes,
     ksum,
+    refuse_autograd,
     silu_cdt,
 )
 
@@ -48,7 +49,8 @@ def fused_params(egnn, compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """Stack an ``models.egnn.EGNN``'s weights per layer, in the kernel's
     layout: matrices [L, H, H] as [in, out] and edge rows [L, 2, H] in the
     compute dtype; biases [L, H] in float32. Also carries the input and
-    output embeddings in float32."""
+    output embeddings in float32. Every entry is a copy: a snapshot of the
+    weights as they are now, which later optimizer steps do not reach."""
     cfg = egnn.cfg
     hdim = cfg.hidden_nf
     blocks = [getattr(egnn, f"e_block_{i}") for i in range(cfg.n_layers)]
@@ -86,9 +88,9 @@ def fused_params(egnn, compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         "cg": stack(lambda b: cu(b).coord_gate.weight.reshape(hdim)),
     }
     p["emb_w"] = _kernel_io(egnn.embedding).detach().float().contiguous()
-    p["emb_b"] = egnn.embedding.bias.detach().float().contiguous()
+    p["emb_b"] = egnn.embedding.bias.detach().float().clone()
     p["out_w"] = _kernel_io(egnn.embedding_out).detach().float().contiguous()
-    p["out_b"] = egnn.embedding_out.bias.detach().float().contiguous()
+    p["out_b"] = egnn.embedding_out.bias.detach().float().clone()
     return p
 
 
@@ -354,8 +356,13 @@ def egnn_forward_fused(
     stack in one kernel launch on CUDA tensors (counted in
     ``egnn_forward_fused.launches``), or in plain PyTorch on CPU tensors.
     ``params`` comes from :func:`fused_params`. Returns (h_out [B,N,D_out],
-    x_out [B,N,3]), both float32."""
-    layers = _layers_plain if h.device.type == "cpu" else _layers_kernel
+    x_out [B,N,3]), both float32. On CUDA tensors it raises where an input
+    requires grad under grad mode: the kernel has no backward pass."""
+    if h.device.type == "cpu":
+        layers = _layers_plain
+    else:
+        refuse_autograd("egnn_forward_fused", h, x, *params.values())
+        layers = _layers_kernel
     return _forward(layers, params, h, x, edge_mask, node_mask,
                     update_coords_mask, n_layers, neighbor_k, norm_constant,
                     coords_range, normalization_factor, tanh, update_rows,

@@ -109,6 +109,25 @@ def kernel_takes(h: int, cdt: torch.dtype) -> bool:
     return False
 
 
+def kernel_route(h: int, cdt: torch.dtype) -> bool:
+    """Whether a GCL sends its message pass to :func:`gcl_message_agg`: at a
+    width the kernels take, and only outside autograd. The kernels have no
+    backward pass (nor have the JAX package's, which sends a GCL to its
+    kernel only under ``msgpass_pallas``, an inference flag), so a forward
+    pass whose gradient is wanted takes the torch message path."""
+    return kernel_takes(h, cdt) and not torch.is_grad_enabled()
+
+
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where a CUDA kernel would be handed a tensor whose gradient is
+    wanted: its result would carry none, and the gradient would be lost
+    without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward pass; call it under "
+                           "torch.no_grad() (a forward pass that needs gradients takes "
+                           "the model's torch path)")
+
+
 def _check_width(h: int, cdt: torch.dtype) -> None:
     if not kernel_takes(h, cdt):
         raise ValueError(f"hidden width {h} unsupported by the {cdt} kernels: "
@@ -310,10 +329,13 @@ def gcl_message_agg(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """GCL message pass + sum aggregation. Same arguments and result as
     :func:`gcl_message_agg_plain`. On CUDA tensors this launches the kernel
-    (and counts the launch in ``gcl_message_agg.launches``) or raises."""
+    (and counts the launch in ``gcl_message_agg.launches``) or raises,
+    also where an input requires grad under grad mode (``refuse_autograd``)."""
     if wi.device.type == "cpu":
         return gcl_message_agg_plain(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
                                      norm_factor, compute_dtype)
+    refuse_autograd("gcl_message_agg", wi, wj, radial, dist0, kmask, we, w2, w2b,
+                    *(att or ()))
     return prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
                           norm_factor, compute_dtype)()
 

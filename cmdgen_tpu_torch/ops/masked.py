@@ -13,6 +13,11 @@ def masked_mean(v: torch.Tensor, mask: torch.Tensor, dim: int = -2) -> torch.Ten
     return total / count.clamp_min(1.0)
 
 
+def sum_except_batch(v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[B, N, F] -> [B]: the sum over nodes and features of valid entries."""
+    return (v.sum(-1) * mask).sum(-1)
+
+
 def remove_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Subtract the masked mean per example; padded entries become zero."""
     mean = masked_mean(x, mask)

@@ -90,3 +90,11 @@ def sigma_and_alpha_t_given_s(gamma_t: torch.Tensor, gamma_s: torch.Tensor):
     alpha_t_given_s = torch.exp(0.5 * (log_alpha2_t - log_alpha2_s))
     sigma_t_given_s = torch.sqrt(sigma2_t_given_s)
     return sigma2_t_given_s, sigma_t_given_s, alpha_t_given_s
+
+
+def cdf_standard_gaussian(x: torch.Tensor) -> torch.Tensor:
+    """Phi(x) in the erf form the JAX package uses, in x's dtype: the
+    likelihood of z0's types differences two of these, and ``ndtr`` parts
+    from this form in the last bits where that difference cancels."""
+    return 0.5 * (1.0 + torch.erf(x / torch.sqrt(torch.tensor(2.0, dtype=x.dtype,
+                                                                 device=x.device))))

@@ -364,3 +364,60 @@ def test_cli_evaluation_and_joint_default_to_cuda(tmp_path):
                   "--ref-ligand", "L:1"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(argv)
+
+
+def test_cli_train_diffphar_cpu(tmp_path):
+    """train-diffphar at ca_config's width on a tiny synthetic set: one
+    epoch of two steps, best/ and last/ written with the config and the
+    optimizer state, and its metrics log."""
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_diffphar_npz
+
+    data = tmp_path / "data"
+    data.mkdir()
+    synthetic_diffphar_npz(data / "train.npz", np.random.RandomState(0), 4, n_pocket=(10, 20))
+    synthetic_diffphar_npz(data / "val.npz", np.random.RandomState(1), 2, n_pocket=(10, 20))
+    out = tmp_path / "run"
+    state = cli.main(["train-diffphar", str(data), str(out), "--config", "ca",
+                      "--batch-size", "2", "--epochs", "1", "--neighbor-k", "12",
+                      "--seed", "3", "--device", "cpu"])
+    assert state.step == 2
+    cfg = json.loads((out / "best" / "config.json").read_text())
+    assert cfg["dynamics"]["egnn"]["neighbor_k"] == 12 and cfg["train"]["seed"] == 3
+    assert cfg["dynamics"]["egnn"]["hidden_nf"] == 256
+    with np.load(out / "last" / "opt_state.npz") as npz:
+        assert int(npz["count"]) == 2
+    lines = (out / "crossdocked_ca_cond.metrics.jsonl").read_text().strip().split("\n")
+    assert np.isfinite(json.loads(lines[-1])["loss/val"])
+
+
+def test_cli_train_gcpg_cpu(tmp_path):
+    """train-gcpg at the default width, one step, then generate from the
+    run's directory (its best/)."""
+    smiles = tmp_path / "smiles.txt"
+    smiles.write_text("\n".join(["CCO", "CC(=O)O", "c1ccccc1", "CC(C)CO", "CCN", "CCOC"]))
+    out = tmp_path / "run"
+    model, tok = cli.main(["train-gcpg", str(smiles), str(out), "--batch-size", "4",
+                           "--max-steps", "1", "--epochs", "1", "--device", "cpu"])
+    assert model.cfg.hidden_dim == 384 and not model.training
+    meta = json.loads((out / "best.json").read_text())
+    assert meta["step"] == 1 and meta["config"]["tokenizer"] == tok.to_list()
+    posp = tmp_path / "hyp.posp"
+    posp.write_text(ALIGN_POSP)
+    cli.main(["generate", str(posp), str(tmp_path / "gen"), str(out), "--n", "2",
+              "--no-filter", "--device", "cpu"])
+    assert len((tmp_path / "gen" / "hyp_result.txt").read_text().strip().split("\n")) == 2
+
+
+def test_cli_training_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_diffphar_npz
+
+    synthetic_diffphar_npz(tmp_path / "train.npz", np.random.RandomState(0), 2)
+    synthetic_diffphar_npz(tmp_path / "val.npz", np.random.RandomState(1), 2)
+    smiles = tmp_path / "smiles.txt"
+    smiles.write_text("CCO\nCCN\n")
+    for argv in (["train-diffphar", str(tmp_path), str(tmp_path / "d")],
+                 ["train-gcpg", str(smiles), str(tmp_path / "g"), "--batch-size", "2"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)

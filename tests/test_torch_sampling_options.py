@@ -217,7 +217,7 @@ def test_learned_schedule_gamma_and_reverse_step_match_jax():
     jmodel, params, tmodel = _pair(schedule="learned")
     assert tmodel.gamma is None and tmodel.gamma_net is not None
     t = np.linspace(0.0, 1.0, 101, dtype=np.float32)
-    np.testing.assert_allclose(tmodel._gamma_t_norm(torch.from_numpy(t)).numpy(),
+    np.testing.assert_allclose(tmodel._gamma_t_norm(torch.from_numpy(t)).detach().numpy(),
                                np.asarray(jmodel._gamma_t_norm(params, jnp.asarray(t))),
                                **GAMMA_TOL)
     rng = np.random.RandomState(1)
