@@ -29,7 +29,7 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    in every method (GMM, KMeans, DBSCAN) and mode (dual-target GMM, DBSCAN
    and per-molecule, against the cloud moved by a known rigid motion less
    every 10th molecule; selectivity) on them, each method's first call
-   and three warm calls timed between two synchronizes, checks the output
+   and one warm call timed between two synchronizes, checks the output
    files, recovers the motion with ``register_clouds`` (its multi-start
    ICP), and holds the clustering and Kabsch functions on the card
    against the CPU with the same explicit initialisation;
@@ -41,7 +41,7 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
 7. stage 3, GCPG decode: the trained ``grun_r5cn`` weights decode the
    consensus phase's GMM hypothesis at B=512 (run-all's decode batch),
    sampled at T=1, unconstrained, constrained and with the valence state
-   machine (first call timed apart from three warm ones; decode positions/s,
+   machine (first call timed apart from a warm one; decode positions/s,
    valid SMILES/s, validity, uniqueness), and its validity with the valence
    state machine at T=0.7; the default ``GCPGModelConfig()``
    width with seeded random weights, timed; card against CPU at B=16 at
@@ -60,7 +60,7 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    ``rmsd_values.npy`` checked;
 9. ``run-all`` through the CLI on ``qrun_aa`` + ``grun_r5cn`` and two
    synthetic pockets at round 5's settings cut to the time limit (512
-   decodes per hypothesis, not 2,048; 2 pockets, not 8): first K1 and K2
+   decodes per hypothesis, not 2,048; 1 pocket, not 8): first K1 and K2
    at the shapes run-all gives them (64 clouds of 8 node slots, 5 used;
    the pocket padded to 48 rows; H=128, K=16, float32), recorded from its
    sampler's call at three steps of the chain, each wrapper call against
@@ -158,7 +158,7 @@ DBSCAN_EPS = 2.0
 CONS_REL = 1e-4
 REG_TOL = 1e-3
 # get-phar calls timed after each method's first call
-WARM_CALLS = 3
+WARM_CALLS = 1
 # K1's launches in the flagship msgpass run at the default T=500: (T + 1)
 # denoiser calls of 5 GCLs each; the width rule must not send any away
 K1_FLAGSHIP_LAUNCHES = 2505
@@ -181,14 +181,14 @@ OPTION_TOL = 1e-3
 ALIGN_C, ALIGN_STEPS, ALIGN_CHUNK, ALIGN_BUCKET = 5, 100, 64, 16
 ALIGN_RMSD_TOL = 1e-3
 ALIGN_REL = 1e-3
-# run-all on two synthetic pockets: round 5's end-to-end settings
+# run-all on one synthetic pocket: round 5's end-to-end settings
 # (runs/summary_triple_target_r5.json) with 512 decodes per hypothesis for
-# its 2,048 and 2 pockets for its 8, to fit the time limit
+# its 2,048 and 1 pocket for its 8, to fit the time limit (2 until PR 9)
 RUN_ALL_ARGS = ["--n-clouds", "64", "--timesteps", "100", "--clamp-x", "8",
                 "--neighbor-k", "16", "--cluster-counts", "4", "5", "6",
                 "--smiles-per-hypothesis", "512", "--constrain-decode",
                 "--constrain-valence", "--decode-temperature", "0.7"]
-RUN_ALL_POCKETS = 2
+RUN_ALL_POCKETS = 1
 RUN_ALL_VALID_MIN = 0.5
 # evaluate phase: pose PDBs written from the align phase's posed molecules
 EVAL_POSES = 16
@@ -200,6 +200,7 @@ EVAL_POSES = 16
 # lr times the sign of its gradient, which rounding may flip where the
 # gradient is near 0); the GCPG's batch, steps and check batch
 TRAIN_B = (4, 32)
+TRAIN_CHECK_B = 2  # card vs CPU (the CPU's dense step at full width sets it)
 TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 3, 20, 5
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
@@ -1298,7 +1299,7 @@ def decode_phase(dev, repo, posp):
            "card_vs_cpu": {}}
 
     def timed(m, mode_kw, seed):
-        """The first call and three warm calls of a sampled decode at B=512:
+        """The first call and WARM_CALLS warm calls of a sampled decode at B=512:
         (every call's tokens, first ms, warm ms)."""
         gen = torch.Generator(device=dev).manual_seed(seed)
         x = inputs(DECODE_B, dev)
@@ -1858,12 +1859,6 @@ def evaluate_phase(dev, repo, posp, smiles, poses):
 
 # ------------------------------------------------------------------ train
 
-def train_clouds(batch, dev):
-    from cmdgen_tpu_torch.train.diffphar_train import to_clouds
-
-    return to_clouds(batch, dev)
-
-
 def leaf_check(name, got, ref, floor_of):
     """Every leaf of ``got`` ({path: array}) within TRAIN_GRAD_TOL of its own
     largest |ref| plus 1e-5 of the largest |ref| over ``floor_of``: the
@@ -1912,7 +1907,7 @@ def diffphar_configs():
 
 def diffphar_step_vs_cpu(cfg, ds, hist, dev, engine):
     """One train step (clip on, fresh AMSGrad) on the card and on the CPU
-    from the same seeded weights, batch (B=4), times and noise: the loss
+    from the same seeded weights, batch (B=2), times and noise: the loss
     terms, every leaf's gradient and the weights after it; every gradient
     finite and, in each GCL, edge_in's, edge_out's and att's non-zero;
     K1 launched 0 times."""
@@ -1921,14 +1916,14 @@ def diffphar_step_vs_cpu(cfg, ds, hist, dev, engine):
     from cmdgen_tpu_torch import convert
     from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.train import state as tstate
-    from cmdgen_tpu_torch.train.diffphar_train import build_model
+    from cmdgen_tpu_torch.train.diffphar_train import build_model, to_clouds
 
-    batch = ds.padded_batch(list(range(4)))
-    out, states = {}, {}
+    batch = ds.padded_batch(list(range(TRAIN_CHECK_B)))
+    out = {}
     noise = None
     for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
         model = build_model(cfg, hist, d, torch.Generator().manual_seed(0))
-        phar, pocket = train_clouds(batch, d)
+        phar, pocket = to_clouds(batch, d)
         if noise is None:
             noise = model.draw_noise(phar, True, torch.Generator().manual_seed(1))
         st = tstate.init_state(model, tstate.reference_optimizer(model.parameters(), cfg.train.lr))
@@ -1943,7 +1938,6 @@ def diffphar_step_vs_cpu(cfg, ds, hist, dev, engine):
         out[where] = ({k: float(v) for k, v in metrics.items()},
                       convert.model_leaves(model, {n: p.grad for n, p in model.named_parameters()}),
                       convert.model_leaves(model))
-        states[where] = model
     (m_cpu, g_cpu, w_cpu), (m_card, g_card, w_card) = out["cpu"], out["card"]
     worst_loss = 0.0
     for k, v in m_cpu.items():
@@ -1959,10 +1953,10 @@ def diffphar_step_vs_cpu(cfg, ds, hist, dev, engine):
             and not np.abs(g).max() > 0]
     if dead:
         raise AssertionError(f"{engine}: no gradient on the card for {dead}")
-    log(f"train step card vs CPU ({engine}, B=4): loss {m_card['loss']:.6g} vs "
+    log(f"train step card vs CPU ({engine}, B={TRAIN_CHECK_B}): loss {m_card['loss']:.6g} vs "
         f"{m_cpu['loss']:.6g}; worst ratio to the limit: loss terms {worst_loss:.3g}, "
         f"gradients {worst_grad:.3g}; weights within {TRAIN_WEIGHT_ATOL}: {share:.6f}")
-    return {"loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
+    return {"batch": TRAIN_CHECK_B, "loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
             "worst_loss_term_ratio": worst_loss, "worst_gradient_ratio": worst_grad,
             "weights_within_atol": share, "weight_atol": TRAIN_WEIGHT_ATOL,
             "leaves": len(g_card), "k1_launches": 0}
@@ -1975,12 +1969,12 @@ def diffphar_timing(cfg, ds, hist, dev, b):
     import torch
 
     from cmdgen_tpu_torch.train import state as tstate
-    from cmdgen_tpu_torch.train.diffphar_train import build_model
+    from cmdgen_tpu_torch.train.diffphar_train import build_model, to_clouds
 
     model = build_model(cfg, hist, dev, torch.Generator().manual_seed(0))
     st = tstate.init_state(model, tstate.reference_optimizer(model.parameters(), cfg.train.lr))
     step = tstate.make_diffusion_train_step(clip_grad=True)
-    phar, pocket = train_clouds(ds.padded_batch(list(range(b))), dev)
+    phar, pocket = to_clouds(ds.padded_batch(list(range(b))), dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(TRAIN_WARM):
         step(st, phar, pocket, generator=gen)
@@ -2001,12 +1995,12 @@ def diffphar_loss_falls(cfg, ds, hist, dev):
     import torch
 
     from cmdgen_tpu_torch.train import state as tstate
-    from cmdgen_tpu_torch.train.diffphar_train import build_model
+    from cmdgen_tpu_torch.train.diffphar_train import build_model, to_clouds
 
     model = build_model(cfg, hist, dev, torch.Generator().manual_seed(0))
     st = tstate.init_state(model, tstate.reference_optimizer(model.parameters(), cfg.train.lr))
     step = tstate.make_diffusion_train_step(clip_grad=True)
-    phar, pocket = train_clouds(ds.padded_batch(list(range(4, 8))), dev)
+    phar, pocket = to_clouds(ds.padded_batch(list(range(4, 8))), dev)
     noise = model.draw_noise(phar, True, torch.Generator(device=dev).manual_seed(2))
     losses = [float(step(st, phar, pocket, noise=noise)["loss"]) for _ in range(50)]
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
@@ -2202,8 +2196,12 @@ def gcpg_train_checks(smiles, props, dev, tmp):
     meta = json.loads((ck / "last.json").read_text())
     if meta["step"] != GCPG_TRAIN_STEPS or not np.isfinite(meta["monitor"]):
         raise AssertionError(f"train-gcpg: {meta['step']} steps, loss {meta['monitor']}")
+    # the metrics log's clock at the epoch's end: the steps with their data
+    # and set-up, before the checkpoint is written
+    epoch_end = json.loads((ck / "gcpg.metrics.jsonl").read_text().splitlines()[-1])["t"]
     cli_rec = {"ms": ms, "steps": meta["step"], "epochs": epochs, "last_loss": meta["monitor"],
-               "unique_smiles": len(smiles), "corpus": len(smiles) * reps}
+               "unique_smiles": len(smiles), "corpus": len(smiles) * reps,
+               "epoch_end_s": epoch_end}
     log(f"train-gcpg CLI: {meta['step']} steps at B={GCPG_TRAIN_B} on {len(smiles)} SMILES "
         f"in {ms:.0f} ms, last epoch's loss {meta['monitor']:.4f}")
 
@@ -2387,32 +2385,51 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    phase_s = {}
+    t_main = time.perf_counter()
+
+    def done(name):
+        """Record and print the seconds since the script's start."""
+        phase_s[name] = time.perf_counter() - t_main
+        log(f"phase {name} done at {phase_s[name]:.1f} s")
+
     k1 = [check_k1(dev, d) for d in ("float32", "bfloat16")]
     k1_wide = check_k1(dev, "bfloat16", b=132)  # 12 rounds of whole items
     k2 = [check_k2(dev, d) for d in ("float32", "bfloat16")]
     k2_wide = check_k2(dev, "bfloat16", b=132)  # one sample per SM
+    done("kernels")
     if args.kernels_only:
         log(json.dumps({"kernel_checks": {"k1": k1, "k1_b132": k1_wide, "k2": k2,
                                           "k2_b132": k2_wide}, "card": card}))
         return 0
 
     sampling = flagship_sampling(dev, args.timesteps)
+    done("flagship")
     k1_flagship = sampling["msgpass"][2]["gcl_message_agg"]
     if args.timesteps == 500 and k1_flagship != K1_FLAGSHIP_LAUNCHES:
         raise AssertionError(f"K1 launched {k1_flagship} times in the flagship run, "
                              f"expected {K1_FLAGSHIP_LAUNCHES}")
     trained = trained_run(dev, repo)
+    done("trained")
     with tempfile.TemporaryDirectory() as keep:
         hypothesis = Path(keep) / "consensus_gmm.posp"
         consensus = consensus_phase(dev, repo, hypothesis)
+        done("consensus")
         consensus["options"] = options_phase(dev, repo)
+        done("options")
         consensus["tf32_default"] = tf32
         decode, smiles_t07 = decode_phase(dev, repo, hypothesis)
+        done("decode")
         align, poses = align_phase(dev, repo, hypothesis, smiles_t07)
+        done("align")
         evaluate = evaluate_phase(dev, repo, hypothesis, smiles_t07, poses)
+        done("evaluate")
         train, train_kernels = train_phase(dev, repo, smiles_t07)
+        done("train")
     run_all = run_all_phase(dev, repo)
+    done("run_all")
     joint = joint_phase(dev, repo, args.timesteps)
+    done("joint")
 
     def entry(name, source, replaces, flagship, main_path, run_all_path, joint_path):
         """The kernel's line: launches, times and bound at the main path's
@@ -2475,7 +2492,7 @@ def main():
         "flagship": {e: {"denoise_steps_per_s": v[0], "seconds": v[1], "launches": v[2],
                          "profile": v[3]} for e, v in sampling.items()},
         "timesteps": args.timesteps, "batch": B,
-        "trained_launches": trained, "card": card,
+        "trained_launches": trained, "card": card, "phase_done_at_s": phase_s,
     }))
     log(json.dumps({"consensus": consensus, "card": card}))
     log(json.dumps({"decode": decode, "card": card}))

@@ -47,6 +47,7 @@ from cmdgen_tpu_torch.diffusion.joint import JointDDPM
 from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, make_fused_apply
 from cmdgen_tpu_torch.models.gcpg import GCPG, TRAINING_MODULES
+from cmdgen_tpu_torch.train.checkpoint import eval_params_from_payload
 
 GAMMA_NET = "gamma_net/"
 Model = Union[ConditionalDDPM, JointDDPM]
@@ -127,23 +128,6 @@ def load_state(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
             raise ValueError(f"{k}: flax shape {tuple(v.shape)} != "
                              f"module shape {tuple(want[k].shape)}")
     module.load_state_dict(sd, strict=True)
-
-
-def flax_leaves(module: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """The inverse of :func:`dynamics_state_dict`: ``module``'s weights as
-    the flattened flax tree (``a.b.weight [out, in]`` -> ``a/b/kernel
-    [in, out]``; a top-level parameter keeps its name)."""
-    flat = {}
-    for name, v in module.state_dict().items():
-        *mods, leaf = name.split(".")
-        arr = v.detach().cpu().numpy()
-        if not mods:
-            flat[leaf] = arr
-        elif leaf == "weight":
-            flat["/".join(mods) + "/kernel"] = arr.T
-        else:
-            flat["/".join(mods) + "/" + leaf] = arr
-    return flat
 
 
 def flax_path(module: nn.Module, name: str) -> str:
@@ -314,10 +298,7 @@ def write_port_checkpoint(ckpt_dir, cfg: DiffPharConfig, model) -> Path:
     directory, which :func:`load_port_checkpoint` reads back."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    flat = flax_leaves(model.dynamics)
-    if model.gamma_net is not None:
-        flat.update({GAMMA_NET + k: v for k, v in flax_leaves(model.gamma_net).items()})
-    np.savez(ckpt_dir / "params.npz", **flat)
+    np.savez(ckpt_dir / "params.npz", **model_leaves(model))
     (ckpt_dir / "config.json").write_text(json.dumps(to_dict(cfg), indent=1))
     return ckpt_dir
 
@@ -332,11 +313,11 @@ def checkpoint_dir(ckpt_dir) -> Path:
 
 
 def read_leaves(ckpt_dir) -> Dict[str, np.ndarray]:
-    """The weights to evaluate with of a checkpoint directory: its EMA
-    (``ema_params.npz``) where it has one, else ``params.npz``."""
-    ckpt_dir = Path(ckpt_dir)
-    path = ckpt_dir / "ema_params.npz"
-    with np.load(path if path.exists() else ckpt_dir / "params.npz") as npz:
+    """The weights to evaluate with of a checkpoint directory, by
+    ``train.checkpoint.eval_params_from_payload``'s rule (its EMA where it
+    has one); only that file is read."""
+    files = {p.stem: p for p in Path(ckpt_dir).glob("*.npz")}
+    with np.load(eval_params_from_payload(files)) as npz:
         return {k: npz[k] for k in npz.files}
 
 

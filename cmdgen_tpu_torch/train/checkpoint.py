@@ -70,6 +70,8 @@ def load_checkpoint(ckpt_dir, name: str = "last") -> Tuple[Dict[str, Dict[str, n
     return payload, meta
 
 
-def eval_params_from_payload(payload: Mapping) -> Dict[str, np.ndarray]:
-    """The weights to evaluate with: the EMA where the checkpoint has one."""
+def eval_params_from_payload(payload: Mapping):
+    """The weights to evaluate with, the EMA where the checkpoint has one:
+    ``payload["ema_params"]`` if present, else ``payload["params"]`` (the
+    entries may be arrays or the files holding them)."""
     return payload.get("ema_params") or payload["params"]

@@ -96,8 +96,8 @@ def evaluate(model, dataset: DiffPharDataset, batch_size: int,
 
 @torch.no_grad()
 def sampling_metrics(model, dataset: DiffPharDataset, generator: Optional[torch.Generator] = None,
-                     n_samples: int = 16, dataset_name: str = "crossdock_full",
-                     timesteps: Optional[int] = None) -> Dict[str, float]:
+                     n_samples: int = 16, dataset_name: str = "crossdock_full"
+                     ) -> Dict[str, float]:
     """Sample clouds for the first ``n_samples`` pockets of ``dataset`` at
     their own pharmacophore sizes: the KL of the sampled type histogram
     from the training one (``kl_types``) and the clouds' mean largest
@@ -105,8 +105,7 @@ def sampling_metrics(model, dataset: DiffPharDataset, generator: Optional[torch.
     batch = dataset.padded_batch(list(range(min(n_samples, len(dataset)))))
     phar, pocket = to_clouds(batch, model.device)
     nn_ = phar.size.long().clamp_min(1)
-    out, _ = model.sample_given_pocket(pocket, nn_, dataset.n_phar_max, timesteps=timesteps,
-                                       generator=generator)
+    out, _ = model.sample_given_pocket(pocket, nn_, dataset.n_phar_max, generator=generator)
     h = out.h.cpu().numpy()
     mask = out.mask.cpu().numpy() > 0.5
     hist = np.bincount(h[mask].argmax(-1), minlength=h.shape[-1])
@@ -152,7 +151,7 @@ def train_diffphar(cfg: cfgmod.DiffPharConfig, datadir, out_dir,
                    max_steps: Optional[int] = None,
                    log_fn: Callable[[int, Dict], None] = lambda step, m: None,
                    resume_from=None, device: DeviceLike = None,
-                   eval_engine: str = "msgpass", eval_timesteps: Optional[int] = None):
+                   eval_engine: str = "msgpass"):
     """Train DiffPhar on ``datadir``'s ``train.npz`` (validating on
     ``val.npz``; the size prior from ``size_distribution.npy`` where there
     is one), writing checkpoints to ``out_dir``. Returns the final
@@ -162,8 +161,7 @@ def train_diffphar(cfg: cfgmod.DiffPharConfig, datadir, out_dir,
     training: weights, optimizer state and EMA (seeded from the weights
     where the checkpoint has none; dropped for a run without EMA), its
     step, and the epochs it covered skipped with their batch-order draws
-    replayed. ``eval_engine``: the engine of eval-epoch sampling;
-    ``eval_timesteps`` shortens its chain (default the model's T)."""
+    replayed. ``eval_engine``: the engine of eval-epoch sampling."""
     tc = cfg.train
     if tc.fsdp or (tc.dp or 1) > 1 or tc.tp > 1:
         raise NotImplementedError("data/tensor parallelism and FSDP are not ported yet "
@@ -261,7 +259,7 @@ def train_diffphar(cfg: cfgmod.DiffPharConfig, datadir, out_dir,
                               "elapsed_s": time.time() - t0})
             if sample_now:
                 sm = sampling_metrics(em, val_ds, gen, n_samples=min(tc.n_eval_samples, 16),
-                                      dataset_name=cfg.data.dataset, timesteps=eval_timesteps)
+                                      dataset_name=cfg.data.dataset)
                 log_fn(step, {f"sampling/{k}": v for k, v in sm.items()})
             del em
         if ckpt_now:

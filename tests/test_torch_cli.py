@@ -247,7 +247,7 @@ def _joint_checkpoint(path):
     import dataclasses
 
     from cmdgen_tpu_torch.config import ca_config
-    from cmdgen_tpu_torch.convert import (build_model, flax_leaves, load_port_checkpoint,
+    from cmdgen_tpu_torch.convert import (build_model, load_port_checkpoint, model_leaves,
                                           write_port_checkpoint)
     from cmdgen_tpu_torch.diffusion.joint import JointDDPM
     from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
@@ -259,7 +259,7 @@ def _joint_checkpoint(path):
         ddpm=dataclasses.replace(cfg.ddpm, timesteps=10),
         dynamics=dataclasses.replace(cfg.dynamics, update_pocket_coords=True, egnn=egnn))
     torch.manual_seed(0)
-    model = build_model(cfg, flax_leaves(EGNNDynamics(cfg.dynamics)), "cpu")
+    model = build_model(cfg, model_leaves(EGNNDynamics(cfg.dynamics)), "cpu")
     write_port_checkpoint(path, cfg, model)
     back, cfg_back = load_port_checkpoint(path, "cpu")
     assert isinstance(back, JointDDPM) and cfg_back == cfg

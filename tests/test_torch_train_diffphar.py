@@ -597,3 +597,32 @@ def test_resident_batch_plan(data_dir, tmp_path):
         data_dir, tmp_path, device="cpu")
     assert st.step == 3 and st.optimizer.count == 3
     assert json.loads((tmp_path / "last.json").read_text())["step"] == 3
+
+
+def test_eval_sampling_uses_a_snapshot_of_the_ema(data_dir, tmp_path, monkeypatch):
+    """Eval-epoch sampling runs on a copy holding the EMA weights, its fused
+    engine built on that copy: the sampler's denoiser is the EMA model's
+    (not the raw weights'), and later steps do not reach it."""
+    from cmdgen_tpu_torch.train import diffphar_train
+
+    seen = []
+    real = diffphar_train.sampling_metrics
+
+    def capture(model, *a, **kw):
+        seen.append((model, convert.model_leaves(model)))
+        return real(model, *a, **kw)
+
+    monkeypatch.setattr(diffphar_train, "sampling_metrics", capture)
+    st = diffphar_train.train_diffphar(_tiny_config(ema_decay=0.9), data_dir, tmp_path,
+                                       device="cpu", eval_engine="fused")
+    (first, first_w), (last, last_w) = seen
+    _leaves_close(last_w, convert.model_leaves(st.model, st.ema), rtol=0)
+    assert not np.allclose(last_w["egnn/embedding/kernel"],
+                           convert.model_leaves(st.model)["egnn/embedding/kernel"])
+    _leaves_close(convert.model_leaves(first), first_w, rtol=0)  # untouched by epoch 2
+    _, (tphar, tpocket) = _clouds(_batch())
+    args = (tphar.xh, tpocket.xh, torch.full((B, 1), 0.5), tphar.mask, tpocket.mask)
+    with torch.no_grad():
+        fused, plain = last._apply(*args), last.dynamics(*args)
+    for f, p in zip(fused, plain):
+        np.testing.assert_allclose(f.numpy(), p.numpy(), **TOL)

@@ -314,10 +314,14 @@ def test_generate_and_finetune_from_checkpoint(gcpg_run, tmp_path):
     lines = (tmp_path / "gen" / "hyp_result.txt").read_text().strip().split("\n")
     assert len(lines) == 4
     small = from_dict(GCPGModelConfig, to_dict(_jcfg(0.1)))
+    logs = []
     model, ftok = ttrain.train_gcpg(
         small, dataclasses.replace(GCPGTrainConfig(), batch_size=8,
                                    condition_gate=ttrain.FINETUNE_GATE, n_epochs=1),
-        CORPUS, {}, tmp_path / "ft", max_steps=1, finetune_from=out, device="cpu")
-    assert ftok.to_list() == tok.to_list()
+        CORPUS, {}, tmp_path / "ft", max_steps=1, finetune_from=out, device="cpu",
+        gen_eval_every=1, gen_eval_n=2, log_fn=lambda s, m: logs.append(m))
+    assert ftok.to_list() == tok.to_list() and not model.training
+    gen = [m for m in logs if "gen/n_eval" in m]
+    assert len(gen) == 1 and gen[0]["gen/n_eval"] == 2
     with np.load(tmp_path / "ft" / "last" / "opt_state.npz") as npz:
         assert int(npz["count"]) == 1
