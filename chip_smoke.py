@@ -1932,9 +1932,9 @@ def diffphar_step_vs_cpu(cfg, ds, hist, dev, engine):
             st, phar, pocket, noise=[n.to(d) for n in noise])
         if where == "card":
             torch.cuda.synchronize()
-            if gcl_message_agg.launches:
-                raise AssertionError(f"{engine}: K1 launched {gcl_message_agg.launches} times "
-                                     "in a train step")
+            k1_launches = gcl_message_agg.launches
+            if k1_launches:
+                raise AssertionError(f"{engine}: K1 launched {k1_launches} times in a train step")
         out[where] = ({k: float(v) for k, v in metrics.items()},
                       convert.model_leaves(model, {n: p.grad for n, p in model.named_parameters()}),
                       convert.model_leaves(model))
@@ -1959,7 +1959,7 @@ def diffphar_step_vs_cpu(cfg, ds, hist, dev, engine):
     return {"batch": TRAIN_CHECK_B, "loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
             "worst_loss_term_ratio": worst_loss, "worst_gradient_ratio": worst_grad,
             "weights_within_atol": share, "weight_atol": TRAIN_WEIGHT_ATOL,
-            "leaves": len(g_card), "k1_launches": 0}
+            "leaves": len(g_card), "k1_launches": k1_launches}
 
 
 def diffphar_timing(cfg, ds, hist, dev, b):
@@ -2010,8 +2010,9 @@ def diffphar_loss_falls(cfg, ds, hist, dev):
 
 def train_eval_sampling_run(cfg, data, out_dir, dev):
     """train_diffphar with K=12, EMA 0.999 and eval-epoch sampling every
-    epoch (B=32, one epoch of 8 steps): K1's launches counted in every
-    train step (0) and every eval sampling call (n_layers x (T + 1)); the
+    epoch (B=32, one epoch of 8 steps): K1's and K2's launches counted in
+    every train step (0) and K1's in every eval sampling call (n_layers x
+    (T + 1)); the
     last sampling call's denoiser inputs recorded (first, middle, last of
     its T + 1 calls) with its evaluation copy of the model. Returns
     (record, recorded inputs, the evaluation model)."""
@@ -2019,6 +2020,7 @@ def train_eval_sampling_run(cfg, data, out_dir, dev):
 
     import torch
 
+    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
     from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.train import diffphar_train as dt
     from cmdgen_tpu_torch.train import state as tstate
@@ -2033,9 +2035,10 @@ def train_eval_sampling_run(cfg, data, out_dir, dev):
         step = real_make(*a, **kw)
 
         def counted(*sa, **skw):
-            before = gcl_message_agg.launches
+            before = gcl_message_agg.launches + egnn_forward_fused.launches
             out = step(*sa, **skw)
-            step_launches.append(gcl_message_agg.launches - before)
+            step_launches.append(gcl_message_agg.launches + egnn_forward_fused.launches
+                                 - before)
             return out
 
         return counted
@@ -2078,7 +2081,7 @@ def train_eval_sampling_run(cfg, data, out_dir, dev):
     files = sorted(p.name for p in (out_dir / "best").iterdir())
     if files != ["config.json", "ema_params.npz", "opt_state.npz", "params.npz"]:
         raise AssertionError(f"best/ holds {files}")
-    rec = {"steps": state.step, "ms": ms, "k1_launches_per_train_step": 0,
+    rec = {"steps": state.step, "ms": ms, "kernel_launches_in_train_steps": sum(step_launches),
            "k1_launches_per_eval_sampling": sample_launches, "k1_launches_total": total,
            "eval_sampling_ms": seen["ms"], "eval_sampling_T": calls - 1,
            "val_loss": vals, "sampling": sampled}
@@ -2474,7 +2477,8 @@ def main():
             "trained_sample_phars": trained[engine][kern["name"]],
             "run_all": run_all["runs"][engine]["launches"][kern["name"]],
             "joint_sample_phars": joint["engines"][engine]["launches"][kern["name"]],
-            "train": kern["launches"], "train_diffphar_steps": 0}
+            "train": kern["launches"], "train_diffphar_steps":
+                train["diffphar"]["eval_sampling_run"]["kernel_launches_in_train_steps"]}
         kern["joint"] = {k: joint[key][k] for k in (
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "comparisons")}
         kern["joint"]["shape"] = joint["config"]
