@@ -626,3 +626,43 @@ def test_eval_sampling_uses_a_snapshot_of_the_ema(data_dir, tmp_path, monkeypatc
         fused, plain = last._apply(*args), last.dynamics(*args)
     for f, p in zip(fused, plain):
         np.testing.assert_allclose(f.numpy(), p.numpy(), **TOL)
+
+
+def test_train_diffphar_joint_and_sample(data_dir, tmp_path):
+    """The joint model trains through the same loop (no eval sampling: it
+    has no conditional sampler) and its best/ samples by RePaint through
+    ``sample-phars``."""
+    from cmdgen_tpu_torch import cli
+    from cmdgen_tpu_torch.diffusion.joint import JointDDPM
+    from cmdgen_tpu_torch.train import diffphar_train
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_pocket_pdb
+
+    cfg = _tiny_config(n_epochs=1)
+    cfg = dataclasses.replace(
+        cfg, dynamics=dataclasses.replace(cfg.dynamics, update_pocket_coords=True),
+        train=dataclasses.replace(cfg.train, mode="joint"))
+    st = diffphar_train.train_diffphar(cfg, data_dir, tmp_path / "run", device="cpu")
+    assert isinstance(st.model, JointDDPM) and st.step == 2
+    pdb = tmp_path / "pocket.pdb"
+    pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(0), 20))
+    cli.main(["sample-phars", str(tmp_path / "run"), str(pdb), str(tmp_path / "o.json"),
+              "--ref-ligand", "L:1", "--n-samples", "2", "--device", "cpu"])
+    assert len(json.loads((tmp_path / "o.json").read_text())) == 2
+
+
+def test_stratified_times_cover_every_stratum():
+    """``stratified_t`` strides one offset across the batch: with as many
+    samples as times, each time is drawn once, in both packages; iid draws
+    stay in {lowest..T}."""
+    from cmdgen_tpu_torch.diffusion.cddpm import sample_t_int
+
+    for lowest in (0, 1):
+        n = T + 1 - lowest
+        out = sample_t_int(n, lowest, T, stratified=True,
+                           generator=torch.Generator().manual_seed(3))
+        ref = jsample_t_int(jax.random.PRNGKey(3), n, lowest, T, stratified=True)
+        want = np.arange(lowest, T + 1, dtype=np.float32)
+        np.testing.assert_array_equal(np.sort(out.numpy()), want)
+        np.testing.assert_array_equal(np.sort(np.asarray(ref)), want)
+        iid = sample_t_int(200, lowest, T, generator=torch.Generator().manual_seed(4))
+        assert iid.dtype == torch.float32 and iid.min() >= lowest and iid.max() <= T
