@@ -325,3 +325,22 @@ def test_generate_and_finetune_from_checkpoint(gcpg_run, tmp_path):
     assert len(gen) == 1 and gen[0]["gen/n_eval"] == 2
     with np.load(tmp_path / "ft" / "last" / "opt_state.npz") as npz:
         assert int(npz["count"]) == 1
+
+
+def test_train_gcpg_resident_plan(tmp_path):
+    """Without max_steps, a corpus whose variants fit trains from rows on
+    the device: 2 pre-drawn variants per molecule, an epoch of
+    len // batch steps drawn with RandomState(seed + 1), rebuilt at full
+    precision (input_valid = inputs != PAD)."""
+    import dataclasses
+
+    small = from_dict(GCPGModelConfig, to_dict(_jcfg(0.1)))
+    tcfg = dataclasses.replace(GCPGTrainConfig(), batch_size=4, n_epochs=2, save_freq=1,
+                               resident_data="on", resident_variants=2)
+    logs = []
+    ttrain.train_gcpg(small, tcfg, CORPUS, {}, tmp_path, log_fn=lambda s, m: logs.append((s, m)),
+                      device="cpu")
+    epochs = [(s, m["loss/train"]) for s, m in logs if "loss/train" in m]
+    assert [s for s, _ in epochs] == [2, 4] and all(np.isfinite([v for _, v in epochs]))
+    with np.load(tmp_path / "last" / "opt_state.npz") as npz:
+        assert int(npz["count"]) == 4
