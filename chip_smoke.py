@@ -183,7 +183,7 @@ ALIGN_RMSD_TOL = 1e-3
 ALIGN_REL = 1e-3
 # run-all on one synthetic pocket: round 5's end-to-end settings
 # (runs/summary_triple_target_r5.json) with 512 decodes per hypothesis for
-# its 2,048 and 1 pocket for its 8, to fit the time limit (2 until PR 9)
+# its 2,048 and 1 pocket for its 8, to fit the time limit
 RUN_ALL_ARGS = ["--n-clouds", "64", "--timesteps", "100", "--clamp-x", "8",
                 "--neighbor-k", "16", "--cluster-counts", "4", "5", "6",
                 "--smiles-per-hypothesis", "512", "--constrain-decode",
