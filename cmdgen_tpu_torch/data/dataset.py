@@ -226,13 +226,17 @@ class GCPGSmilesDataset:
         self.consensus_noise = consensus_noise
         self.np_rng = np.random.RandomState(seed)
         self.py_rng = _random.Random(seed)
+        # canonical form of each molecule, computed at its first draw: a
+        # pure function of the SMILES, and a third of an item's host time
+        self._canonical: Dict[int, Optional[str]] = {}
 
     def __len__(self):
         return len(self.smiles_list)
 
     def get_item(self, i: int) -> Optional[dict]:
-        smiles = self.smiles_list[i]
-        csmiles = canonical_smiles(smiles)
+        if i not in self._canonical:
+            self._canonical[i] = canonical_smiles(self.smiles_list[i])
+        csmiles = self._canonical[i]
         if csmiles is None:
             return None
         rsmiles = None
