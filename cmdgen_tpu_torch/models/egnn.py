@@ -282,11 +282,9 @@ class EGNN(nn.Module):
     both float32.
     """
 
-    def __init__(self, cfg: EGNNConfig, in_node_nf: int, out_node_nf: int,
-                 remat: bool = True):
+    def __init__(self, cfg: EGNNConfig, in_node_nf: int, out_node_nf: int):
         super().__init__()
         self.cfg = cfg
-        self.remat = remat
         self.embedding = nn.Linear(in_node_nf, cfg.hidden_nf)
         # the reference hands the full coords_range to every block
         for i in range(cfg.n_layers):
@@ -313,7 +311,7 @@ class EGNN(nn.Module):
             block = getattr(self, f"e_block_{i}")
             args = (h, x, dist0, edge_mask, node_mask, update_coords_mask, nbr_idx,
                     update_rows)
-            if self.remat and torch.is_grad_enabled():
+            if torch.is_grad_enabled():
                 h, x = checkpoint(block, *args, use_reentrant=False)
             else:
                 h, x = block(*args)
