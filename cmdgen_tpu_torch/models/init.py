@@ -4,7 +4,8 @@ defaults are other distributions).
 
 - ``nn.Dense``: a lecun-normal kernel (variance 1 / fan_in, truncated at
   two standard deviations) and a zero bias;
-- ``nn.Embed``: the same normal with fan_in = the embedding width;
+- ``nn.Embed``: ``variance_scaling(1, fan_in, normal)``, an untruncated
+  normal of standard deviation 1 / sqrt(embedding width);
 - ``nn.LayerNorm``: scale 1, bias 0; ``nn.PReLU``: slope 0.01;
 - the EGNN's ``coord_gate``: ``variance_scaling(1e-6, fan_avg, uniform)``,
   so the first coordinate updates are about zero;
@@ -40,6 +41,8 @@ def variance_scaling_(w: torch.Tensor, scale: float, fan: float, distribution: s
         u = torch.rand(w.shape, generator=generator, dtype=torch.float64) * (1 - 2 * lo) + lo
         v = (torch.erfinv(2 * u - 1) * math.sqrt(2.0)).clamp(-2.0, 2.0)
         w.copy_(v * (math.sqrt(var) / _TRUNC_STD))
+    elif distribution == "normal":
+        w.copy_(torch.randn(w.shape, generator=generator) * math.sqrt(var))
     else:
         raise ValueError(distribution)
     return w
@@ -60,7 +63,7 @@ def _generic_(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
         elif isinstance(mod, nn.Embedding):
-            variance_scaling_(mod.weight, 1.0, mod.embedding_dim, "truncated_normal", generator)
+            variance_scaling_(mod.weight, 1.0, mod.embedding_dim, "normal", generator)
         elif isinstance(mod, nn.PReLU):
             nn.init.constant_(mod.weight, 0.01)
 

@@ -565,7 +565,8 @@ def test_parallel_settings_raise(data_dir, tmp_path):
 def test_init_draws_flax_initializers():
     """Fresh weights: zero biases, lecun-normal kernels (std 1/sqrt(fan_in),
     truncated at 2 std), a coordinate gate of variance 1e-6 / fan_avg, the
-    gamma network's endpoints -5 and 10."""
+    gamma network's endpoints -5 and 10; embeddings an untruncated normal
+    of std 1/sqrt(width), held against flax's own ``nn.Embed`` draw."""
     from cmdgen_tpu_torch.train.diffphar_train import build_model
 
     cfg = _tiny_config()
@@ -584,6 +585,20 @@ def test_init_draws_flax_initializers():
     assert float(model.gamma_net.gamma_0) == -5.0 and float(model.gamma_net.gamma_1) == 10.0
     again = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     _leaves_close(convert.model_leaves(again), convert.model_leaves(model), rtol=0)
+    # nn.Embed: an untruncated normal of std 1/sqrt(width), as flax draws it
+    import flax.linen as fnn
+
+    from cmdgen_tpu_torch.models.init import init_gcpg_
+
+    emb = torch.nn.Embedding(4000, 64)
+    init_gcpg_(emb, torch.Generator().manual_seed(0))
+    ours = emb.weight.detach().numpy().ravel() * 8.0
+    ref = np.asarray(fnn.Embed(4000, 64).init(jax.random.PRNGKey(0), np.zeros(1, np.int32))
+                     ["params"]["embedding"]).ravel() * 8.0
+    assert abs(float(ours.std()) - 1.0) < 0.01
+    assert float(np.abs(ours).max()) > 2.0 / 0.87962566103423978  # not truncated
+    q = [0.005, 0.02, 0.16, 0.5, 0.84, 0.98, 0.995]  # a truncated draw ends at 2.27
+    np.testing.assert_allclose(np.quantile(ours, q), np.quantile(ref, q), atol=0.03)
 
 
 def test_resident_batch_plan(data_dir, tmp_path):
