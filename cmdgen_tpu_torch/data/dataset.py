@@ -226,18 +226,13 @@ class GCPGSmilesDataset:
         self.consensus_noise = consensus_noise
         self.np_rng = np.random.RandomState(seed)
         self.py_rng = _random.Random(seed)
-        # canonical form of each SMILES, computed at its first draw: a pure
-        # function of the string, and a third of an item's host time
-        self._canonical: Dict[str, Optional[str]] = {}
 
     def __len__(self):
         return len(self.smiles_list)
 
     def get_item(self, i: int) -> Optional[dict]:
         smiles = self.smiles_list[i]
-        if smiles not in self._canonical:
-            self._canonical[smiles] = canonical_smiles(smiles)
-        csmiles = self._canonical[smiles]
+        csmiles = canonical_smiles(smiles)
         if csmiles is None:
             return None
         rsmiles = None
