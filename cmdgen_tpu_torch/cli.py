@@ -444,8 +444,6 @@ def _add_train(sub):
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--neighbor-k", type=int, default=None,
                    help="fixed-K neighbor-list EGNN engine (default dense)")
-    p.add_argument("--steps-per-call", type=int, default=None,
-                   help="steps per group of the device-resident batch plan")
     p.add_argument("--ema-decay", type=float, default=None,
                    help="keep an EMA of the weights for evaluation (e.g. 0.999)")
     p.add_argument("--stratified-t", action="store_true",
@@ -486,8 +484,7 @@ def run_train_diffphar(args):
     cfg = cfgmod.full_atom_config() if args.config == "full" else cfgmod.ca_config()
     tr = cfg.train
     for flag, field in (("epochs", "n_epochs"), ("batch_size", "batch_size"),
-                        ("steps_per_call", "steps_per_call"), ("ema_decay", "ema_decay"),
-                        ("seed", "seed")):
+                        ("ema_decay", "ema_decay"), ("seed", "seed")):
         if getattr(args, flag) is not None:
             tr = dataclasses.replace(tr, **{field: getattr(args, flag)})
     if args.fsdp:

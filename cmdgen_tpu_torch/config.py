@@ -42,6 +42,9 @@ class DiffPharTrainConfig:
     dp: Optional[int] = None
     tp: int = 1
     fsdp: bool = False
+    # steps_per_call and resident_data: the JAX package's TPU dispatch
+    # settings, read from its configs; the port's trainer feeds every step
+    # from the host, one batch plan whatever they say
     steps_per_call: int = 1
     ckpt_epochs: int = 1
     ema_decay: float = 0.0

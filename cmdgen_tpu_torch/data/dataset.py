@@ -85,22 +85,6 @@ class DiffPharDataset:
             out["pocket_mask"][k, :nq_i] = 1.0
         return out
 
-    def stacked_arrays(self) -> dict:
-        """The whole dataset as one globally-padded [N, ...] array dict —
-        the device-resident training mode keeps these in HBM and gathers
-        batches on device (per-call host→device traffic becomes a [M, B]
-        index array instead of megabytes of one-hot batches)."""
-        return self.padded_batch(list(range(len(self))))
-
-    def nbytes(self) -> int:
-        """Size of ``stacked_arrays()`` without materializing it — the
-        resident-mode guard must not build the full padded corpus on host
-        just to decide it is too big for HBM. One padded item carries the
-        exact per-item schema (arrays, shapes, dtypes), so the total stays
-        in sync with padded_batch by construction."""
-        one = self.padded_batch([0])
-        return len(self) * sum(v.nbytes for v in one.values())
-
     def iter_batches(
         self, batch_size: int, rng: np.random.RandomState, shuffle=True,
         drop_last=True, bucket: Optional[int] = None,

@@ -19,7 +19,6 @@ data or tensor parallelism and FSDP are ROADMAP A18.
 """
 from __future__ import annotations
 
-import math
 import time
 from pathlib import Path
 from typing import Callable, Dict, Optional
@@ -70,8 +69,7 @@ def build_model(cfg: cfgmod.DiffPharConfig, size_histogram: Optional[np.ndarray]
 def to_clouds(batch: Dict[str, np.ndarray], device) -> tuple:
     """A padded batch dict -> (phar, pocket) PointClouds on ``device``."""
     def t(k):
-        v = batch[k]
-        return (v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))).to(device)
+        return torch.from_numpy(np.asarray(batch[k])).to(device)
 
     return (PointCloud(x=t("phar_x"), h=t("phar_h"), mask=t("phar_mask")),
             PointCloud(x=t("pocket_x"), h=t("pocket_h"), mask=t("pocket_mask")))
@@ -195,15 +193,7 @@ def train_diffphar(cfg: cfgmod.DiffPharConfig, datadir, out_dir,
         start_epoch = meta.get("epoch")
 
     bs = tc.batch_size
-    spc = max(1, tc.steps_per_call)
-    resident = tc.resident_data == "on" or (
-        tc.resident_data == "auto" and spc > 1 and train_ds.nbytes() < 2 ** 30)
-    if resident:
-        data = {k: torch.from_numpy(v).to(dev) for k, v in train_ds.stacked_arrays().items()}
-        multistep = tstate.make_diffusion_multistep(tc.clip_grad, tc.ema_decay)
     nb0 = max(1, len(train_ds) // bs)
-    epoch_steps = math.ceil(nb0 / spc) * spc  # the resident path's steps in an epoch
-
     np_rng = np.random.RandomState(tc.seed)
     step = 0
     val_loss = float("nan")
@@ -211,40 +201,20 @@ def train_diffphar(cfg: cfgmod.DiffPharConfig, datadir, out_dir,
     for epoch in range(tc.n_epochs):
         if resume_from is not None and (
                 epoch < start_epoch if start_epoch is not None
-                else step + (epoch_steps if resident else nb0) <= start_step):
+                else step + nb0 <= start_step):
             # covered by the checkpoint: replay the epoch's batch-order draw
-            if resident:
-                np_rng.permutation(len(train_ds))
-            else:
-                np_rng.shuffle(np.arange(len(train_ds)))
-            step += epoch_steps if resident else nb0
+            np_rng.shuffle(np.arange(len(train_ds)))
+            step += nb0
             continue
         gen = epoch_generator(tc.seed, epoch, dev)
         metrics = None
-        if resident:
-            order = np_rng.permutation(len(train_ds))
-            nb = len(order) // bs
-            order = order[: nb * bs].reshape(nb, bs)
-            for g in range(0, nb, spc):
-                rows = order[g: g + spc]
-                if len(rows) < spc:  # wrap-around fill: whole groups of spc steps
-                    rows = np.concatenate([rows, order[: spc - len(rows)]], axis=0)
-                batches = [to_clouds({k: v[torch.from_numpy(r).to(dev)]
-                                      for k, v in data.items()}, dev) for r in rows]
-                metrics = multistep(state, batches, generator=gen)[-1]
-                step += len(rows)
-                if step % 50 < spc:
-                    log_fn(step, {k: float(v) for k, v in metrics.items()})
-                if max_steps and step >= max_steps:
-                    break
-        else:
-            for batch in prefetch(train_ds.iter_batches(bs, np_rng)):
-                metrics = train_step(state, *to_clouds(batch, dev), generator=gen)
-                step += 1
-                if step % 50 == 0:
-                    log_fn(step, {k: float(v) for k, v in metrics.items()})
-                if max_steps and step >= max_steps:
-                    break
+        for batch in prefetch(train_ds.iter_batches(bs, np_rng)):
+            metrics = train_step(state, *to_clouds(batch, dev), generator=gen)
+            step += 1
+            if step % 50 == 0:
+                log_fn(step, {k: float(v) for k, v in metrics.items()})
+            if max_steps and step >= max_steps:
+                break
         stop = bool(max_steps and step >= max_steps)
         last = epoch + 1 == tc.n_epochs or stop
         ckpt_now = (epoch + 1) % max(1, tc.ckpt_epochs) == 0 or last

@@ -601,17 +601,18 @@ def test_init_draws_flax_initializers():
     np.testing.assert_allclose(np.quantile(ours, q), np.quantile(ref, q), atol=0.03)
 
 
-def test_resident_batch_plan(data_dir, tmp_path):
-    """The device-resident path: a permutation in [nb, bs] rows, groups of
-    steps_per_call steps with wrap-around fill (9 complexes, batches of 4:
-    2 rows, one group of 3 steps, the third row the first again)."""
+def test_dispatch_settings_leave_one_batch_plan(data_dir, tmp_path):
+    """The JAX package's TPU dispatch settings (``steps_per_call``,
+    ``resident_data``), as its configs carry them, leave the port's one
+    host-fed batch plan: the same steps and the same weights."""
     from cmdgen_tpu_torch.train import diffphar_train
 
-    st = diffphar_train.train_diffphar(
-        _tiny_config(n_epochs=1, resident_data="on", steps_per_call=3, eval_epochs=0),
-        data_dir, tmp_path, device="cpu")
-    assert st.step == 3 and st.optimizer.count == 3
-    assert json.loads((tmp_path / "last.json").read_text())["step"] == 3
+    runs = [diffphar_train.train_diffphar(
+        _tiny_config(n_epochs=1, eval_epochs=0, **kw), data_dir, tmp_path / str(i),
+        device="cpu") for i, kw in enumerate([{}, dict(resident_data="on", steps_per_call=3)])]
+    assert runs[0].step == runs[1].step == 2 and runs[1].optimizer.count == 2
+    _leaves_close(convert.model_leaves(runs[1].model), convert.model_leaves(runs[0].model),
+                  rtol=0)
 
 
 def test_eval_sampling_uses_a_snapshot_of_the_ema(data_dir, tmp_path, monkeypatch):
