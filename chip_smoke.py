@@ -124,6 +124,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -159,6 +160,9 @@ CONS_REL = 1e-4
 REG_TOL = 1e-3
 # get-phar calls timed after each method's first call
 WARM_CALLS = 1
+# the decode at T=0.7 whose unique valid SMILES the align, evaluate and
+# train phases take: its calls of B=512 rows (2,048 rows)
+T07_CALLS = 4
 # K1's launches in the flagship msgpass run at the default T=500: (T + 1)
 # denoiser calls of 5 GCLs each; the width rule must not send any away
 K1_FLAGSHIP_LAUNCHES = 2505
@@ -205,7 +209,10 @@ TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 3, 20, 5
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_WEIGHT_ATOL = 1e-6
-GCPG_TRAIN_B, GCPG_TRAIN_STEPS, GCPG_CHECK_B = 128, 30, 8
+GCPG_TRAIN_B, GCPG_TRAIN_STEPS, GCPG_CHECK_B = 128, 10, 8
+# train-gcpg without --max-steps (its default device-resident plan): the
+# molecules and epochs, at B=128 one step an epoch
+GCPG_RESIDENT_SMILES, GCPG_RESIDENT_EPOCHS = 128, 1
 TRAIN_CLI_STEPS = 40  # train-diffphar through the CLI, dense, B=4
 
 
@@ -495,8 +502,11 @@ def check_k2(dev, dtype_name, b=B):
 def device_profile(fn, reps, top=3):
     """Profile reps calls of fn (torch.profiler, CUDA activity): the wall
     ms and device ms per call, the device's busy share of the wall time and
-    the ``top`` kernels that take most of the device time."""
+    the ``top`` kernels that take most of the device time. It reads the
+    trace's raw events: ``prof.events()`` would build a Python object for
+    every one (~0.1 ms each on the card's host, seconds for a decode)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -506,9 +516,10 @@ def device_profile(fn, reps, top=3):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
     by_name, events = {}, 0
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not getattr(
+                e, "is_hidden_event", lambda: False)():
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6 / reps
             events += 1
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
@@ -1298,13 +1309,13 @@ def decode_phase(dev, repo, posp):
     out = {"batch": DECODE_B, "hypothesis_points": int(graph[2].sum()), "grun_r5cn": {},
            "card_vs_cpu": {}}
 
-    def timed(m, mode_kw, seed):
-        """The first call and WARM_CALLS warm calls of a sampled decode at B=512:
-        (every call's tokens, first ms, warm ms)."""
+    def timed(m, mode_kw, seed, n_calls=1 + WARM_CALLS):
+        """The first call and the warm calls (WARM_CALLS by default) of a
+        sampled decode at B=512: (every call's tokens, first ms, warm ms)."""
         gen = torch.Generator(device=dev).manual_seed(seed)
         x = inputs(DECODE_B, dev)
         calls = [synced_ms(lambda: generate(m, *x, random_sample=True, generator=gen,
-                                            **mode_kw)) for _ in range(1 + WARM_CALLS)]
+                                            **mode_kw)) for _ in range(n_calls)]
         return [c[0] for c in calls], calls[0][1], [c[1] for c in calls[1:]]
 
     positions = DECODE_B * (model.cfg.max_len - 1)
@@ -1323,7 +1334,8 @@ def decode_phase(dev, repo, posp):
             f"uniqueness {uniqueness:.4f} over {rec['decoded']} rows")
     # validity at the temperature of the JAX package's end-to-end figure
     # (0.90-0.91 at T=0.7 on real pockets), on this hypothesis
-    toks, _, _ = timed(model, dict(modes["constrain_valence"], temperature=0.7), seed=len(modes))
+    toks, _, _ = timed(model, dict(modes["constrain_valence"], temperature=0.7), seed=len(modes),
+                       n_calls=T07_CALLS)
     validity, uniqueness, _ = decode_stats(tok, torch.cat(toks))
     # the align phase's molecules: this run's unique valid SMILES
     canon = (canonical_smiles(s) for s in tok.get_text(torch.cat(toks).cpu().numpy()))
@@ -2134,7 +2146,8 @@ def trained_sample_phars(ckpt, dev, cfg):
 def gcpg_train_checks(smiles, props, dev, tmp):
     """The GCPG at its default width: one step on the card against the CPU
     (B=8, dropout off, the same posterior draw), train-gcpg through the CLI
-    (B=128, 30 steps), warm steps timed and profiled at B=128, and
+    (B=128, 10 steps; and without --max-steps, its device-resident plan, on
+    128 molecules), warm steps timed and profiled at B=128, and
     generate from the checkpoint the CLI wrote."""
     import copy
 
@@ -2207,6 +2220,40 @@ def gcpg_train_checks(smiles, props, dev, tmp):
                "epoch_end_s": epoch_end}
     log(f"train-gcpg CLI: {meta['step']} steps at B={GCPG_TRAIN_B} on {len(smiles)} SMILES "
         f"in {ms:.0f} ms, last epoch's loss {meta['monitor']:.4f}")
+
+    # train-gcpg as a user calls it, without --max-steps: the default plan
+    # gathers each batch from pre-drawn variants on the card (its gathers
+    # counted)
+    n_res = GCPG_RESIDENT_SMILES
+    smi_r, props_r, ck_r = tmp / "resident.txt", tmp / "resident_props.json", tmp / "gcpg_res"
+    smi_r.write_text("\n".join(smiles[:n_res]))
+    props_r.write_text(json.dumps({k: list(v)[:n_res] for k, v in props.items()}))
+    gathers = []
+    real_gather = gt.resident_batch
+
+    def counted_gather(*a, **kw):
+        gathers.append(1)
+        return real_gather(*a, **kw)
+
+    gt.resident_batch = counted_gather
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            _, rms = synced_ms(lambda: cli.main([
+                "train-gcpg", str(smi_r), str(ck_r), "--props-json", str(props_r),
+                "--batch-size", str(GCPG_TRAIN_B), "--epochs", str(GCPG_RESIDENT_EPOCHS),
+                "--device", "cuda"]))
+    finally:
+        gt.resident_batch = real_gather
+    meta_r = json.loads((ck_r / "last.json").read_text())
+    steps_r = GCPG_RESIDENT_EPOCHS * (n_res // GCPG_TRAIN_B)
+    if not (meta_r["step"] == len(gathers) == steps_r and np.isfinite(meta_r["monitor"])):
+        raise AssertionError(f"train-gcpg (resident plan): {meta_r['step']} steps, "
+                             f"{len(gathers)} gathers from the card, loss {meta_r['monitor']}")
+    cli_rec["resident"] = {"ms": rms, "steps": meta_r["step"], "gathers": len(gathers),
+                           "smiles": n_res, "epochs": GCPG_RESIDENT_EPOCHS,
+                           "last_loss": meta_r["monitor"]}
+    log(f"train-gcpg CLI without --max-steps (resident plan): {meta_r['step']} steps at "
+        f"B={GCPG_TRAIN_B} on {n_res} SMILES in {rms:.0f} ms, every batch gathered on the card")
 
     # warm steps timed at B=128 (train mode, dropout on)
     model = copy.deepcopy(base).to(dev).train()
@@ -2381,8 +2428,18 @@ def main():
         f"cuda {torch.version.cuda})")
 
     t0 = time.perf_counter()
+    # the profiler's first session sets up its tracing (seconds on the
+    # card's host): one of a trivial op runs beside the kernels' build
+    warm_s = []
+    warm = threading.Thread(target=lambda: warm_s.append(synced_ms(lambda: device_profile(
+        lambda: torch.ones(1, device=dev).add_(1), 1))[1] / 1e3))
+    warm.start()
     logs = _build.build(ptxas_verbose=True)
-    log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
+    warm.join()
+    if not warm_s:
+        raise AssertionError("the profiler's warm-up session failed")
+    log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'} "
+        f"(the profiler's first session beside it: {warm_s[0]:.1f} s)")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
