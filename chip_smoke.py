@@ -97,17 +97,36 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    per sampling call, its calls there against their plain versions and
    timed), ``sample-phars`` on the trained ``best/``; the GCPG at its
    default width on step 7's SMILES: one step card vs CPU, ``train-gcpg``
-   through the CLI (B=128), steps timed, ``generate`` from its checkpoint.
+   through the CLI (B=128), steps timed, ``generate`` from its checkpoint;
+13. data parallelism and FSDP (after step 12), ``parallel_phase``: the
+   align phase's posed molecules in synthetic pockets of 80-130 residues
+   (a CA and a side-chain tip within 8 A of the ligand each, so that
+   every residue reaches the model, as in step 12) written as 80 PDB/SDF
+   pairs and turned into npz files by ``preprocess`` through the CLI; a
+   world of one under NCCL on the card;
+   ``ca_config`` with K=12 from seeded weights, 5 steps at B=32 on that
+   data as the plain trainer, the dp path and FSDP, on the same batches
+   and draws (each one's largest gap from the plain trainer against its
+   limit); ``train_diffphar`` with FSDP, EMA and one eval epoch (K1 5 x
+   501 times in its sampling) and ``train-diffphar --fsdp`` through the
+   CLI; ``sample-phars`` with both engines on the FSDP run's checkpoint;
+   the K1 calls of three denoiser calls of the eval sampling and of
+   ``sample-phars``, and K2's first call, as that run made them, against
+   their plain versions;
+   a few sampling steps in ``utils.profiling.device_trace``, the trace
+   naming K1's kernel once per launch; receptor and ligand PDBQT of
+   posed molecules, scored with qvina2 only where its binary is found.
 
 Prints the card, a ``kernels`` JSON line (``launches``, ``ms``,
 ``plain_ms``, ``bound_ms``: the train path's, K1 in its eval sampling and
 K2 in ``sample-phars --engine fused`` on its checkpoint, times at the eval
 sampling's shape, ``train_shape`` with ``kernel_ms`` there;
 ``run_all_shape``: run-all's; ``flagship``: step 2's bf16 times;
-``joint``: step 11's; ``launches_by_path``: every path's), the
+``joint``: step 11's; ``launches_by_path``: every path's, step 13's
+under ``parallel``, and step 13's checks under ``parallel_path``), the
 throughput, a ``consensus`` JSON line, a ``decode`` JSON line, an
 ``align`` JSON line, a ``run_all`` JSON line, an ``evaluate``, a
-``joint`` and a ``train`` JSON line, and as the last line ``{"ok": true,
+``joint``, a ``train`` and a ``parallel`` JSON line, and as the last line ``{"ok": true,
 "device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
 ``--kernels-only`` stops after step 2 and prints the checks as one JSON
@@ -214,6 +233,17 @@ GCPG_TRAIN_B, GCPG_TRAIN_STEPS, GCPG_CHECK_B = 128, 10, 8
 # molecules and epochs, at B=128 one step an epoch
 GCPG_RESIDENT_SMILES, GCPG_RESIDENT_EPOCHS = 128, 1
 TRAIN_CLI_STEPS = 40  # train-diffphar through the CLI, dense, B=4
+# parallel phase: complexes written as PDB/SDF pairs for preprocess
+# (pockets of 80-130 residues around the align phase's posed molecules;
+# 16 val pockets, so that eval sampling runs B=16 as in the train phase);
+# the steps taken three ways at K=12 B=32 (weights within 1e-5 and losses
+# within 1e-4 of the plain trainer's: the CPU tests' tolerances of the
+# multi-process steps); train-diffphar --fsdp through the CLI; the
+# sampling steps traced; the posed molecules written as PDBQT
+PAR_TRAIN, PAR_VAL, PAR_B, PAR_STEPS = 64, 16, 32, 5
+PAR_W_ATOL, PAR_LOSS_RTOL = 1e-5, 1e-4
+PAR_CLI_STEPS, PAR_TRACE_T, PAR_PDBQT = 2, 4, 4
+K1_KERNEL = "gcl_message_agg_kernel"  # csrc/egnn_msgpass.cu's __global__ function
 
 
 def log(*a):
@@ -757,9 +787,27 @@ def denoiser_vs_cpu(outs, cpu_dynamics, recorded):
 
 def recorded_kernel_calls(fns, recorded):
     """Each denoiser of ``fns`` ({name: fn}) on each recorded input set
-    ({step: inputs}), with K1 and K2 wrapped where the models call them so
-    that every call is recorded (with its arguments) on its way through:
-    ({name: {step: outputs}}, K1 calls, K2 calls)."""
+    ({step: inputs}), with every K1 and K2 call recorded (with its
+    arguments, ``kernel_calls_kept``) on its way through: ({name: {step:
+    outputs}}, K1 calls, K2 calls)."""
+    import torch
+
+    outs = {}
+    with kernel_calls_kept(None, None) as (k1_calls, k2_calls), torch.no_grad():
+        for step in sorted(recorded):
+            for name, fn in fns.items():
+                outs.setdefault(name, {})[step] = fn(*recorded[step])
+    return outs, k1_calls, k2_calls
+
+
+@contextlib.contextmanager
+def kernel_calls_kept(k1_keep, k2_keep):
+    """K1 and K2 wrapped where the models call them, for the calls made
+    inside: each call goes on to its wrapper (and is counted there, as
+    without this), and copies of the arguments of the calls whose order is
+    in ``k1_keep`` / ``k2_keep`` (every call where None) are kept in the
+    two lists yielded, for ``check_kernel_calls``: K1's positional
+    arguments and its compute dtype, K2's (arguments, keywords)."""
     import torch
 
     from cmdgen_tpu_torch.models import dynamics as dyn_mod
@@ -767,25 +815,34 @@ def recorded_kernel_calls(fns, recorded):
     from cmdgen_tpu_torch.ops import egnn_fused as fu
     from cmdgen_tpu_torch.ops import egnn_msgpass as mp
 
-    k1_calls, k2_calls, outs = [], [], {}
+    k1_calls, k2_calls, seen = [], [], [0, 0]
 
-    def k1_recorder(*a, **kw):
-        k1_calls.append(a + (kw["compute_dtype"],))
+    def copy(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def k1_keeper(*a, **kw):
+        if k1_keep is None or seen[0] in k1_keep:
+            k1_calls.append(tuple(map(copy, a)) + (kw["compute_dtype"],))
+        seen[0] += 1
         return mp.gcl_message_agg(*a, **kw)
 
-    def k2_recorder(*a, **kw):
-        k2_calls.append((a, kw))
+    def k2_keeper(*a, **kw):
+        if k2_keep is None or seen[1] in k2_keep:
+            k2_calls.append((tuple(map(copy, a)), {k: copy(v) for k, v in kw.items()}))
+        seen[1] += 1
         return fu.egnn_forward_fused(*a, **kw)
 
-    egnn_mod.gcl_message_agg, dyn_mod.egnn_forward_fused = k1_recorder, k2_recorder
+    egnn_mod.gcl_message_agg, dyn_mod.egnn_forward_fused = k1_keeper, k2_keeper
     try:
-        with torch.no_grad():
-            for step in sorted(recorded):
-                for name, fn in fns.items():
-                    outs.setdefault(name, {})[step] = fn(*recorded[step])
+        yield k1_calls, k2_calls
     finally:
         egnn_mod.gcl_message_agg, dyn_mod.egnn_forward_fused = mp.gcl_message_agg, fu.egnn_forward_fused
-    return outs, k1_calls, k2_calls
+
+
+def k1_calls_of_steps(n_layers, n_calls):
+    """The orders of K1's calls in the first, middle and last of
+    ``n_calls`` denoiser calls (``n_layers`` GCLs each)."""
+    return {c * n_layers + g for c in (0, n_calls // 2, n_calls - 1) for g in range(n_layers)}
 
 
 def check_kernel_calls(k1_calls, k2_calls, dtype_name):
@@ -1427,13 +1484,288 @@ def decode_phase(dev, repo, posp):
     return out, smiles_t07
 
 
+def complex_pairs(tmp, poses, rng, n_train, n_val):
+    """(pairs.tsv, [pocket PDBs], [residues of each pocket]): complexes
+    written as (pocket PDB, ligand SDF) pairs, each a posed molecule turned
+    at random about its centroid in a pocket of 80-130 residues
+    (``realistic_ca_pocket``'s CA positions 4.5-12 A from the centroid at 3
+    A spacing; random residue types), each residue a CA and a side-chain
+    tip 1.5-6.5 A from it toward the nearest ligand heavy atom, to within
+    8 A of that atom: preprocessing's 8 A rule keeps every residue, so
+    the pockets reach the model with 80-130 rows, as the train phase's."""
+    from cmdgen_tpu_torch.chem.sdf import write_sdf
+    from cmdgen_tpu_torch.utils.synthetic import realistic_ca_pocket
+
+    aas = ["ALA", "ARG", "ASN", "ASP", "CYS", "GLN", "GLU", "GLY", "HIS", "ILE",
+           "LEU", "LYS", "MET", "PHE", "PRO", "SER", "THR", "TRP", "TYR", "VAL"]
+    rows, pdbs, residues = [], [], []
+    for i in range(n_train + n_val):
+        symbols, xyz, mol = poses[i % len(poses)]
+        q, _ = np.linalg.qr(rng.randn(3, 3))
+        lig = (np.asarray(xyz, dtype=np.float64) - np.mean(xyz, axis=0)) @ q
+        heavy = lig[[s != "H" for s in symbols]]
+        ca = realistic_ca_pocket(rng, rng.randint(80, 131), r_lo=4.5, r_hi=12.0,
+                                 min_sep=3.0).astype(np.float64)
+        d = np.linalg.norm(ca[:, None] - heavy[None], axis=-1)
+        near, dn = heavy[d.argmin(1)], np.maximum(d.min(1), 1e-6)
+        tip = ca + (near - ca) * (np.clip(dn - 6.5, 1.5, 6.5) / dn)[:, None]
+        pdb, sdf = tmp / f"pocket_{i}.pdb", tmp / f"ligand_{i}.sdf"
+        pdb.write_text("\n".join(
+            f"{'ATOM':<6}{2 * j + a + 1:>5} {name:<4} {aa:>3} A{j + 1:>4}    "
+            f"{p[0]:8.3f}{p[1]:8.3f}{p[2]:8.3f}{1.0:6.2f}{0.0:6.2f}          {'C':>2}"
+            for j, aa in enumerate(aas[k] for k in rng.randint(20, size=len(ca)))
+            for a, (name, p) in enumerate((("CA", ca[j]), ("CZ", tip[j])))) + "\nEND\n")
+        write_sdf(sdf, [(symbols, lig, f"ligand_{i}")],
+                  bonds_list=[[(b.a1, b.a2, b.order) for b in mol.bonds]])
+        rows.append(f"{'train' if i < n_train else 'val'}\t{pdb}\t{sdf}")
+        pdbs.append(pdb)
+        residues.append(len(ca))
+    tsv = tmp / "pairs.tsv"
+    tsv.write_text("\n".join(rows) + "\n")
+    return tsv, pdbs, residues
+
+
+def parallel_phase(dev, repo, poses):
+    """Data parallelism and FSDP at full width on a world of one (NCCL on
+    the card), the ``parallel`` line and the path's K1 and K2 launches.
+
+    ``preprocess`` through the CLI on PDB/SDF pairs of the align phase's
+    posed molecules in synthetic CA pockets; ``ca_config`` with K=12
+    (hidden 256, 5 layers, T=500, float32) from seeded weights takes
+    PAR_STEPS steps at B=32 on that data three ways, the plain trainer,
+    the dp path and FSDP, on the same batches and draws (each one's
+    largest gap from the plain trainer against its limit);
+    ``train_diffphar`` with FSDP, EMA and one eval epoch (K1 5 x 501 times
+    in its sampling, 0 in its steps) and ``train-diffphar --fsdp`` through
+    the CLI; ``sample-phars`` with both engines on the FSDP run's
+    checkpoint; K1's calls of the first, middle and last denoiser call of
+    the eval sampling and of ``sample-phars``, and K2's first call there,
+    as the path made them, against their plain versions; a few sampling
+    steps inside ``device_trace``, whose trace must name K1's kernel;
+    receptor and ligand PDBQT of posed molecules, scored only where
+    ``docking_available()``. Returns (the phase's record, the path's
+    launches, its kernel checks)."""
+    import dataclasses
+
+    import torch
+
+    from cmdgen_tpu_torch import cli, config as cfgmod, convert
+    from cmdgen_tpu_torch.data.dataset import DiffPharDataset
+    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+    from cmdgen_tpu_torch.parallel import check, launch
+    from cmdgen_tpu_torch.pipeline import docking
+    from cmdgen_tpu_torch.train import diffphar_train as dt
+    from cmdgen_tpu_torch.train import state as tstate
+    from cmdgen_tpu_torch.utils.profiling import TRACE_FILE, device_trace
+
+    out = {"card": card_line()}
+    t_phase = time.perf_counter()
+    cfg = diffphar_configs()["k12"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pairs = tmp / "pairs"
+        pairs.mkdir()
+        tsv, pdbs, residues = complex_pairs(pairs, poses, np.random.RandomState(5), PAR_TRAIN,
+                                            PAR_VAL)
+        data = tmp / "data"
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats, ms = synced_ms(lambda: cli.main([
+                "preprocess", str(tsv), str(data), "--dataset", "crossdock",
+                "--representation", "CA"]))
+        ds = DiffPharDataset(data / "train.npz")
+        kept = sorted(np.concatenate([DiffPharDataset(data / f"{split}.npz").sizes()[1]
+                                      for split in ("train", "val")]).tolist())
+        if not (stats["n_failed"] == 0 and stats["splits"] == {"train": PAR_TRAIN, "val": PAR_VAL}
+                and (data / "size_distribution.npy").exists() and kept == sorted(residues)):
+            raise AssertionError(f"preprocess: {stats}; pocket rows {kept}, residues "
+                                 f"{sorted(residues)}")
+        out["preprocess"] = dict(stats, ms=ms, pocket_rows=ds.n_pocket_max,
+                                 pocket_rows_range=[kept[0], kept[-1]], phar_slots=ds.n_phar_max)
+        log(f"preprocess ({PAR_TRAIN + PAR_VAL} PDB/SDF pairs, CA): {stats['splits']} in "
+            f"{ms:.0f} ms; every residue kept ({kept[0]}-{kept[-1]} a pocket), padded to "
+            f"{ds.n_pocket_max} pocket rows, {ds.n_phar_max} pharmacophore slots")
+
+        world = launch.init_process_group(dev)
+        out["world"] = {"rank": world.rank, "size": world.size, "device": str(world.device),
+                        "backend": torch.distributed.get_backend()}
+        model = dt.build_model(cfg, None, dev, torch.Generator().manual_seed(0))
+        leaves = convert.model_leaves(model)
+        batches, draws = [], []
+        for i in range(PAR_STEPS):
+            rows = [(i * PAR_B + j) % len(ds) for j in range(PAR_B)]
+            b = ds.padded_batch(rows)
+            arrays = [b[k] for k in ("phar_x", "phar_h", "phar_mask", "pocket_x", "pocket_h",
+                                     "pocket_mask")]
+            phar, pocket = check.clouds(arrays, dev)
+            gen = torch.Generator(device=dev).manual_seed(10 + i)
+            draws.append([d.cpu().numpy() for d in tstate.draw_loss_noise(model, phar, pocket,
+                                                                           gen)])
+            batches.append(arrays)
+        del model
+        runs = {}
+        for name, layout in (("plain", None), ("dp", {"dp": None}),
+                             ("fsdp", {"dp": None, "fsdp": True})):
+            runs[name], ms = synced_ms(lambda: check.steps(
+                cfgmod.to_dict(cfg), leaves, batches, draws, layout=layout, ema_decay=0.999,
+                lr=cfg.train.lr, device=dev.type))
+            runs[name]["ms"] = ms
+        plain = runs["plain"]
+        out["steps"] = {"batch": PAR_B, "steps": PAR_STEPS, "neighbor_k": K,
+                        "losses": plain["losses"], "plain_ms": plain["ms"],
+                        "plain_step_ms": plain["step_ms"]}
+        for name in ("dp", "fsdp"):
+            got = runs[name]
+            w_gap = max(float(np.abs(got[key][k] - plain[key][k]).max())
+                        for key in ("params", "ema") for k in plain[key])
+            l_gap = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], plain["losses"]))
+            rec = {"max_weight_gap": w_gap, "weight_atol": PAR_W_ATOL,
+                   "max_loss_rel_gap": l_gap, "loss_rtol": PAR_LOSS_RTOL,
+                   "ms": got["ms"], "step_ms": got["step_ms"],
+                   "sharded_leaves": sum(bool(v) for v in got["placements"].values())}
+            out["steps"][name] = rec
+            log(f"{PAR_STEPS} steps {name} vs the plain trainer (K=12, B={PAR_B}, world 1 "
+                f"{out['world']['backend']}): weights {w_gap:.3g} (limit {PAR_W_ATOL}), loss "
+                f"{l_gap:.3g} (limit {PAR_LOSS_RTOL}); {rec['sharded_leaves']} leaves sharded; "
+                f"{got['ms']:.0f} ms ({plain['ms']:.0f} plain); steps after the first "
+                f"{[round(t, 1) for t in got['step_ms'][1:]]} ms "
+                f"({[round(t, 1) for t in plain['step_ms'][1:]]} plain)")
+            if not (w_gap <= PAR_W_ATOL and l_gap <= PAR_LOSS_RTOL):
+                raise AssertionError(f"{name} steps apart from the plain trainer: {rec}")
+        if not out["steps"]["fsdp"]["sharded_leaves"]:
+            raise AssertionError("FSDP sharded no weight")
+        log(f"parallel phase: preprocess and steps done at {time.perf_counter() - t_phase:.1f} s")
+
+        # train_diffphar under FSDP: EMA, one epoch, eval sampling through K1
+        fcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, fsdp=True, batch_size=PAR_B, n_epochs=1, eval_epochs=1,
+            ema_decay=0.999))
+        ck = tmp / "run_fsdp"
+        logs, in_sampling, k1_kept = [], [], []
+        real_sample = dt.sampling_metrics
+        n_layers = cfg.dynamics.egnn.n_layers
+
+        def counted_sample(*a, **kw):
+            before = gcl_message_agg.launches
+            with kernel_calls_kept(k1_calls_of_steps(n_layers, cfg.ddpm.timesteps + 1),
+                                   ()) as (k1_calls, _):
+                res = real_sample(*a, **kw)
+            in_sampling.append(gcl_message_agg.launches - before)
+            k1_kept.extend(k1_calls)
+            return res
+
+        gcl_message_agg.launches = egnn_forward_fused.launches = 0
+        dt.sampling_metrics = counted_sample
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                st, ms = synced_ms(lambda: dt.train_diffphar(
+                    fcfg, data, ck, log_fn=lambda s, m: logs.append(m), device=dev))
+        finally:
+            dt.sampling_metrics = real_sample
+        k1_total = gcl_message_agg.launches  # the validation's forward passes too
+        want = n_layers * (cfg.ddpm.timesteps + 1)
+        k1_train = sum(in_sampling)
+        sampled = [m for m in logs if "sampling/kl_types" in m]
+        if not (st.step == PAR_TRAIN // PAR_B and in_sampling == [want]
+                and egnn_forward_fused.launches == 0 and len(sampled) == 1
+                and np.isfinite(sampled[0]["sampling/kl_types"])):
+            raise AssertionError(f"train_diffphar FSDP: {st.step} steps, K1 in sampling "
+                                 f"{in_sampling} (expected [{want}]), {logs}")
+        files = sorted(p.name for p in (ck / "best").iterdir())
+        if files != ["config.json", "ema_params.npz", "opt_state.npz", "params.npz"]:
+            raise AssertionError(f"FSDP best/ holds {files}")
+        vals = [m["loss/val"] for m in logs if "loss/val" in m]
+        out["train_fsdp"] = {"steps": st.step, "ms": ms, "k1_launches_eval_sampling": k1_train,
+                             "k1_launches_total": k1_total, "val_loss": vals,
+                             "sampling": sampled}
+        log(f"train_diffphar FSDP (K=12, B={PAR_B}, EMA): {st.step} steps, validation and one "
+            f"eval sampling in {ms:.0f} ms; K1 {k1_train} launches; val {vals}")
+        del st
+        ck_cli = tmp / "run_fsdp_cli"
+        with contextlib.redirect_stderr(io.StringIO()):
+            st, ms = synced_ms(lambda: cli.main([
+                "train-diffphar", str(data), str(ck_cli), "--config", "ca", "--neighbor-k",
+                str(K), "--batch-size", str(PAR_B), "--max-steps", str(PAR_CLI_STEPS),
+                "--fsdp", "--device", "cuda"]))
+        meta = json.loads((ck_cli / "last.json").read_text())
+        if not (st.step == meta["step"] == PAR_CLI_STEPS and np.isfinite(meta["monitor"])):
+            raise AssertionError(f"train-diffphar --fsdp: {st.step} steps, {meta}")
+        out["cli_fsdp"] = {"ms": ms, "steps": PAR_CLI_STEPS, "val_loss": meta["monitor"]}
+        log(f"train-diffphar --fsdp CLI (K=12, B={PAR_B}): {PAR_CLI_STEPS} steps and "
+            f"validation in {ms:.0f} ms")
+        del st
+        t_sp = min(100, cfg.ddpm.timesteps)  # trained_sample_phars' T
+        with kernel_calls_kept(k1_calls_of_steps(n_layers, t_sp + 1), {0}) as (k1_sp, k2_kept):
+            out["sample_phars"] = trained_sample_phars(ck, dev, cfg)
+        # K2 on the first call's inputs only, as in the train phase
+        k1_checks, k2_checks = check_kernel_calls(k1_kept + k1_sp, k2_kept, "float32")
+        if not (len(k1_kept) == len(k1_sp) == 3 * n_layers and len(k2_kept) == 1):
+            raise AssertionError(f"kept {len(k1_kept)} + {len(k1_sp)} K1 calls, {len(k2_kept)} K2")
+        shapes = {"eval_sampling": list(k1_kept[0][0].shape),
+                  "sample_phars": list(k1_sp[0][0].shape), "neighbor_k": K, "dtype": "float32"}
+        checks = {"k1": {"shape": shapes, "calls": len(k1_checks), "comparisons": k1_checks},
+                  "k2": {"shape": list(k2_kept[0][0][1].shape), "calls": len(k2_kept),
+                         "comparisons": k2_checks}}
+        out["kernel_checks"] = {k: {"shape": v["shape"], "calls": v["calls"],
+                                    "worst": max(c["max_abs_err"] / c["tol"]
+                                                 for c in v["comparisons"])}
+                                for k, v in checks.items()}
+        log(f"the parallel path's K1 calls (eval sampling and sample-phars, [B, N, H] "
+            f"{shapes}) and K2's first: {out['kernel_checks']}")
+
+        # a few sampling steps traced
+        trace_dir = tmp / "trace"
+        gcl_message_agg.launches = 0
+        with device_trace(trace_dir):
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["sample-phars", str(ck), str(pdbs[0]), str(tmp / "traced.json"),
+                          "--resi-list", *[f"A:{j}" for j in range(1, 31)], "--n-samples", "8",
+                          "--timesteps", str(PAR_TRACE_T), "--device", "cuda"])
+            torch.cuda.synchronize()
+        k1_traced = gcl_message_agg.launches
+        trace = json.loads((trace_dir / TRACE_FILE).read_text())
+        named = sum(1 for e in trace["traceEvents"] if K1_KERNEL in str(e.get("name", "")))
+        if not (named and named == k1_traced):
+            raise AssertionError(f"trace: {named} events of K1's kernel, {k1_traced} launches")
+        out["trace"] = {"events": len(trace["traceEvents"]), "k1_kernel_events": named,
+                        "k1_launches": k1_traced, "bytes": (trace_dir / TRACE_FILE).stat().st_size}
+        log(f"device_trace of sample-phars at T={PAR_TRACE_T}: {out['trace']}")
+
+        # docking preparation of posed molecules
+        dock = tmp / "dock"
+        dock.mkdir()
+        rec = docking.prepare_receptor_pdbqt(pdbs[0], dock / "receptor.pdbqt")
+        atoms = 0
+        for i, (_, xyz, mol) in enumerate(poses[:PAR_PDBQT]):
+            path = dock / f"ligand_{i}.pdbqt"  # in the align phase's frame
+            docking.write_pdbqt(path, mol, np.asarray(xyz, dtype=np.float64))
+            atoms += sum(1 for line in path.read_text().splitlines() if line.startswith("ATOM"))
+        ran = docking.docking_available()
+        scores = [docking.calculate_qvina2_score(rec, mol, np.asarray(xyz, dtype=np.float64),
+                                                 dock / f"qvina_{i}")
+                  for i, (_, xyz, mol) in enumerate(poses[:PAR_PDBQT])] if ran else None
+        receptor_atoms = len(rec.read_text().splitlines())
+        if not (receptor_atoms and atoms):
+            raise AssertionError(f"PDBQT: receptor {receptor_atoms} lines, ligands {atoms} atoms")
+        out["docking"] = {"ligands": min(PAR_PDBQT, len(poses)), "ligand_atoms": atoms,
+                          "receptor_lines": receptor_atoms, "scored": ran, "scores": scores}
+        log(f"docking prep: receptor {receptor_atoms} lines, {out['docking']['ligands']} "
+            f"ligands ({atoms} atoms); scoring {'ran' if ran else 'not run (no binary)'}")
+    launch.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    launches = {"gcl_message_agg": k1_train,
+                "egnn_forward_fused":
+                    out["sample_phars"]["fused"]["launches"]["egnn_forward_fused"]}
+    return out, launches, checks
+
+
 def align_phase(dev, repo, posp, smiles):
     """Stage 4 on the card: the decode phase's unique valid SMILES aligned
     onto its hypothesis in run-all's chunks (first chunk apart from the
     warm ones), card vs CPU on one chunk with the same draws, a warm chunk
     profiled at 100 and at 0 refinement steps, and the align CLI once.
-    Returns (the phase's record, [(element symbols, posed coordinates)] of
-    up to ``EVAL_POSES`` aligned molecules)."""
+    Returns (the phase's record, [(element symbols, posed coordinates,
+    molecule)] of up to ``EVAL_POSES`` aligned molecules)."""
     import torch
 
     from cmdgen_tpu_torch import cli
@@ -1549,7 +1881,7 @@ def align_phase(dev, repo, posp, smiles):
     log(f"align CLI: {len(best_cli)} molecules posed in {ms:.0f} ms")
     # up to EVAL_POSES posed molecules (heavy atoms, best conformer) for
     # the evaluate phase's pose PDBs
-    poses = [([a.symbol for a in mols[i].atoms], r[0][1])
+    poses = [([a.symbol for a in mols[i].atoms], r[0][1], mols[i])
              for i, r in sorted(results.items())[:EVAL_POSES]]
     return out, poses
 
@@ -1816,7 +2148,7 @@ def evaluate_phase(dev, repo, posp, smiles, poses):
 
         pose_dir = tmp / "poses"
         pose_dir.mkdir()
-        for i, (symbols, xyz) in enumerate(poses):
+        for i, (symbols, xyz, _) in enumerate(poses):
             (pose_dir / f"pose_{i:02d}.pdb").write_text(ligand_pdb(symbols, xyz))
         with contextlib.redirect_stdout(io.StringIO()):
             summary, ms = synced_ms(lambda: cli.main([
@@ -2486,17 +2818,21 @@ def main():
         done("evaluate")
         train, train_kernels = train_phase(dev, repo, smiles_t07)
         done("train")
+        parallel, parallel_launches, parallel_checks = parallel_phase(dev, repo, poses)
+        done("parallel")
     run_all = run_all_phase(dev, repo)
     done("run_all")
     joint = joint_phase(dev, repo, args.timesteps)
     done("joint")
 
-    def entry(name, source, replaces, flagship, main_path, run_all_path, joint_path):
+    def entry(name, source, replaces, flagship, main_path, run_all_path, joint_path,
+              parallel_path):
         """The kernel's line: launches, times and bound at the main path's
         (training's) shape; run-all's, the flagship checks (bf16, the
-        flagship sampling dtype, last) and the joint shape's beside them;
-        max_abs_err is the comparison nearest its limit over every check."""
-        worst = max((c for chk in (*flagship, main_path, run_all_path, joint_path)
+        flagship sampling dtype, last), the joint shape's and the parallel
+        path's checks beside them; max_abs_err is the comparison nearest
+        its limit over every check."""
+        worst = max((c for chk in (*flagship, main_path, run_all_path, joint_path, parallel_path)
                      for c in chk["comparisons"]),
                     key=lambda c: c["max_abs_err"] / c["tol"])
         bf16 = flagship[-1]
@@ -2515,6 +2851,7 @@ def main():
             "flagship": {key: bf16[key] for key in (
                 "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "grid")},
             "checks": flagship,
+            "parallel_path": parallel_path,
         }
 
     # launches and times: training's (this slice's main path: K1 in its
@@ -2523,10 +2860,10 @@ def main():
     kernels = [
         entry("gcl_message_agg", "cmdgen_tpu_torch/csrc/egnn_msgpass.cu",
               "cmdgen_tpu/ops/egnn_msgpass.py:111", k1, train_kernels["k1"],
-              run_all["kernels"]["k1"], joint["k1"]),
+              run_all["kernels"]["k1"], joint["k1"], parallel_checks["k1"]),
         entry("egnn_forward_fused", "cmdgen_tpu_torch/csrc/egnn_fused.cu",
               "cmdgen_tpu/ops/egnn_fused.py:209", k2, train_kernels["k2"],
-              run_all["kernels"]["k2"], joint["k2"]),
+              run_all["kernels"]["k2"], joint["k2"], parallel_checks["k2"]),
     ]
     for kern, engine, key in zip(kernels, ("msgpass", "fused"), ("k1", "k2")):
         kern["launches_by_path"] = {
@@ -2535,7 +2872,10 @@ def main():
             "run_all": run_all["runs"][engine]["launches"][kern["name"]],
             "joint_sample_phars": joint["engines"][engine]["launches"][kern["name"]],
             "train": kern["launches"], "train_diffphar_steps":
-                train["diffphar"]["eval_sampling_run"]["kernel_launches_in_train_steps"]}
+                train["diffphar"]["eval_sampling_run"]["kernel_launches_in_train_steps"],
+            "parallel": parallel_launches[kern["name"]]}
+        if not parallel_launches[kern["name"]]:
+            raise AssertionError(f"{kern['name']} was not launched on the parallel path")
         kern["joint"] = {k: joint[key][k] for k in (
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "comparisons")}
         kern["joint"]["shape"] = joint["config"]
@@ -2563,6 +2903,7 @@ def main():
     log(json.dumps({"joint": {k: v for k, v in joint.items() if k not in ("k1", "k2")},
                     "card": card}))
     log(json.dumps({"train": train, "card": card}))
+    log(json.dumps({"parallel": parallel, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,19 +16,25 @@
   python -m cmdgen_tpu_torch.cli eval-diffphar CKPT_DIR TEST.npz [--n-pockets 20] \\
       [--engine msgpass|fused] [--device cuda]
   python -m cmdgen_tpu_torch.cli eval-gcpg GCPG_DIR SMILES.txt [--n 100] [--device cuda]
+  python -m cmdgen_tpu_torch.cli preprocess PAIRS.tsv DATA_DIR [--dataset crossdock_full] \
+      [--representation full-atom|CA]
   python -m cmdgen_tpu_torch.cli train-diffphar DATA_DIR OUT_DIR [--config full|ca] \
       [--epochs N] [--batch-size B] [--max-steps S] [--neighbor-k K] [--ema-decay D] \
-      [--stratified-t] [--seed S] [--device cuda]
+      [--stratified-t] [--fsdp] [--seed S] [--device cuda]
+  torchrun --nproc-per-node N -m cmdgen_tpu_torch.cli train-diffphar DATA_DIR OUT_DIR [--fsdp]
   python -m cmdgen_tpu_torch.cli train-gcpg SMILES.txt OUT_DIR [--epochs 32] \
       [--batch-size 128] [--max-steps S] [--finetune-from DIR] [--score-only-gate] \
       [--legacy-no-condition] [--consensus-noise F] [--seed S] [--device cuda]
 
 Stages 1 (``sample-phars``), 2 (``get-phar``), 3 (``generate``) and 4
 (``align``) are ported, and ``run-all`` chains all four as one streaming
-driver; ``eval-diffphar``, ``eval-gcpg`` and ``align --pose-pdbs`` are the
+driver; ``preprocess`` turns (pocket PDB, ligand SDF) pairs into the
+training npz files; ``eval-diffphar``, ``eval-gcpg`` and ``align --pose-pdbs`` are the
 evaluation harnesses; ``train-diffphar`` and ``train-gcpg`` train the two
 models and write port checkpoints under ``OUT_DIR/best`` and ``OUT_DIR/last``,
-which every other command reads (``OUT_DIR`` itself means its ``best/``).
+which every other command reads (``OUT_DIR`` itself means its ``best/``);
+under ``torchrun`` (or with ``--fsdp``) DiffPhar trains on a data-parallel
+mesh, one process per GPU.
 ``sample-phars`` on a joint checkpoint samples by
 RePaint inpainting with the pocket held fixed. ``CKPT_DIR`` is a port
 checkpoint directory (``params.npz`` + ``config.json``, see
@@ -44,6 +50,28 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 from cmdgen_tpu_torch.device import make_generator
+
+
+def _add_preprocess(sub):
+    p = sub.add_parser("preprocess", help="CrossDocked (PDB, SDF) pairs -> npz")
+    p.add_argument("pairs_file", help="TSV: split<TAB>pocket.pdb<TAB>ligand.sdf")
+    p.add_argument("out_dir")
+    p.add_argument("--dataset", default="crossdock_full", choices=["crossdock_full", "crossdock"])
+    p.add_argument("--representation", default="full-atom", choices=["full-atom", "CA"])
+    p.set_defaults(run=run_preprocess)
+
+
+def run_preprocess(args):
+    """Write the npz splits and histograms; prints and returns the counts."""
+    import json
+
+    from cmdgen_tpu_torch.data.crossdocked import process_dataset
+
+    pairs = [tuple(line.split("\t"))
+             for line in Path(args.pairs_file).read_text().strip().split("\n")]
+    stats = process_dataset(pairs, args.out_dir, args.dataset, args.representation)
+    print(json.dumps(stats))
+    return stats
 
 
 def _add_sample_phars(sub):
@@ -449,7 +477,9 @@ def _add_train(sub):
     p.add_argument("--stratified-t", action="store_true",
                    help="stratified diffusion times across the batch")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard weights and optimizer state (not ported: ROADMAP A18)")
+                   help="FSDP over the data-parallel axis: weights, gradients and optimizer "
+                        "state sharded (one process per GPU under torchrun, else a world "
+                        "of one)")
     p.add_argument("--seed", type=int, default=None, help="the run's seed (default 0)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(run=run_train_diffphar)
@@ -477,6 +507,8 @@ def _add_train(sub):
 
 def run_train_diffphar(args):
     """Train DiffPhar; returns the final TrainState."""
+    import torch.distributed as dist
+
     from cmdgen_tpu_torch import config as cfgmod
     from cmdgen_tpu_torch.train.diffphar_train import train_diffphar
     from cmdgen_tpu_torch.utils.logging import MetricsLogger
@@ -496,9 +528,14 @@ def run_train_diffphar(args):
         dyn = cfg.dynamics
         cfg = dataclasses.replace(cfg, dynamics=dataclasses.replace(
             dyn, egnn=dataclasses.replace(dyn.egnn, neighbor_k=args.neighbor_k)))
-    with MetricsLogger(args.out_dir, cfg.train.run_name) as logger:
-        return train_diffphar(cfg, args.datadir, args.out_dir, max_steps=args.max_steps,
-                              log_fn=logger.log, device=args.device)
+    owned = not dist.is_initialized()  # a group the caller made stays theirs
+    try:
+        with MetricsLogger(args.out_dir, cfg.train.run_name) as logger:
+            return train_diffphar(cfg, args.datadir, args.out_dir, max_steps=args.max_steps,
+                                  log_fn=logger.log, device=args.device)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def read_smiles_and_props(smiles_file, props_file=None):
@@ -554,6 +591,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The parsed command line; ``args.run(args)`` runs its command."""
     parser = argparse.ArgumentParser(prog="cmdgen_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+    _add_preprocess(sub)
     _add_sample_phars(sub)
     _add_get_phar(sub)
     _add_generate(sub)

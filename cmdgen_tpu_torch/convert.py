@@ -47,6 +47,7 @@ from cmdgen_tpu_torch.diffusion.joint import JointDDPM
 from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, make_fused_apply
 from cmdgen_tpu_torch.models.gcpg import GCPG, TRAINING_MODULES
+from cmdgen_tpu_torch.parallel.mesh import full, shard_like
 from cmdgen_tpu_torch.train.checkpoint import eval_params_from_payload
 
 GAMMA_NET = "gamma_net/"
@@ -162,8 +163,9 @@ def flax_names(model) -> Dict[str, str]:
 
 def to_flax(path: str, v: torch.Tensor) -> np.ndarray:
     """A port tensor as the flax leaf at ``path`` (kernels transposed, a
-    PReLU slope a scalar)."""
-    arr = v.detach().float().cpu().numpy()
+    PReLU slope a scalar): a copy, which later updates of ``v`` leave as
+    it is."""
+    arr = v.detach().float().cpu().numpy().copy()
     if path.endswith("/kernel"):
         return arr.T
     if path.endswith("/negative_slope"):
@@ -184,9 +186,13 @@ def model_leaves(model, tensors: Optional[Mapping[str, torch.Tensor]] = None
                  ) -> Dict[str, np.ndarray]:
     """The model's weights as flattened flax leaves; or, with ``tensors``
     ({parameter name: tensor of its shape}, e.g. gradients or an EMA),
-    those in the same layout."""
-    src = dict(model.named_parameters()) if tensors is None else tensors
-    return {path: to_flax(path, src[name]) for name, path in flax_names(model).items()}
+    those in the same layout. Sharded weights, and tensors that are the
+    local parts of sharded weights, are gathered whole (``parallel.mesh``;
+    every rank calls it)."""
+    params = dict(model.named_parameters())
+    src = params if tensors is None else tensors
+    return {path: to_flax(path, full(src[name], like=params[name]))
+            for name, path in flax_names(model).items()}
 
 
 def leaves_to_tensors(model, leaves: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -215,19 +221,20 @@ _MOMENTS = ("mu", "nu", "nu_max")
 def optimizer_arrays(model, optimizer) -> Dict[str, np.ndarray]:
     """The port optimizer's state (``train.state.AMSGrad`` or ``AdamW``) as
     flat numpy arrays: ``count`` and ``{mu,nu,nu_max}/<flax path>`` in the
-    flax layout."""
+    flax layout, the local parts of sharded weights' state gathered whole."""
     out = {"count": np.asarray(optimizer.count, dtype=np.int32)}
     params = dict(model.named_parameters())
     for name, path in flax_names(model).items():
         st = optimizer.state[params[name]]
         for key in _MOMENTS:
             if key in st:
-                out[f"{key}/{path}"] = to_flax(path, st[key])
+                out[f"{key}/{path}"] = to_flax(path, full(st[key], like=params[name]))
     return out
 
 
 def load_optimizer_arrays(model, optimizer, arrays: Mapping[str, np.ndarray]) -> None:
-    """Set the port optimizer's state from :func:`optimizer_arrays`' form."""
+    """Set the port optimizer's state from :func:`optimizer_arrays`' form
+    (for a sharded weight, its local part)."""
     count = int(np.asarray(arrays["count"]))
     params = dict(model.named_parameters())
     for name, path in flax_names(model).items():
@@ -236,7 +243,7 @@ def load_optimizer_arrays(model, optimizer, arrays: Mapping[str, np.ndarray]) ->
         st["count"] = count
         for key in _MOMENTS:
             if f"{key}/{path}" in arrays:
-                st[key] = from_flax(path, arrays[f"{key}/{path}"], p)
+                st[key] = shard_like(from_flax(path, arrays[f"{key}/{path}"], p), p)
             elif key != "nu_max" or getattr(optimizer, "amsgrad", False):
                 raise KeyError(f"optimizer state {key}/{path} is missing")
 

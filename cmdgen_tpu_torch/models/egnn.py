@@ -23,6 +23,13 @@ block's pair activations instead of keeping them.
 ``GNN`` is the plain (non-equivariant) network of the ``gnn_dynamics``
 mode: GCLs without edge features over the dense adjacency.
 
+Under tensor parallelism (``parallel.mesh.tp_shard``) every Dense goes
+through ``linear`` (or, for the node MLP's split first layer,
+``column_parallel`` directly), which computes a rank's own output columns
+of a column-split weight; the first pair layer's tiny edge kernel is
+gathered whole at use. The kernels' path reads plain weights only: it
+runs on unsharded evaluation copies.
+
 Module and parameter names follow the flax tree, so ``convert.py`` maps a
 flax path ``a/b/kernel`` onto ``a.b.weight`` (transposed). The first pair
 layer keeps flax's split into ``w_i``, ``w_j`` and ``w_e``.
@@ -39,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from cmdgen_tpu_torch.ops.egnn_msgpass import gather_rows, gcl_message_agg, kernel_route
+from cmdgen_tpu_torch.parallel.mesh import column_parallel, full_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +91,12 @@ def edge_features(cfg: EGNNConfig) -> int:
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=dtype)``: inputs, kernel and bias cast to dtype."""
-    bias = None if lin.bias is None else lin.bias.to(dtype)
-    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+    """flax ``nn.Dense(dtype=dtype)``: inputs, kernel and bias cast to dtype.
+    A weight column-split over ``tp`` computes this rank's output columns
+    and gathers them (``parallel.mesh.column_parallel``)."""
+    (x,), w, b, gather = column_parallel(lin, x)
+    bias = None if b is None else b.to(dtype)
+    return gather(F.linear(x.to(dtype), w.to(dtype), bias))
 
 
 def build_neighbor_list(x: torch.Tensor, edge_mask: torch.Tensor, k: int):
@@ -147,7 +158,7 @@ class PairFirstLayer(nn.Module):
         out = wi[:, :, None, :] + wj_pair
         if e is None:
             return out
-        kernel = self.w_e.weight.t().to(dtype)  # [E, H]
+        kernel = full_weight(self.w_e.weight).t().to(dtype)  # [E, H]
         e = e.to(dtype)
         for c in range(e.shape[-1]):
             out = out + e[..., c : c + 1] * kernel[c]
@@ -193,9 +204,9 @@ class GCL(nn.Module):
                 mij = mij * torch.sigmoid(gate + self.att.bias.to(dt))
             agg = _aggregate(mij, edge_mask, cfg)
         # node model: residual MLP over [h, agg], node_in split at the seam
-        kin = self.node_in.weight.to(dt)  # [H, 2H]
-        upd = (h.to(dt) @ kin[:, :hdim].t() + agg.to(dt) @ kin[:, hdim:].t()
-               + self.node_in.bias.to(dt))
+        (hh, aa), kin, kb, gather = column_parallel(self.node_in, h, agg)
+        kin = kin.to(dt)  # [H, 2H]
+        upd = gather(hh.to(dt) @ kin[:, :hdim].t() + aa.to(dt) @ kin[:, hdim:].t() + kb.to(dt))
         upd = linear(F.silu(upd), self.node_out, dt)
         return h + upd
 

@@ -14,8 +14,19 @@ on that copy each time.
 Batch order comes from ``np.random.RandomState(seed)`` as in the JAX
 package, so both packages see the same batches. The diffusion times and
 noise come from a ``torch.Generator`` seeded per epoch, so a resumed run
-draws what a continuous one would have drawn. One process, one device:
-data or tensor parallelism and FSDP are ROADMAP A18.
+draws what a continuous one would have drawn.
+
+With ``dp``, ``tp`` or ``fsdp`` set, or under ``torchrun``, the run joins
+the process group (``parallel.launch``; a world of one outside
+``torchrun``) and trains on a ``(dp, tp)`` mesh (``parallel.mesh``; dp
+None takes the world size): every rank reads the same batches and draws,
+keeps its rows (``train.state``), and a step equals the single-process
+step on the global batch. Validation, eval-epoch sampling and logging run
+on rank 0, on whole weights gathered into an unsharded copy that only
+rank 0 builds (from a template on the ``meta`` device); rank 0
+writes checkpoints of whole arrays in the single-process format, so
+``sample-phars`` reads them and a resume may change the world size or
+the layout (the arrays are loaded whole, then sharded).
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cmdgen_tpu_torch import config as cfgmod
 from cmdgen_tpu_torch import convert
@@ -38,7 +50,10 @@ from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
 from cmdgen_tpu_torch.diffusion.joint import JointDDPM
 from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, make_fused_apply
+from cmdgen_tpu_torch.models.egnn import EquivariantBlock
 from cmdgen_tpu_torch.models.init import init_dynamics_, init_gamma_net_
+from cmdgen_tpu_torch.parallel import launch
+from cmdgen_tpu_torch.parallel import mesh as pmesh
 from cmdgen_tpu_torch.train import checkpoint as ckpt
 from cmdgen_tpu_torch.train import state as tstate
 
@@ -120,13 +135,14 @@ def sampling_metrics(model, dataset: DiffPharDataset, generator: Optional[torch.
 
 
 def eval_model(state: tstate.TrainState, engine: str = "msgpass"):
-    """The evaluation copy of the model (``train.state.eval_model``), with
-    K2's engine built on it for ``engine="fused"``."""
-    model = tstate.eval_model(state)
-    if engine == "fused":
-        model._apply = make_fused_apply(model.dynamics)
-    elif engine != "msgpass":
+    """The evaluation copy of the model (``train.state.eval_model``: None
+    on a sharded model's ranks past 0), with K2's engine built on it for
+    ``engine="fused"``."""
+    if engine not in ("msgpass", "fused"):
         raise ValueError(f"unknown engine {engine!r}")
+    model = tstate.eval_model(state)
+    if model is not None and engine == "fused":
+        model._apply = make_fused_apply(model.dynamics)
     return model
 
 
@@ -138,6 +154,17 @@ def checkpoint_payload(state: tstate.TrainState) -> Dict[str, Dict[str, np.ndarr
     if state.ema is not None:
         payload["ema_params"] = convert.model_leaves(model, state.ema)
     return payload
+
+
+def shard_model(model, mesh, fsdp: bool = False) -> pmesh.MeshPlan:
+    """Lay the model's dynamics out on ``mesh``, in place: eligible Dense
+    layers column-split over ``tp``, then, with ``fsdp``, FSDP2 over
+    ``dp`` with each EGNN block its own unit. The gamma network stays
+    replicated (its gradient averaged over dp). Returns the step's plan."""
+    pmesh.tp_shard(model.dynamics, mesh)
+    if fsdp:
+        pmesh.fsdp_shard(model.dynamics, mesh, blocks=(EquivariantBlock,))
+    return pmesh.MeshPlan(mesh)
 
 
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
@@ -159,12 +186,19 @@ def train_diffphar(cfg: cfgmod.DiffPharConfig, datadir, out_dir,
     training: weights, optimizer state and EMA (seeded from the weights
     where the checkpoint has none; dropped for a run without EMA), its
     step, and the epochs it covered skipped with their batch-order draws
-    replayed. ``eval_engine``: the engine of eval-epoch sampling."""
+    replayed. ``eval_engine``: the engine of eval-epoch sampling. Under a
+    mesh ``device`` names the device type (rank r of ``torchrun`` takes
+    ``cuda:LOCAL_RANK``) and the returned state is this rank's."""
     tc = cfg.train
-    if tc.fsdp or (tc.dp or 1) > 1 or tc.tp > 1:
-        raise NotImplementedError("data/tensor parallelism and FSDP are not ported yet "
-                                  "(ROADMAP A18); train on one device")
-    dev = resolve_device(device)
+    mesh, rank0 = None, True
+    if tc.fsdp or tc.dp is not None or tc.tp > 1 or launch.under_torchrun():
+        world = launch.init_process_group(device)
+        dev, rank0 = world.device, world.rank == 0
+        mesh = pmesh.make_mesh(tc.dp, tc.tp, dev.type)
+    else:
+        dev = resolve_device(device)
+    if not rank0:
+        log_fn = lambda step, m: None  # noqa: E731 -- rank 0 logs
     datadir, out_dir = Path(datadir), Path(out_dir)
     train_ds = DiffPharDataset(datadir / "train.npz")
     val_ds = DiffPharDataset(datadir / "val.npz")
@@ -174,19 +208,26 @@ def train_diffphar(cfg: cfgmod.DiffPharConfig, datadir, out_dir,
     model = build_model(cfg, size_hist, dev, torch.Generator().manual_seed(tc.seed))
     # the noise floor at t=0 must not straddle one normalized one-hot unit
     model.check_norm_values()
-    optimizer = tstate.reference_optimizer(model.parameters(), tc.lr)
-    state = tstate.init_state(model, optimizer, ema=tc.ema_decay > 0)
-    train_step = tstate.make_diffusion_train_step(tc.clip_grad, tc.ema_decay)
     start_step, start_epoch = 0, None
     if resume_from is not None:
         payload, meta = ckpt.load_checkpoint(resume_from, "last")
-        convert.load_leaves(model, payload["params"])
+        convert.load_leaves(model, payload["params"])  # whole, before sharding
+    plan = template = None
+    if mesh is not None:
+        template = tstate.unsharded_template(model)
+        plan = shard_model(model, mesh, tc.fsdp)
+    optimizer = tstate.reference_optimizer(model.parameters(), tc.lr)
+    state = tstate.init_state(model, optimizer, ema=tc.ema_decay > 0, plan=plan,
+                              template=template)
+    train_step = tstate.make_diffusion_train_step(tc.clip_grad, tc.ema_decay)
+    if resume_from is not None:
         convert.load_optimizer_arrays(model, optimizer, payload["opt_state"])
         if tc.ema_decay > 0:
             # from the restored weights where the checkpoint has no EMA,
             # never from the fresh initialisation
-            state.ema = convert.leaves_to_tensors(
-                model, payload.get("ema_params", payload["params"]))
+            ema = convert.leaves_to_tensors(model, payload.get("ema_params", payload["params"]))
+            params = dict(model.named_parameters())
+            state.ema = {n: pmesh.shard_like(t, params[n]) for n, t in ema.items()}
         else:
             state.ema = None  # a run without EMA must not evaluate a stale one
         state.step = start_step = int(meta["step"])
@@ -222,20 +263,27 @@ def train_diffphar(cfg: cfgmod.DiffPharConfig, datadir, out_dir,
         sample_now = (tc.eval_epochs and (epoch + 1) % tc.eval_epochs == 0
                       and isinstance(model, ConditionalDDPM))
         if val_now or ckpt_now or sample_now:
-            em = eval_model(state, eval_engine)
+            em = eval_model(state, eval_engine)  # every rank gathers; rank 0 gets the copy
             if val_now or ckpt_now:
-                val_loss = evaluate(em, val_ds, bs, gen)
+                val_loss = evaluate(em, val_ds, bs, gen) if rank0 else 0.0
+                if mesh is not None:  # rank 0's number on every rank
+                    box = [val_loss]
+                    dist.broadcast_object_list(box, src=0)
+                    val_loss = box[0]
                 log_fn(step, {"loss/val": val_loss, "epoch": epoch,
                               "elapsed_s": time.time() - t0})
-            if sample_now:
+            if sample_now and rank0:
                 sm = sampling_metrics(em, val_ds, gen, n_samples=min(tc.n_eval_samples, 16),
                                       dataset_name=cfg.data.dataset)
                 log_fn(step, {f"sampling/{k}": v for k, v in sm.items()})
             del em
         if ckpt_now:
-            ckpt.save_checkpoint(out_dir, checkpoint_payload(state), step=step,
-                                 config=cfgmod.to_dict(cfg), monitor_value=val_loss,
-                                 epoch=epoch + 1)
+            payload = checkpoint_payload(state)  # every rank: the arrays are gathered
+            if rank0:
+                ckpt.save_checkpoint(out_dir, payload, step=step, config=cfgmod.to_dict(cfg),
+                                     monitor_value=val_loss, epoch=epoch + 1)
+            if mesh is not None:
+                dist.barrier()
         if stop:
             break
     return state

@@ -390,6 +390,33 @@ def test_cli_train_diffphar_cpu(tmp_path):
     assert np.isfinite(json.loads(lines[-1])["loss/val"])
 
 
+def test_cli_train_diffphar_fsdp_cpu(tmp_path):
+    """train-diffphar --fsdp outside torchrun: a world of one (gloo) that
+    the command makes and takes down again; its checkpoint holds the
+    plain run's arrays (weights atol 1e-5, tests/test_torch_parallel.py's
+    tolerance) and records the layout in its config."""
+    import torch.distributed as dist
+
+    from cmdgen_tpu_torch.utils.synthetic import synthetic_diffphar_npz
+
+    data = tmp_path / "data"
+    data.mkdir()
+    synthetic_diffphar_npz(data / "train.npz", np.random.RandomState(0), 4, n_pocket=(10, 20))
+    synthetic_diffphar_npz(data / "val.npz", np.random.RandomState(1), 2, n_pocket=(10, 20))
+    argv = ["--config", "ca", "--batch-size", "2", "--epochs", "1", "--neighbor-k", "12",
+            "--device", "cpu"]
+    cli.main(["train-diffphar", str(data), str(tmp_path / "plain"), *argv])
+    state = cli.main(["train-diffphar", str(data), str(tmp_path / "fsdp"), *argv, "--fsdp"])
+    assert state.step == 2 and not dist.is_initialized()
+    assert json.loads((tmp_path / "fsdp" / "best" / "config.json").read_text())["train"]["fsdp"]
+    for f in ("params", "opt_state"):
+        with np.load(tmp_path / "fsdp" / "last" / f"{f}.npz") as got, \
+                np.load(tmp_path / "plain" / "last" / f"{f}.npz") as want:
+            assert sorted(got.files) == sorted(want.files)
+            for k in want.files:
+                np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=0, err_msg=k)
+
+
 def test_cli_train_gcpg_cpu(tmp_path):
     """train-gcpg at the default width, one step, then generate from the
     run's directory (its best/)."""

@@ -12,6 +12,7 @@ import torch
 
 from cmdgen_tpu_torch.convert import load_port_checkpoint
 from cmdgen_tpu_torch.device import resolve_device
+from cmdgen_tpu_torch.parallel import check, launch
 
 torch.set_num_threads(1)
 
@@ -114,6 +115,13 @@ def test_entry_points_without_device_raise_without_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_port_checkpoint(PKG / "assets" / "qrun_aa")
+    # the parallel runs: before any process, group or data is touched
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        check.steps({}, {}, [], [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        check.train({}, "no-data", "no-out")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch.spawn(check.run_jobs, 2, [], init_method="file:///nonexistent/store")
     assert resolve_device("cpu").type == "cpu"
 
 

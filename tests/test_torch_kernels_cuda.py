@@ -593,3 +593,41 @@ def test_run_pipeline_on_card(dev, engine, monkeypatch):
     assert stats["hypotheses"] == 2 and stats["raw_smiles"] == 128
     assert stats["aligned"] == len(results) > 0
     assert all(np.isfinite(r.rmsd) and np.isfinite(r.conformers[0][1]).all() for r in results)
+
+
+def test_fsdp_and_dp_steps_on_one_card_match_plain(dev, tmp_path):
+    """A world of one under NCCL on the card (one spawned process): three
+    train steps of ``ca_config`` at hidden 64, K=12, on the dp path and
+    under FSDP equal the plain trainer's on the same batch and draws
+    (weights atol 1e-5, losses rtol 1e-4, as tests/test_torch_parallel.py
+    holds them on the CPU)."""
+    from cmdgen_tpu_torch import config as cfgmod
+    from cmdgen_tpu_torch import convert
+    from cmdgen_tpu_torch.parallel import check, launch
+    from cmdgen_tpu_torch.train.diffphar_train import build_model
+
+    cfg = ca_config()
+    cfg = dataclasses.replace(cfg, dynamics=dataclasses.replace(
+        cfg.dynamics, egnn=dataclasses.replace(cfg.dynamics.egnn, hidden_nf=64, neighbor_k=12)))
+    leaves = convert.model_leaves(build_model(cfg, None, "cpu", torch.Generator().manual_seed(0)))
+    rng = np.random.RandomState(0)
+    b, n_p, n_q = 8, 6, 60
+    qx = np.stack([realistic_ca_pocket(rng, n_q) for _ in range(b)]).astype(np.float32)
+    batch = [(rng.randn(b, n_p, 3) * 2.0).astype(np.float32),
+             np.eye(8, dtype=np.float32)[rng.randint(0, 8, (b, n_p))],
+             np.ones((b, n_p), np.float32), qx,
+             np.eye(20, dtype=np.float32)[rng.randint(0, 20, (b, n_q))],
+             np.ones((b, n_q), np.float32)]
+    draws = [rng.randint(0, cfg.ddpm.timesteps + 1, b).astype(np.float32),
+             rng.randn(b, n_p, 11).astype(np.float32), rng.randn(b, n_p, 11).astype(np.float32)]
+    jobs = [dict(kind="steps", cfg=cfgmod.to_dict(cfg), leaves=leaves, batches=[batch] * 3,
+                 draws=[draws] * 3, layout=layout, ema_decay=0.999, device="cuda")
+            for layout in (None, {"dp": 1}, {"dp": 1, "fsdp": True})]
+    plain, dp, fsdp = launch.spawn(check.run_jobs, 1, jobs, init_method=f"file://{tmp_path}/s",
+                                   device="cuda")[0]
+    assert any(fsdp["placements"].values())
+    for got in (dp, fsdp):
+        for key in ("params", "ema"):
+            for k, v in plain[key].items():
+                np.testing.assert_allclose(got[key][k], v, atol=1e-5, rtol=0, err_msg=k)
+        np.testing.assert_allclose(got["losses"], plain["losses"], rtol=1e-4)

@@ -555,13 +555,6 @@ def test_sample_phars_reads_best(trained, tmp_path):
     _leaves_close(convert.model_leaves(model), ema, rtol=0)
 
 
-def test_parallel_settings_raise(data_dir, tmp_path):
-    from cmdgen_tpu_torch.train import diffphar_train
-
-    with pytest.raises(NotImplementedError, match="A18"):
-        diffphar_train.train_diffphar(_tiny_config(dp=2), data_dir, tmp_path, device="cpu")
-
-
 def test_init_draws_flax_initializers():
     """Fresh weights: zero biases, lecun-normal kernels (std 1/sqrt(fan_in),
     truncated at 2 std), a coordinate gate of variance 1e-6 / fan_avg, the
