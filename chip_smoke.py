@@ -59,7 +59,7 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    refinement step); the ``align`` CLI once through, its SDFs and
    ``rmsd_values.npy`` checked;
 9. ``run-all`` through the CLI on ``qrun_aa`` + ``grun_r5cn`` and two
-   synthetic pockets at round 5's settings cut to the time limit (512
+   synthetic pockets at round 5's settings cut to the time limit (256
    decodes per hypothesis, not 2,048; 1 pocket, not 8): first K1 and K2
    at the shapes run-all gives them (64 clouds of 8 node slots, 5 used;
    the pocket padded to 48 rows; H=128, K=16, float32), recorded from its
@@ -98,6 +98,9 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    timed), ``sample-phars`` on the trained ``best/``; the GCPG at its
    default width on step 7's SMILES: one step card vs CPU, ``train-gcpg``
    through the CLI (B=128), steps timed, ``generate`` from its checkpoint;
+   ``train-gcpg --finetune-from cmdgen_tpu_torch/assets/grun_r5cn
+   --score-only-gate`` on the same SMILES (3 steps at B=128), its first step
+   starting from the shipped weights array for array, ``generate`` from it;
 13. data parallelism and FSDP (after step 12), ``parallel_phase``: the
    align phase's posed molecules in synthetic pockets of 80-130 residues
    (a CA and a side-chain tip within 8 A of the ligand each, so that
@@ -116,6 +119,17 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    a few sampling steps in ``utils.profiling.device_trace``, the trace
    naming K1's kernel once per launch; receptor and ligand PDBQT of
    posed molecules, scored with qvina2 only where its binary is found.
+14. the CLI's default DiffPhar configuration (after step 13),
+   ``full_atom_phase``: ``full_atom_config`` at its full width (hidden 256,
+   3 layers, 11 element classes, T=100, float32) on the align phase's posed
+   molecules in synthetic full-atom pockets (backbone and side-chain heavy
+   atoms, 150-512 a pocket): ``preprocess``, ``train-diffphar`` and
+   ``sample-phars`` at their defaults (dense, B=8 training, B=64 sampling;
+   5 steps, T cut to 4), each train step timed with its peak memory and
+   the last profiled; dense sampling on pockets of ~190, ~350 and ~510
+   atoms (peak memory by size); K1 (``--neighbor-k 16``) and K2
+   (``--engine fused``) on the largest, their calls there against their
+   plain versions and timed.
 
 Prints the card, a ``kernels`` JSON line (``launches``, ``ms``,
 ``plain_ms``, ``bound_ms``: the train path's, K1 in its eval sampling and
@@ -123,10 +137,12 @@ K2 in ``sample-phars --engine fused`` on its checkpoint, times at the eval
 sampling's shape, ``train_shape`` with ``kernel_ms`` there;
 ``run_all_shape``: run-all's; ``flagship``: step 2's bf16 times;
 ``joint``: step 11's; ``launches_by_path``: every path's, step 13's
-under ``parallel``, and step 13's checks under ``parallel_path``), the
-throughput, a ``consensus`` JSON line, a ``decode`` JSON line, an
+under ``parallel`` and step 14's under ``full_atom``; step 13's checks
+under ``parallel_path``; ``full_atom_shape``: step 14's checks and times),
+the throughput, a ``consensus`` JSON line, a ``decode`` JSON line, an
 ``align`` JSON line, a ``run_all`` JSON line, an ``evaluate``, a
-``joint``, a ``train`` and a ``parallel`` JSON line, and as the last line ``{"ok": true,
+``joint``, a ``train``, a ``parallel`` and a ``full_atom`` JSON line, the
+card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 before printing any result.
 ``--kernels-only`` stops after step 2 and prints the checks as one JSON
@@ -205,11 +221,11 @@ ALIGN_C, ALIGN_STEPS, ALIGN_CHUNK, ALIGN_BUCKET = 5, 100, 64, 16
 ALIGN_RMSD_TOL = 1e-3
 ALIGN_REL = 1e-3
 # run-all on one synthetic pocket: round 5's end-to-end settings
-# (runs/summary_triple_target_r5.json) with 512 decodes per hypothesis for
+# (runs/summary_triple_target_r5.json) with 256 decodes per hypothesis for
 # its 2,048 and 1 pocket for its 8, to fit the time limit
 RUN_ALL_ARGS = ["--n-clouds", "64", "--timesteps", "100", "--clamp-x", "8",
                 "--neighbor-k", "16", "--cluster-counts", "4", "5", "6",
-                "--smiles-per-hypothesis", "512", "--constrain-decode",
+                "--smiles-per-hypothesis", "256", "--constrain-decode",
                 "--constrain-valence", "--decode-temperature", "0.7"]
 RUN_ALL_POCKETS = 1
 RUN_ALL_VALID_MIN = 0.5
@@ -224,15 +240,15 @@ EVAL_POSES = 16
 # gradient is near 0); the GCPG's batch, steps and check batch
 TRAIN_B = (4, 32)
 TRAIN_CHECK_B = 2  # card vs CPU (the CPU's dense step at full width sets it)
-TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 3, 20, 5
+TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 3, 6, 3
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_WEIGHT_ATOL = 1e-6
-GCPG_TRAIN_B, GCPG_TRAIN_STEPS, GCPG_CHECK_B = 128, 10, 8
+GCPG_TRAIN_B, GCPG_TRAIN_STEPS, GCPG_CHECK_B = 128, 3, 8
 # train-gcpg without --max-steps (its default device-resident plan): the
 # molecules and epochs, at B=128 one step an epoch
 GCPG_RESIDENT_SMILES, GCPG_RESIDENT_EPOCHS = 128, 1
-TRAIN_CLI_STEPS = 40  # train-diffphar through the CLI, dense, B=4
+TRAIN_CLI_STEPS = 20  # train-diffphar through the CLI, dense, B=4
 # parallel phase: complexes written as PDB/SDF pairs for preprocess
 # (pockets of 80-130 residues around the align phase's posed molecules;
 # 16 val pockets, so that eval sampling runs B=16 as in the train phase);
@@ -244,6 +260,21 @@ PAR_TRAIN, PAR_VAL, PAR_B, PAR_STEPS = 64, 16, 32, 5
 PAR_W_ATOL, PAR_LOSS_RTOL = 1e-5, 1e-4
 PAR_CLI_STEPS, PAR_TRACE_T, PAR_PDBQT = 2, 4, 4
 K1_KERNEL = "gcl_message_agg_kernel"  # csrc/egnn_msgpass.cu's __global__ function
+# full_atom phase: the CLI's defaults end to end at full_atom_config's width
+# (hidden 256, 3 layers, 11 element classes, T=100, dense, B=8, float32) on
+# synthetic full-atom complexes (the align phase's posed molecules in pockets
+# of backbone and side-chain heavy atoms, FA_ATOMS[0]-FA_ATOMS[1] a pocket, the
+# first at the most): preprocess, train-diffphar (FA_STEPS steps: the first
+# warm, the last profiled), then sample-phars at sample_pharmacophores' default
+# batch of 64 with --timesteps cut from 100 to FA_T: dense on pockets of
+# FA_DENSE_ATOMS atoms (peak memory by size), K1 (--neighbor-k FA_K) and K2
+# (--neighbor-k FA_K --engine fused) on the largest
+FA_TRAIN, FA_VAL, FA_STEPS, FA_K, FA_T, FA_SAMPLES = 40, 8, 5, 16, 2, 64
+FA_ATOMS = (160, 512)
+FA_DENSE_ATOMS = (192, 352, 512)
+FA_RESIDUES = 80  # residues drawn around a ligand before the 8 A rule and the cap
+# train-gcpg --finetune-from the shipped grun_r5cn: steps at GCPG_TRAIN_B
+GCPG_FT_STEPS = 3
 
 
 def log(*a):
@@ -1484,45 +1515,58 @@ def decode_phase(dev, repo, posp):
     return out, smiles_t07
 
 
+def write_pairs(tmp, poses, rng, n_train, n_val, pocket):
+    """(pairs.tsv, [pocket PDBs], [pocket sizes]): complexes written as
+    (pocket PDB, ligand SDF) pairs, each a posed molecule turned at random
+    about its centroid in the pocket ``pocket(i, symbols, ligand
+    coordinates)`` writes as (PDB text, size); the first n_train are the
+    train split, the rest val."""
+    from cmdgen_tpu_torch.chem.sdf import write_sdf
+
+    rows, pdbs, sizes = [], [], []
+    for i in range(n_train + n_val):
+        symbols, xyz, mol = poses[i % len(poses)]
+        q, _ = np.linalg.qr(rng.randn(3, 3))
+        lig = (np.asarray(xyz, dtype=np.float64) - np.mean(xyz, axis=0)) @ q
+        text, size = pocket(i, symbols, lig)
+        pdb, sdf = tmp / f"pocket_{i}.pdb", tmp / f"ligand_{i}.sdf"
+        pdb.write_text(text)
+        write_sdf(sdf, [(symbols, lig, f"ligand_{i}")],
+                  bonds_list=[[(b.a1, b.a2, b.order) for b in mol.bonds]])
+        rows.append(f"{'train' if i < n_train else 'val'}\t{pdb}\t{sdf}")
+        pdbs.append(pdb)
+        sizes.append(size)
+    tsv = tmp / "pairs.tsv"
+    tsv.write_text("\n".join(rows) + "\n")
+    return tsv, pdbs, sizes
+
+
 def complex_pairs(tmp, poses, rng, n_train, n_val):
-    """(pairs.tsv, [pocket PDBs], [residues of each pocket]): complexes
-    written as (pocket PDB, ligand SDF) pairs, each a posed molecule turned
-    at random about its centroid in a pocket of 80-130 residues
+    """``write_pairs`` with pockets of 80-130 residues
     (``realistic_ca_pocket``'s CA positions 4.5-12 A from the centroid at 3
     A spacing; random residue types), each residue a CA and a side-chain
     tip 1.5-6.5 A from it toward the nearest ligand heavy atom, to within
     8 A of that atom: preprocessing's 8 A rule keeps every residue, so
     the pockets reach the model with 80-130 rows, as the train phase's."""
-    from cmdgen_tpu_torch.chem.sdf import write_sdf
     from cmdgen_tpu_torch.utils.synthetic import realistic_ca_pocket
 
     aas = ["ALA", "ARG", "ASN", "ASP", "CYS", "GLN", "GLU", "GLY", "HIS", "ILE",
            "LEU", "LYS", "MET", "PHE", "PRO", "SER", "THR", "TRP", "TYR", "VAL"]
-    rows, pdbs, residues = [], [], []
-    for i in range(n_train + n_val):
-        symbols, xyz, mol = poses[i % len(poses)]
-        q, _ = np.linalg.qr(rng.randn(3, 3))
-        lig = (np.asarray(xyz, dtype=np.float64) - np.mean(xyz, axis=0)) @ q
+
+    def pocket(i, symbols, lig):
         heavy = lig[[s != "H" for s in symbols]]
         ca = realistic_ca_pocket(rng, rng.randint(80, 131), r_lo=4.5, r_hi=12.0,
                                  min_sep=3.0).astype(np.float64)
         d = np.linalg.norm(ca[:, None] - heavy[None], axis=-1)
         near, dn = heavy[d.argmin(1)], np.maximum(d.min(1), 1e-6)
         tip = ca + (near - ca) * (np.clip(dn - 6.5, 1.5, 6.5) / dn)[:, None]
-        pdb, sdf = tmp / f"pocket_{i}.pdb", tmp / f"ligand_{i}.sdf"
-        pdb.write_text("\n".join(
+        return "\n".join(
             f"{'ATOM':<6}{2 * j + a + 1:>5} {name:<4} {aa:>3} A{j + 1:>4}    "
             f"{p[0]:8.3f}{p[1]:8.3f}{p[2]:8.3f}{1.0:6.2f}{0.0:6.2f}          {'C':>2}"
             for j, aa in enumerate(aas[k] for k in rng.randint(20, size=len(ca)))
-            for a, (name, p) in enumerate((("CA", ca[j]), ("CZ", tip[j])))) + "\nEND\n")
-        write_sdf(sdf, [(symbols, lig, f"ligand_{i}")],
-                  bonds_list=[[(b.a1, b.a2, b.order) for b in mol.bonds]])
-        rows.append(f"{'train' if i < n_train else 'val'}\t{pdb}\t{sdf}")
-        pdbs.append(pdb)
-        residues.append(len(ca))
-    tsv = tmp / "pairs.tsv"
-    tsv.write_text("\n".join(rows) + "\n")
-    return tsv, pdbs, residues
+            for a, (name, p) in enumerate((("CA", ca[j]), ("CZ", tip[j])))) + "\nEND\n", len(ca)
+
+    return write_pairs(tmp, poses, rng, n_train, n_val, pocket)
 
 
 def parallel_phase(dev, repo, poses):
@@ -1759,6 +1803,237 @@ def parallel_phase(dev, repo, poses):
     return out, launches, checks
 
 
+def full_atom_pairs(tmp, poses, rng, n_train, n_val):
+    """``write_pairs`` with full-atom pockets (``full_atom_pocket_pdb``:
+    FA_RESIDUES residues around the ligand, those within 8 A of it kept,
+    at most a drawn number of atoms in FA_ATOMS, the first at
+    FA_ATOMS[1])."""
+    from cmdgen_tpu_torch.utils.synthetic import full_atom_pocket_pdb
+
+    def pocket(i, symbols, lig):
+        cap = FA_ATOMS[1] if i == 0 else rng.randint(FA_ATOMS[0], FA_ATOMS[1] + 1)
+        return full_atom_pocket_pdb(rng, symbols, lig, FA_RESIDUES, max_atoms=cap)
+
+    return write_pairs(tmp, poses, rng, n_train, n_val, pocket)
+
+
+def full_atom_phase(dev, repo, poses):
+    """The CLI's default DiffPhar configuration on the card at its full
+    width, through both kernels; the ``full_atom`` line, the path's
+    launches and its kernel records (the kernels line's ``full_atom_shape``).
+
+    ``preprocess`` at its defaults (``crossdock_full``, ``full-atom``) on
+    FA_TRAIN + FA_VAL PDB/SDF pairs of the align phase's posed molecules in
+    full-atom pockets; ``train-diffphar`` at its defaults (``--config
+    full``: dense, B=8, float32) for FA_STEPS steps with validation and
+    checkpoints, each step timed with its peak memory, the last one
+    profiled, K1 and K2 launched 0 times in them, and a step on the
+    smallest and on the middle pockets; ``sample-phars`` on its
+    checkpoint, FA_SAMPLES clouds at T=FA_T: dense on pockets of
+    FA_DENSE_ATOMS atoms (peak memory by pocket size), ``--neighbor-k
+    FA_K`` (K1) and ``--neighbor-k FA_K --engine fused`` (K2) on the
+    largest, their launches counted from 0 around each run; K1's calls of
+    the first, middle and last denoiser call and K2's first, as the path
+    made them, against their plain versions and timed."""
+    import dataclasses
+
+    import torch
+
+    from cmdgen_tpu_torch import cli, config as cfgmod
+    from cmdgen_tpu_torch.data.dataset import DiffPharDataset
+    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+    from cmdgen_tpu_torch.train import state as tstate
+    from cmdgen_tpu_torch.train.diffphar_train import build_model, to_clouds
+    from cmdgen_tpu_torch.utils.synthetic import full_atom_pocket_pdb
+
+    out = {"card": card_line()}
+    t_phase = time.perf_counter()
+    cfg = cfgmod.full_atom_config()
+    ecfg = dataclasses.replace(cfg.dynamics.egnn, neighbor_k=FA_K)
+    n_layers = ecfg.n_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pairs = tmp / "pairs"
+        pairs.mkdir()
+        tsv, _, atoms = full_atom_pairs(pairs, poses, np.random.RandomState(6), FA_TRAIN,
+                                        FA_VAL)
+        data = tmp / "data"
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats, ms = synced_ms(lambda: cli.main(["preprocess", str(tsv), str(data)]))
+        sets = [DiffPharDataset(data / f"{split}.npz") for split in ("train", "val")]
+        kept = sorted(np.concatenate([d.sizes()[1] for d in sets]).tolist())
+        classes = np.concatenate([np.concatenate(d.pocket_one_hot) for d in sets]).sum(0)
+        if not (stats["n_failed"] == 0 and stats["splits"] == {"train": FA_TRAIN, "val": FA_VAL}
+                and kept == sorted(atoms) and classes.shape == (11,)
+                and set(np.flatnonzero(classes)) == {0, 1, 2, 3}):
+            raise AssertionError(f"preprocess (full-atom): {stats}; pocket atoms {kept}, "
+                                 f"written {sorted(atoms)}; element classes {classes}")
+        ds = sets[0]
+        out["preprocess"] = dict(
+            stats, ms=ms, pocket_atoms=kept,
+            pocket_atoms_quartiles=np.percentile(kept, [0, 25, 50, 75, 100]).tolist(),
+            element_class_atoms=dict(zip(("C", "N", "O", "S"), classes[:4].astype(int).tolist())),
+            pocket_rows=ds.n_pocket_max, phar_slots=ds.n_phar_max)
+        log(f"preprocess (full-atom, {FA_TRAIN + FA_VAL} pairs): {stats['splits']} in {ms:.0f} "
+            f"ms; pocket atoms {kept[0]}-{kept[-1]} (median {np.median(kept):.0f}), C/N/O/S "
+            f"{classes[:4].astype(int).tolist()}; padded to {ds.n_pocket_max} pocket rows, "
+            f"{ds.n_phar_max} pharmacophore slots")
+
+        # train-diffphar at its defaults, every step timed
+        steps, prof = [], {}
+        real_make = tstate.make_diffusion_train_step
+
+        def timed_make(*a, **kw):
+            step = real_make(*a, **kw)
+
+            def timed(*sa, **skw):
+                before = gcl_message_agg.launches + egnn_forward_fused.launches
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                if len(steps) == FA_STEPS - 1:
+                    res = []
+                    prof.update(device_profile(lambda: res.append(step(*sa, **skw)), 1, top=5))
+                    res, ms = res[0], prof["wall_ms"]
+                else:
+                    res, ms = synced_ms(lambda: step(*sa, **skw))
+                steps.append({"ms": ms, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                              "kernel_launches": gcl_message_agg.launches
+                              + egnn_forward_fused.launches - before})
+                return res
+
+            return timed
+
+        ck = tmp / "run_full"
+        tstate.make_diffusion_train_step = timed_make
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                st, ms = synced_ms(lambda: cli.main([
+                    "train-diffphar", str(data), str(ck), "--max-steps", str(FA_STEPS),
+                    "--device", "cuda"]))
+        finally:
+            tstate.make_diffusion_train_step = real_make
+        meta = json.loads((ck / "last.json").read_text())
+        saved = json.loads((ck / "last" / "config.json").read_text())
+        if not (st.step == meta["step"] == len(steps) == FA_STEPS and np.isfinite(meta["monitor"])
+                and not any(s["kernel_launches"] for s in steps)
+                and saved == cfgmod.to_dict(cfg)):
+            raise AssertionError(f"train-diffphar (full-atom defaults): {st.step} steps, "
+                                 f"{meta}, steps {steps}")
+        del st
+        torch.cuda.empty_cache()
+        timed = [s["ms"] for s in steps[1:-1]]
+        out["train"] = {
+            "cli_ms": ms, "steps": FA_STEPS, "batch": cfg.train.batch_size,
+            "node_rows": [ds.n_phar_max, ds.n_pocket_max], "engine": "dense",
+            "ms_per_step": float(np.median(timed)), "step_ms": [s["ms"] for s in steps],
+            "max_memory_allocated": max(s["max_memory_allocated"] for s in steps),
+            "step_max_memory_allocated": [s["max_memory_allocated"] for s in steps],
+            "profile": prof, "val_loss": meta["monitor"]}
+        log(f"train-diffphar at its defaults (full, dense, B={cfg.train.batch_size}, [phar, "
+            f"pocket] rows {out['train']['node_rows']}): {FA_STEPS} steps and validation in "
+            f"{ms:.0f} ms; steps {[round(t, 1) for t in out['train']['step_ms']]} ms, peak "
+            f"{out['train']['max_memory_allocated'] / 2**30:.2f} GiB, busy "
+            f"{prof['busy_share']:.2f}, top {prof['top_kernels_ms']}; val {meta['monitor']:.4g}")
+
+        # the same steps on the 8 smallest and the 8 middle pockets, each
+        # batch padded to its largest: memory by pocket rows
+        model = build_model(cfg, np.load(data / "size_distribution.npy"), dev,
+                            torch.Generator().manual_seed(0))
+        st = tstate.init_state(model, tstate.reference_optimizer(model.parameters(),
+                                                                 cfg.train.lr))
+        step = tstate.make_diffusion_train_step(cfg.train.clip_grad)
+        sizes = ds.sizes()[1]
+        order, bs = np.argsort(sizes), cfg.train.batch_size
+        by_size = {}
+        for rows in (order[:bs], order[(len(order) - bs) // 2:][:bs]):
+            cap = int(sizes[rows].max())
+            phar, pocket = to_clouds(ds.padded_batch(rows.tolist(), n_pocket_max=cap), dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            step(st, phar, pocket, generator=gen)  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, ms = synced_ms(lambda: step(st, phar, pocket, generator=gen))
+            by_size[cap] = {"ms": ms, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        by_size[ds.n_pocket_max] = {"ms": out["train"]["ms_per_step"],
+                                    "max_memory_allocated": out["train"]["max_memory_allocated"]}
+        out["train"]["by_pocket_rows"] = by_size
+        del model, st, step
+        torch.cuda.empty_cache()
+        log(f"train steps by pocket rows (B={bs}, dense): " + ", ".join(
+            f"{n}: {r['ms']:.1f} ms, {r['max_memory_allocated'] / 2**30:.2f} GiB"
+            for n, r in by_size.items()))
+
+        # sample-phars on the checkpoint: dense by pocket size, then K1 and K2
+        ligand = poses[0]
+        lig = np.asarray(ligand[1], dtype=np.float64) - np.mean(ligand[1], axis=0)
+        pdbs = {}
+        for n_atoms in FA_DENSE_ATOMS:
+            text, n = full_atom_pocket_pdb(np.random.RandomState(n_atoms), ligand[0], lig,
+                                           FA_RESIDUES, max_atoms=n_atoms)
+            pdbs[n] = tmp / f"sample_pocket_{n}.pdb"
+            pdbs[n].write_text(text)
+        largest = max(pdbs)
+        sampling = {"batch": FA_SAMPLES, "timesteps": FA_T, "dense": {}}
+
+        def sample(pdb, flags, name):
+            gcl_message_agg.launches = egnn_forward_fused.launches = 0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, ms = synced_ms(lambda: cli.main([
+                    "sample-phars", str(ck), str(pdb), str(tmp / f"{name}.json"),
+                    "--ref-ligand", "L:1", "--n-samples", str(FA_SAMPLES), "--timesteps",
+                    str(FA_T), "--device", "cuda", *flags]))
+            rec = {"ms": ms, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "launches": {"gcl_message_agg": gcl_message_agg.launches,
+                                "egnn_forward_fused": egnn_forward_fused.launches}}
+            mols = json.loads((tmp / f"{name}.json").read_text())
+            pts = np.array([p for m in mols.values() for f in m.values() for p in f])
+            if len(mols) != FA_SAMPLES or not (len(pts) and np.isfinite(pts).all()):
+                raise AssertionError(f"sample-phars {name}: {len(mols)} clouds, {len(pts)} points")
+            rec["points"] = len(pts)
+            log(f"sample-phars {name} (B={FA_SAMPLES}, T={FA_T}): {ms:.0f} ms, peak "
+                f"{rec['max_memory_allocated'] / 2**30:.2f} GiB, launches {rec['launches']}")
+            return rec
+
+        for n in sorted(pdbs):
+            rec = sample(pdbs[n], [], f"dense_{n}")
+            if any(rec["launches"].values()):
+                raise AssertionError(f"dense sampling launched a kernel: {rec['launches']}")
+            sampling["dense"][n] = rec
+        calls = FA_T + 1
+        with kernel_calls_kept(k1_calls_of_steps(n_layers, calls), ()) as (k1_kept, _):
+            sampling["msgpass"] = sample(pdbs[largest], ["--neighbor-k", str(FA_K)], "msgpass")
+        with kernel_calls_kept((), {0}) as (_, k2_kept):
+            sampling["fused"] = sample(pdbs[largest], ["--neighbor-k", str(FA_K), "--engine",
+                                                       "fused"], "fused")
+        want = {"msgpass": {"gcl_message_agg": n_layers * calls, "egnn_forward_fused": 0},
+                "fused": {"gcl_message_agg": 0, "egnn_forward_fused": calls}}
+        got = {e: sampling[e]["launches"] for e in want}
+        if got != want or not (len(k1_kept) == 3 * n_layers and len(k2_kept) == 1):
+            raise AssertionError(f"sample-phars launches {got}, expected {want}; kept "
+                                 f"{len(k1_kept)} K1 and {len(k2_kept)} K2 calls")
+        sampling["pocket_atoms"] = largest
+        out["sampling"] = sampling
+
+        # the path's kernel calls against their plain versions, and timed
+        k1_checks, k2_checks = check_kernel_calls(k1_kept, k2_kept, "float32")
+        shape = {"batch": k2_kept[0][0][1].shape[0], "node_rows": k2_kept[0][0][1].shape[1],
+                 "pocket_atoms": largest, "hidden": ecfg.hidden_nf, "layers": n_layers,
+                 "neighbor_k": FA_K, "dtype": "float32"}
+        log(f"K1 and K2 at the full-atom shape {shape}: {len(k1_kept)} K1 calls, 1 K2 call")
+        k1, k2 = time_kernel_calls(k1_kept[0], k2_kept[0], "float32", ecfg, k1_checks, k2_checks)
+        out["kernel_checks"] = {name: {"calls": len(kept), "worst": max(
+            x["max_abs_err"] / x["tol"] for x in c)}
+            for name, kept, c in (("k1", k1_kept, k1_checks), ("k2", k2_kept, k2_checks))}
+        log(f"the full-atom path's kernel checks: {out['kernel_checks']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    launches = {"gcl_message_agg": sampling["msgpass"]["launches"]["gcl_message_agg"],
+                "egnn_forward_fused": sampling["fused"]["launches"]["egnn_forward_fused"]}
+    return out, launches, {"k1": dict(k1, shape=shape), "k2": dict(k2, shape=shape)}
+
+
 def align_phase(dev, repo, posp, smiles):
     """Stage 4 on the card: the decode phase's unique valid SMILES aligned
     onto its hypothesis in run-all's chunks (first chunk apart from the
@@ -1904,7 +2179,9 @@ def run_all_phase(dev, repo):
     runs = {"msgpass": [], "keep_top_match": ["--keep-top-match", "0.25"],
             "fused": ["--engine", "fused"]}
     out = {"settings": RUN_ALL_ARGS, "pockets": RUN_ALL_POCKETS,
-           "cut_from_round_5": {"smiles_per_hypothesis": [2048, 512], "pockets": [8, 2],
+           "cut_from_round_5": {"smiles_per_hypothesis": [2048, int(RUN_ALL_ARGS[
+                                    RUN_ALL_ARGS.index("--smiles-per-hypothesis") + 1])],
+                                "pockets": [8, RUN_ALL_POCKETS],
                                 "pocket": "synthetic CA pockets, not CrossDocked test pockets"},
            "runs": {}}
     # per pocket: one sampling batch of T + 1 denoiser calls (qrun_aa: 3 GCLs)
@@ -2478,7 +2755,7 @@ def trained_sample_phars(ckpt, dev, cfg):
 def gcpg_train_checks(smiles, props, dev, tmp):
     """The GCPG at its default width: one step on the card against the CPU
     (B=8, dropout off, the same posterior draw), train-gcpg through the CLI
-    (B=128, 10 steps; and without --max-steps, its device-resident plan, on
+    (B=128, 3 steps; and without --max-steps, its device-resident plan, on
     128 molecules), warm steps timed and profiled at B=128, and
     generate from the checkpoint the CLI wrote."""
     import copy
@@ -2623,6 +2900,83 @@ def gcpg_train_checks(smiles, props, dev, tmp):
     return {"card_vs_cpu": check, "cli": cli_rec, "timing": timing, "generate": gen_rec}
 
 
+def gcpg_finetune_checks(smiles, props, dev, tmp, repo):
+    """``train-gcpg --finetune-from cmdgen_tpu_torch/assets/grun_r5cn
+    --score-only-gate`` through the CLI on the decode phase's T=0.7 SMILES
+    (grun_r5cn's own output, so every token is in its vocabulary; seeded
+    docking scores in -9..-5 as the one condition the gate keeps), B=128,
+    GCPG_FT_STEPS steps: the weights its first step starts from are the
+    shipped ones (``params.npz`` with ``train_params.npz``) array for
+    array, the model config and tokenizer the shipped ones, the AdamW
+    state this run's alone; ``generate`` reads the checkpoint it wrote."""
+    from cmdgen_tpu_torch import cli, convert
+    from cmdgen_tpu_torch.train import gcpg_train as gt
+
+    grun = repo / "cmdgen_tpu_torch" / "assets" / "grun_r5cn"
+    _, tok, shipped = convert.read_port_gcpg(grun, with_training=True)
+    unknown = sum(tok.MASK in tok.parse(s) for s in smiles)  # a token outside the vocabulary
+    reps = -(-GCPG_FT_STEPS * GCPG_TRAIN_B // len(smiles))
+    scores = np.random.RandomState(7).uniform(-9.0, -5.0, len(smiles)).tolist()
+    smi, props_json, ck = tmp / "ft_corpus.txt", tmp / "ft_props.json", tmp / "gcpg_ft"
+    smi.write_text("\n".join(smiles * reps))
+    props_json.write_text(json.dumps({k: list(v) * reps
+                                      for k, v in dict(props, Score=scores).items()}))
+    start = {}
+    real_make = gt.make_gcpg_train_step
+
+    def capturing_make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def first_step(model, *sa, **skw):
+            if not start:
+                start.update(convert.model_leaves(model))
+            return step(model, *sa, **skw)
+
+        return first_step
+
+    gt.make_gcpg_train_step = capturing_make
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            (_, ftok), ms = synced_ms(lambda: cli.main([
+                "train-gcpg", str(smi), str(ck), "--props-json", str(props_json),
+                "--finetune-from", str(grun), "--score-only-gate", "--batch-size",
+                str(GCPG_TRAIN_B), "--max-steps", str(GCPG_FT_STEPS), "--epochs", "1",
+                "--device", "cuda"]))
+    finally:
+        gt.make_gcpg_train_step = real_make
+    meta = json.loads((ck / "last.json").read_text())
+    saved = json.loads((ck / "last" / "config.json").read_text())
+    with np.load(ck / "last" / "opt_state.npz") as npz:
+        count = int(npz["count"])
+    differ = sorted(k for k in shipped if not np.array_equal(start.get(k), shipped[k]))
+    if not (unknown == 0 and sorted(start) == sorted(shipped) and not differ
+            and saved["model"] == json.loads((grun / "config.json").read_text())["model"]
+            and saved["train"]["condition_gate"] == list(gt.FINETUNE_GATE)
+            and ftok.to_list() == tok.to_list() and len(tok) == 53
+            and meta["step"] == count == GCPG_FT_STEPS and np.isfinite(meta["monitor"])):
+        raise AssertionError(f"train-gcpg --finetune-from grun_r5cn: {unknown} SMILES with a "
+                             f"token outside the vocabulary; leaves {len(start)} of "
+                             f"{len(shipped)}, apart from the shipped {differ[:5]}; {meta}; "
+                             f"AdamW count {count}")
+    posp = tmp / "ft_hyp.posp"
+    posp.write_text("AROM 0.0 0.0 0.0\nHACC 4.5 0.0 0.0\nHDON 1.0 4.0 0.5\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        res, gms = synced_ms(lambda: cli.main([
+            "generate", str(posp), str(tmp / "gen_ft"), str(ck), "--n", "64", "--no-filter",
+            "--device", "cuda"]))
+    lines = Path(res).read_text().splitlines()
+    if len(lines) != 64:
+        raise AssertionError(f"generate from the fine-tuned GCPG: {len(lines)} lines")
+    rec = {"ms": ms, "steps": meta["step"], "batch": GCPG_TRAIN_B, "loss": meta["monitor"],
+           "leaves_from_shipped": len(start), "smiles": len(smiles),
+           "smiles_with_unknown_tokens": unknown, "adamw_count": count,
+           "generate": {"ms": gms, "n": 64, "lines": len(lines)}}
+    log(f"train-gcpg --finetune-from grun_r5cn --score-only-gate: {meta['step']} steps at "
+        f"B={GCPG_TRAIN_B} in {ms:.0f} ms from the shipped weights ({len(start)} leaves), "
+        f"loss {meta['monitor']:.4f}; generate from it {gms:.0f} ms")
+    return rec
+
+
 def train_phase(dev, repo, smiles):
     """Training at the flagship family's width on the card; the ``train``
     line and the train path's K1 and K2 records (the kernels line).
@@ -2632,7 +2986,7 @@ def train_phase(dev, repo, smiles):
     of 80-130 residues, 3-8 pharmacophore points) with their size
     histogram. One train step card vs CPU (dense and K=12); warm steps
     timed and profiled (dense and K=12, B=4 and 32); 50 steps on one batch
-    (the loss falls); ``train-diffphar`` through the CLI (dense, B=4, 40
+    (the loss falls); ``train-diffphar`` through the CLI (dense, B=4, 20
     steps); ``train_diffphar`` with K=12, EMA and eval sampling every
     epoch, K1 counted in its steps (0) and sampling calls (5 x 501),
     the last call's K1 and K2 calls (recorded) against their plain
@@ -2722,6 +3076,7 @@ def train_phase(dev, repo, smiles):
         props_smiles, props = cli.read_smiles_and_props(corpus)
         log(f"train phase: DiffPhar done at {time.perf_counter() - t_phase:.1f} s")
         out["gcpg"] = gcpg_train_checks(props_smiles, props, dev, tmp)
+        out["gcpg"]["finetune"] = gcpg_finetune_checks(props_smiles, props, dev, tmp, repo)
     out["seconds"] = time.perf_counter() - t_phase
     kernels = {"k1": dict(k1, shape=shape, denoiser_vs_cpu=errs,
                           launches=sum(dp["eval_sampling_run"]["k1_launches_per_eval_sampling"])),
@@ -2820,19 +3175,22 @@ def main():
         done("train")
         parallel, parallel_launches, parallel_checks = parallel_phase(dev, repo, poses)
         done("parallel")
+        full_atom, full_atom_launches, full_atom_kernels = full_atom_phase(dev, repo, poses)
+        done("full_atom")
     run_all = run_all_phase(dev, repo)
     done("run_all")
     joint = joint_phase(dev, repo, args.timesteps)
     done("joint")
 
     def entry(name, source, replaces, flagship, main_path, run_all_path, joint_path,
-              parallel_path):
+              parallel_path, full_atom_path):
         """The kernel's line: launches, times and bound at the main path's
         (training's) shape; run-all's, the flagship checks (bf16, the
-        flagship sampling dtype, last), the joint shape's and the parallel
-        path's checks beside them; max_abs_err is the comparison nearest
-        its limit over every check."""
-        worst = max((c for chk in (*flagship, main_path, run_all_path, joint_path, parallel_path)
+        flagship sampling dtype, last), the joint shape's, the parallel
+        path's checks and the full-atom shape's beside them; max_abs_err is
+        the comparison nearest its limit over every check."""
+        worst = max((c for chk in (*flagship, main_path, run_all_path, joint_path, parallel_path,
+                                   full_atom_path)
                      for c in chk["comparisons"]),
                     key=lambda c: c["max_abs_err"] / c["tol"])
         bf16 = flagship[-1]
@@ -2852,6 +3210,9 @@ def main():
                 "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "grid")},
             "checks": flagship,
             "parallel_path": parallel_path,
+            "full_atom_shape": dict(full_atom_path["shape"], **{
+                key: full_atom_path[key] for key in (
+                    "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "comparisons")}),
         }
 
     # launches and times: training's (this slice's main path: K1 in its
@@ -2860,10 +3221,12 @@ def main():
     kernels = [
         entry("gcl_message_agg", "cmdgen_tpu_torch/csrc/egnn_msgpass.cu",
               "cmdgen_tpu/ops/egnn_msgpass.py:111", k1, train_kernels["k1"],
-              run_all["kernels"]["k1"], joint["k1"], parallel_checks["k1"]),
+              run_all["kernels"]["k1"], joint["k1"], parallel_checks["k1"],
+              full_atom_kernels["k1"]),
         entry("egnn_forward_fused", "cmdgen_tpu_torch/csrc/egnn_fused.cu",
               "cmdgen_tpu/ops/egnn_fused.py:209", k2, train_kernels["k2"],
-              run_all["kernels"]["k2"], joint["k2"], parallel_checks["k2"]),
+              run_all["kernels"]["k2"], joint["k2"], parallel_checks["k2"],
+              full_atom_kernels["k2"]),
     ]
     for kern, engine, key in zip(kernels, ("msgpass", "fused"), ("k1", "k2")):
         kern["launches_by_path"] = {
@@ -2873,9 +3236,11 @@ def main():
             "joint_sample_phars": joint["engines"][engine]["launches"][kern["name"]],
             "train": kern["launches"], "train_diffphar_steps":
                 train["diffphar"]["eval_sampling_run"]["kernel_launches_in_train_steps"],
-            "parallel": parallel_launches[kern["name"]]}
-        if not parallel_launches[kern["name"]]:
-            raise AssertionError(f"{kern['name']} was not launched on the parallel path")
+            "parallel": parallel_launches[kern["name"]],
+            "full_atom": full_atom_launches[kern["name"]]}
+        for path in ("parallel", "full_atom"):
+            if not kern["launches_by_path"][path]:
+                raise AssertionError(f"{kern['name']} was not launched on the {path} path")
         kern["joint"] = {k: joint[key][k] for k in (
             "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "comparisons")}
         kern["joint"]["shape"] = joint["config"]
@@ -2883,6 +3248,7 @@ def main():
     kernels[1]["joint"]["phases"] = joint["k2"]["phases"]
     kernels[1]["run_all_shape"]["phases"] = run_all["kernels"]["k2"]["phases"]
     kernels[1]["train_shape"]["phases"] = train_kernels["k2"]["phases"]
+    kernels[1]["full_atom_shape"]["phases"] = full_atom_kernels["k2"]["phases"]
     kernels[0]["flagship"]["stage_shares"] = k1[-1]["stage_shares"]
     kernels[0]["batch_132"] = {key: k1_wide[key] for key in (
         "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "stage_shares", "comparisons")}
@@ -2904,6 +3270,7 @@ def main():
                     "card": card}))
     log(json.dumps({"train": train, "card": card}))
     log(json.dumps({"parallel": parallel, "card": card}))
+    log(json.dumps({"full_atom": full_atom, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

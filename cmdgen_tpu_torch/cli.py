@@ -492,7 +492,10 @@ def _add_train(sub):
     q.add_argument("--batch-size", type=int, default=128)
     q.add_argument("--max-steps", type=int, default=None)
     q.add_argument("--finetune-from", default=None,
-                   help="a port GCPG checkpoint (or run directory) to start from")
+                   help="a port GCPG checkpoint (or run directory) to start from: its "
+                        "model config, tokenizer and whole weights (a decode-only "
+                        "checkpoint's training modules from its train_params.npz, as in "
+                        "cmdgen_tpu_torch/assets/grun_r5cn)")
     q.add_argument("--score-only-gate", action="store_true",
                    help="docking-finetune condition gate [0,0,0,0,0,1,0]")
     q.add_argument("--legacy-no-condition", action="store_true",

@@ -27,7 +27,9 @@ flax's other leaves: a LayerNorm ``scale`` and an Embed ``embedding``
 become ``weight``, a PReLU's scalar ``negative_slope`` the weight [1] of
 ``nn.PReLU(1)``, and other leaves (``pp_seg``, a GINE layer's ``eps``) keep
 their name. A GCPG port checkpoint's ``config.json`` holds ``model`` (the
-``GCPGModelConfig``) and ``tokenizer`` (the vocabulary list).
+``GCPGModelConfig``) and ``tokenizer`` (the vocabulary list). A decode-only
+GCPG checkpoint (``assets/grun_r5cn/``) may keep the training modules apart,
+in ``train_params.npz``, which only fine-tuning reads.
 """
 from __future__ import annotations
 
@@ -381,6 +383,8 @@ def load_port_checkpoint(ckpt_dir, device: DeviceLike = None,
 # checkpoint holds (TRAINING_MODULES serve the posterior path and training)
 DECODE_MODULES = ("cond_embedding", "pp_v_init", "pp_e_init", "pp_encoder", "pp_seg",
                   "expand", "zz_seg", "dencoder", "decoder", "word_embed", "word_pred")
+# beside a decode-only checkpoint's params.npz: the leaves of TRAINING_MODULES
+TRAIN_PARAMS = "train_params.npz"
 _GCPG_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                 "negative_slope": "weight"}
 
@@ -419,13 +423,34 @@ def build_gcpg(cfg: GCPGModelConfig, flax_params: Mapping, vocab_size: int,
     return model.to(dev).eval()
 
 
-def read_port_gcpg(ckpt_dir) -> Tuple[GCPGModelConfig, Tokenizer, Dict[str, np.ndarray]]:
+def _training_modules_missing(leaves: Mapping[str, np.ndarray]):
+    return sorted(set(TRAINING_MODULES) - {path.split("/")[0] for path in leaves})
+
+
+def read_port_gcpg(ckpt_dir, with_training: bool = False
+                   ) -> Tuple[GCPGModelConfig, Tokenizer, Dict[str, np.ndarray]]:
     """(model config, tokenizer, flattened flax params) of a GCPG port
-    checkpoint directory (or of a training run's ``best/``)."""
+    checkpoint directory (or of a training run's ``best/``).
+
+    ``with_training``: the leaves must hold the training modules
+    (``TRAINING_MODULES``) too, as fine-tuning needs. A decode-only
+    checkpoint takes them from the ``train_params.npz`` beside its
+    ``params.npz``; without that file it raises, naming the modules."""
     ckpt_dir = checkpoint_dir(ckpt_dir)
     meta = json.loads((ckpt_dir / "config.json").read_text())
+    leaves = read_leaves(ckpt_dir)
+    if with_training and _training_modules_missing(leaves):
+        extra = ckpt_dir / TRAIN_PARAMS
+        if extra.exists():
+            with np.load(extra) as npz:
+                leaves.update({k: npz[k] for k in npz.files})
+        missing = _training_modules_missing(leaves)
+        if missing:
+            raise KeyError(f"{ckpt_dir} holds the prior decode's modules only: the training "
+                           f"modules {missing} are missing, and {extra}, which would supply "
+                           f"them, is {'incomplete' if extra.exists() else 'not there'}")
     return (from_dict(GCPGModelConfig, meta["model"]), Tokenizer.from_list(meta["tokenizer"]),
-            read_leaves(ckpt_dir))
+            leaves)
 
 
 def load_port_gcpg(ckpt_dir, device: DeviceLike = None) -> Tuple[GCPG, Tokenizer]:

@@ -24,6 +24,10 @@ from cmdgen_tpu_torch.chem.features import get_features
 from cmdgen_tpu_torch.chem.sdf import read_sdf
 from cmdgen_tpu_torch.diffusion.size_prior import smoothed_size_histogram
 
+# a residue with a heavy atom within this many Å of a ligand heavy atom
+# belongs to the pocket
+POCKET_CUTOFF = 8.0
+
 
 def ligand_pharmacophores(
     mol, coords: np.ndarray, phar_encoder: Dict[str, int]
@@ -50,7 +54,7 @@ def process_complex(
     sdf_file,
     dataset: str = "crossdock_full",
     representation: str = "full-atom",
-    cutoff: float = 8.0,
+    cutoff: float = POCKET_CUTOFF,
 ):
     """One (pocket, ligand) pair -> dict of arrays, or None on failure."""
     params = DATASET_PARAMS[dataset]

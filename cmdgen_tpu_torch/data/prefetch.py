@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Callable, Iterator
 
 _SENTINEL = object()
 
@@ -35,3 +35,15 @@ def prefetch(iterator: Iterator, buffer_size: int = 4) -> Iterator:
                 raise error[0]
             return
         yield item
+
+
+class PrefetchedLoader:
+    """A loader over several epochs: ``for batch in loader.epoch():``, each
+    epoch a fresh ``make_iterator()`` behind :func:`prefetch`."""
+
+    def __init__(self, make_iterator: Callable[[], Iterator], buffer_size: int = 4):
+        self._make = make_iterator
+        self._buffer = buffer_size
+
+    def epoch(self) -> Iterator:
+        return prefetch(self._make(), self._buffer)

@@ -159,16 +159,21 @@ def train_gcpg(model_cfg: GCPGModelConfig, train_cfg: GCPGTrainConfig,
     """Train the GCPG on ``smiles_list`` (with ``properties``, the dataset's
     property columns), writing checkpoints with the tokenizer to
     ``out_dir``. ``finetune_from``: a port GCPG checkpoint (or run
-    directory, for its ``last/``) whose weights and tokenizer start the
-    run. ``gen_eval_every``: epochs between in-training generation evals
-    (``pipeline.evaluate.eval_gcpg`` on ``val_smiles``). Without
-    ``max_steps`` a corpus whose pre-drawn variants fit 1.5 GB trains from
-    rows on the device (``resident_data``). Returns (model, tokenizer)."""
+    directory, for its ``last/``) whose model config, whole weights
+    (``read_port_gcpg`` with the training modules) and tokenizer start the
+    run, with a fresh AdamW state (a token outside its vocabulary reads as
+    ``<mask>``): a fine-tune keeps its checkpoint's architecture, and
+    ``model_cfg`` is not read then. ``gen_eval_every``: epochs between
+    in-training generation evals (``pipeline.evaluate.eval_gcpg`` on
+    ``val_smiles``). Without ``max_steps`` a corpus whose pre-drawn
+    variants fit 1.5 GB trains from rows on the device
+    (``resident_data``). Returns (model, tokenizer)."""
     dev = resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     if finetune_from is not None:
-        _, tokenizer, leaves = convert.read_port_gcpg(_finetune_dir(finetune_from))
+        model_cfg, tokenizer, leaves = convert.read_port_gcpg(_finetune_dir(finetune_from),
+                                                              with_training=True)
     else:
         tokenizer = Tokenizer(gen_vocabs(smiles_list))
     data = GCPGSmilesDataset(smiles_list, properties, tokenizer, max_len=model_cfg.max_len,

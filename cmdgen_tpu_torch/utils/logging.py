@@ -1,5 +1,6 @@
 """Metrics logging (counterpart of ``cmdgen_tpu/utils/logging.py``): one JSON
-object per line in ``{run_name}.metrics.jsonl``, echoed to stderr."""
+object per line in ``{run_name}.metrics.jsonl``, echoed to stderr; and a
+PNG render of one point cloud."""
 from __future__ import annotations
 
 import json
@@ -39,3 +40,29 @@ class MetricsLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def visualize_molecule_png(out_path, coords, types=None, type_names=None, title: str = ""):
+    """A 3-D scatter of one point cloud ([N, 3] coordinates, optional [N]
+    class indices coloured per class and named by ``type_names``) written
+    to ``out_path`` as a PNG."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import numpy as np
+
+    coords = np.asarray(coords)
+    fig = plt.figure(figsize=(6, 6))
+    ax = fig.add_subplot(111, projection="3d")
+    if types is not None:
+        types = np.asarray(types)
+        for t in np.unique(types):
+            sel = types == t
+            ax.scatter(*coords[sel].T, label=type_names[int(t)] if type_names else str(t), s=60)
+        ax.legend(loc="upper right", fontsize=8)
+    else:
+        ax.scatter(*coords.T, s=60)
+    ax.set_title(title)
+    fig.savefig(out_path, dpi=120, bbox_inches="tight")
+    plt.close(fig)

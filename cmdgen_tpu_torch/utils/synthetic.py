@@ -1,10 +1,13 @@
 """Synthetic-but-realistic geometry generators for benchmarks and tests
 (a copy of ``cmdgen_tpu/utils/synthetic.py``), and writers of the files
-the evaluation harnesses read: a DiffPhar test npz of synthetic complexes
-and a pose PDB of one ligand."""
+the evaluation harnesses and ``preprocess`` read: a DiffPhar test npz of
+synthetic complexes, a pose PDB of one ligand and a full-atom pocket PDB
+around a ligand."""
 from __future__ import annotations
 
 import numpy as np
+
+from cmdgen_tpu_torch.data.crossdocked import POCKET_CUTOFF
 
 
 def realistic_ca_pocket(rng: np.random.RandomState, n: int,
@@ -93,3 +96,79 @@ def ligand_pdb(symbols, coords, res_name: str = "LIG", chain: str = "L",
                     f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}{1.0:6.2f}{0.0:6.2f}"
                     f"          {el:>2}")
     return "\n".join(rows + ["END"]) + "\n"
+
+
+# heavy side-chain atoms of each amino acid after the backbone's N, CA, C, O
+# (PDB atom names; the element is the name's first letter)
+SIDE_CHAINS = {
+    "ALA": ("CB",), "ARG": ("CB", "CG", "CD", "NE", "CZ", "NH1", "NH2"),
+    "ASN": ("CB", "CG", "OD1", "ND2"), "ASP": ("CB", "CG", "OD1", "OD2"),
+    "CYS": ("CB", "SG"), "GLN": ("CB", "CG", "CD", "OE1", "NE2"),
+    "GLU": ("CB", "CG", "CD", "OE1", "OE2"), "GLY": (),
+    "HIS": ("CB", "CG", "ND1", "CD2", "CE1", "NE2"), "ILE": ("CB", "CG1", "CG2", "CD1"),
+    "LEU": ("CB", "CG", "CD1", "CD2"), "LYS": ("CB", "CG", "CD", "CE", "NZ"),
+    "MET": ("CB", "CG", "SD", "CE"), "PHE": ("CB", "CG", "CD1", "CD2", "CE1", "CE2", "CZ"),
+    "PRO": ("CB", "CG", "CD"), "SER": ("CB", "OG"), "THR": ("CB", "OG1", "CG2"),
+    "TRP": ("CB", "CG", "CD1", "CD2", "NE1", "CE2", "CE3", "CZ2", "CZ3", "CH2"),
+    "TYR": ("CB", "CG", "CD1", "CD2", "CE1", "CE2", "CZ", "OH"),
+    "VAL": ("CB", "CG1", "CG2"),
+}
+
+
+def _unit(rng):
+    v = rng.randn(3)
+    return v / (np.linalg.norm(v) + 1e-9)
+
+
+def full_atom_pocket_pdb(rng: np.random.RandomState, ligand_symbols, ligand_coords,
+                         n_residues: int, max_atoms: int):
+    """(PDB text, pocket heavy atoms) of a synthetic full-atom pocket around
+    a ligand, whose heavy atoms follow as HETATM ``LIG`` at ``L:1``.
+
+    ``n_residues`` residues of random types (chain A), their CAs from
+    :func:`realistic_ca_pocket` 4.5-13 Å around the ligand's centroid; each
+    has its backbone N, CA, C and O and its side chain's heavy atoms
+    (``SIDE_CHAINS``; elements N, C, O, S) stepping from the CA toward the
+    nearest ligand heavy atom, stopping 3.5 Å short of it. Only residues
+    with an atom within preprocessing's ``POCKET_CUTOFF`` Å of a ligand
+    heavy atom are written, so that rule and ``--ref-ligand L:1`` keep
+    every one; the farthest go first until at most ``max_atoms`` pocket
+    atoms remain."""
+    lig = np.asarray(ligand_coords, dtype=np.float64)
+    heavy = lig[[el != "H" for el in ligand_symbols]]
+    names = list(SIDE_CHAINS)
+    ca = realistic_ca_pocket(rng, n_residues, r_lo=4.5, r_hi=13.0, min_sep=3.4).astype(
+        np.float64) + heavy.mean(0)
+    residues = []
+    for p in ca:
+        res = names[rng.randint(len(names))]
+        d = np.linalg.norm(heavy - p, axis=1)
+        u = (heavy[d.argmin()] - p) / max(d.min(), 1e-6)
+        side = SIDE_CHAINS[res]
+        reach = np.clip(d.min() - 3.5, 1.5, 1.5 * max(len(side), 1))
+        c = p + 1.52 * _unit(rng)
+        atoms = [("N", p + 1.46 * _unit(rng)), ("CA", p), ("C", c), ("O", c + 1.23 * _unit(rng))]
+        atoms += [(a, p + u * reach * (k + 1) / len(side) + 0.4 * rng.randn(3))
+                  for k, a in enumerate(side)]
+        xyz = np.stack([x for _, x in atoms])
+        near = np.linalg.norm(xyz[:, None] - heavy[None], axis=-1).min()
+        if near < POCKET_CUTOFF:
+            residues.append((near, res, atoms))
+    residues.sort(key=lambda r: r[0])
+    while sum(len(r[2]) for r in residues) > max_atoms:
+        residues.pop()
+
+    def line(rec, serial, name, resn, chain, resid, xyz, elem):
+        return (f"{rec:<6}{serial:>5} {name:<4} {resn:>3} {chain}{resid:>4}    "
+                f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}{1.0:6.2f}{0.0:6.2f}"
+                f"          {elem:>2}")
+
+    rows = []
+    for j, (_, res, atoms) in enumerate(residues):
+        rows += [line("ATOM", len(rows) + 1, name, res, "A", j + 1, xyz, name[0])
+                 for name, xyz in atoms]
+    n_atoms = len(rows)
+    rows += [line("HETATM", n_atoms + k + 1, f"{el}{k + 1}"[:4], "LIG", "L", 1, xyz, el)
+             for k, (el, xyz) in enumerate(
+                 (el, x) for el, x in zip(ligand_symbols, lig) if el != "H")]
+    return "\n".join(rows + ["END"]) + "\n", n_atoms
