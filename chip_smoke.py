@@ -38,6 +38,20 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    widths in float32, and the chain sampler (the reference's: ancestral
    whatever ``ddim_eta`` is) on the card against the CPU, and under
    ``ddim_eta`` against the ancestral chain, bit for bit;
+   Then the ``widths`` phase (``widths_phase``): K1 and K2 against their
+   plain versions at the flagship geometry at float32 H=100, 192, 384 and
+   bf16 H=48, 320, 384, each timed beside the same kernel at the next
+   width it took before every width was (float32 128, 256, 512; bf16 64;
+   K2 at bf16 past 256: its H=256 time scaled by (H/256)^2), both routes at
+   bf16 H=256, and at the cutoff-exact full-atom shape (16 samples of
+   16 + 506 rows, K=160, H=256, float32, 3 layers); K2's bf16
+   displacement is held by fixed limits (BF16_DX_LIMITS) to the bf16 and
+   the float32 plain versions, beside the readings of seeded faults; then
+   ``sample_given_pocket`` at B=48, T=10 through both engines on seeded
+   ``ca_config`` models of hidden 192 (float32) and 384 (bf16), launches
+   counted and the first denoiser call card vs CPU on all 48 samples
+   (bf16: against the CPU's bf16 and float32 denoisers,
+   BF16_DENOISER_LIMITS);
 7. stage 3, GCPG decode: the trained ``grun_r5cn`` weights decode the
    consensus phase's GMM hypothesis at B=512 (run-all's decode batch),
    sampled at T=1, unconstrained, constrained and with the valence state
@@ -138,7 +152,8 @@ sampling's shape, ``train_shape`` with ``kernel_ms`` there;
 ``run_all_shape``: run-all's; ``flagship``: step 2's bf16 times;
 ``joint``: step 11's; ``launches_by_path``: every path's, step 13's
 under ``parallel`` and step 14's under ``full_atom``; step 13's checks
-under ``parallel_path``; ``full_atom_shape``: step 14's checks and times),
+under ``parallel_path``; ``full_atom_shape``: step 14's checks and times;
+``widths``: the widths phase's), a ``widths`` JSON line (its sampling runs),
 the throughput, a ``consensus`` JSON line, a ``decode`` JSON line, an
 ``align`` JSON line, a ``run_all`` JSON line, an ``evaluate``, a
 ``joint``, a ``train``, a ``parallel`` and a ``full_atom`` JSON line, the
@@ -183,6 +198,17 @@ TOL_REL_FUSED = {"float32": {"h": 1e-4, "dx": 1e-4},
 # trained denoiser's outputs, card vs CPU plain (float32), absolute
 RADIUS = 30.0
 DENOISER_TOL = 1e-3
+# bf16 at the widths phase's widths, fixed limits set from this script's
+# readings on an H100 (PERF.md, Findings): above every sound reading (the
+# kernel; the bf16 plain version or the CPU's bf16 denoiser against
+# float32), below the seeded faults' (seeded_column_fault) that they can
+# see. There K2's displacement strays from the bf16 plain version past the
+# stated 4e-3, and the sampler's bf16 denoiser from the CPU's past 1e-3,
+# by the rounding noise of bf16 alone: each is held to the bf16 version on
+# the same inputs and to the float32 one, relative to max|ref| (K2) or
+# absolute (the denoiser)
+BF16_DX_LIMITS = {"bf16 plain": 3e-2, "float32": 0.1}
+BF16_DENOISER_LIMITS = {"bf16": 0.035, "float32": 0.04}
 B, N_P, N_Q, K, H, L = 48, 8, 110, 12, 256, 5
 # consensus phase: clouds sampled (about 5 points each), card vs CPU limit
 # (relative to max|CPU value|, same explicit initialisation), and the
@@ -275,6 +301,19 @@ FA_DENSE_ATOMS = (192, 352, 512)
 FA_RESIDUES = 80  # residues drawn around a ligand before the 8 A rule and the cap
 # train-gcpg --finetune-from the shipped grun_r5cn: steps at GCPG_TRAIN_B
 GCPG_FT_STEPS = 3
+# widths phase: K1 and K2 at the flagship geometry at widths that are not
+# a power of two (float32) or a multiple of 32 (bf16), or past 256 (bf16),
+# each beside the same kernel at the next width it took before every width
+# was (K2 at bf16 past 256 has none: its H=256 time scaled by (H/256)^2);
+# K1 and K2 at the cutoff-exact full-atom shape (full_atom_config's 6 A
+# cutoff: K=160 bounds every receiver's in-cutoff count); the sampling
+# path at WIDTH_T steps through both engines at two of these widths
+WIDTHS = {"float32": (100, 192, 384), "bfloat16": (48, 320, 384)}
+NEXT_WIDTH = {("float32", 100): 128, ("float32", 192): 256, ("float32", 384): 512,
+              ("bfloat16", 48): 64}
+WIDTH_SAMPLING = (("float32", 192), ("bfloat16", 384))
+WIDTH_T = 10
+FA_CUT_B, FA_CUT_K, FA_CUT_ATOMS = 16, 160, 506
 
 
 def log(*a):
@@ -339,6 +378,26 @@ def compare(name, out, ref, rel):
             "ref_mean_abs": ref.float().abs().mean().item()}
 
 
+def seeded_column_fault(dyn, linear, hidden):
+    """A copy of the dynamics ``dyn`` with the last real output column of
+    every layer's ``linear`` (``edge_out`` or ``coord_mid``) zeroed, as a
+    kernel that dropped that column at a padded width would compute: a
+    seeded fault for the bf16 limits' readings."""
+    import copy
+
+    import torch
+
+    faulty = copy.deepcopy(dyn)
+    with torch.no_grad():
+        for mod in faulty.modules():
+            lin = getattr(mod, linear, None)
+            if isinstance(lin, torch.nn.Linear):
+                lin.weight[hidden - 1] = 0
+                if lin.bias is not None:
+                    lin.bias[hidden - 1] = 0
+    return faulty
+
+
 def flagship_geometry(seed, b, dev):
     """Pockets of 110 CA atoms (realistic_ca_pocket) and 8 pharmacophore
     points near their centre: (pocket PointCloud, x [B,N,3], edge_mask)."""
@@ -360,18 +419,20 @@ def flagship_geometry(seed, b, dev):
     return pocket, x, edge_mask
 
 
-def flagship_dynamics(dev, dtype, joint=False):
-    """The flagship configuration (``ca_config`` with K=12 in ``dtype``)
-    and its dynamics with seeded weights on ``dev``; ``joint``: the joint
-    model's (``train.mode="joint"``, ``update_pocket_coords``), the same
-    weights. Returns (config, dynamics)."""
+def flagship_dynamics(dev, dtype, joint=False, hidden=H):
+    """The flagship configuration (``ca_config`` with K=12 in ``dtype``, of
+    width ``hidden``) and its dynamics with seeded weights on ``dev``;
+    ``joint``: the joint model's (``train.mode="joint"``,
+    ``update_pocket_coords``), the same weights. Returns (config,
+    dynamics)."""
     import dataclasses
 
     from cmdgen_tpu_torch.config import ca_config
     from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
 
     cfg = ca_config()
-    egnn = dataclasses.replace(cfg.dynamics.egnn, compute_dtype=dtype, neighbor_k=K)
+    egnn = dataclasses.replace(cfg.dynamics.egnn, compute_dtype=dtype, neighbor_k=K,
+                               hidden_nf=hidden)
     dyn_cfg = dataclasses.replace(cfg.dynamics, egnn=egnn, update_pocket_coords=joint)
     cfg = dataclasses.replace(cfg, dynamics=dyn_cfg)
     if joint:
@@ -417,8 +478,8 @@ def k2_work(b, n, r, k, h, layers, es):
     return b * layers * per_layer, nbytes
 
 
-def check_k1(dev, dtype_name, b=B):
-    """K1's wrapper at the flagship shape (batch b) on layer-0 weights,
+def check_k1(dev, dtype_name, b=B, h=H, route=None):
+    """K1's wrapper at the flagship shape (batch b, width h) on layer-0 weights,
     called as the msgpass engine calls it (``models/egnn.py: GCL``): the
     transposed ``nn.Linear`` weights as they lie, radial and dist0 as slices
     of the edge features in the compute dtype, kmask in it too, int64
@@ -426,7 +487,8 @@ def check_k1(dev, dtype_name, b=B):
     entry ones, so the two edge-feature rows are told apart. Kernel vs
     plain; times the wrapper (``ms``) and the kernel alone on prepared
     arguments (``kernel_ms``), reports the grid and each stage's share of
-    block 0's clock."""
+    block 0's clock. ``route``: ``launch_plan``'s (the wrapper then is
+    ``prepare_launch`` on that route)."""
     import torch
 
     from cmdgen_tpu_torch.models.egnn import build_neighbor_list
@@ -435,7 +497,7 @@ def check_k1(dev, dtype_name, b=B):
         stage_shares)
 
     cdt = getattr(torch, dtype_name)
-    _, dyn = flagship_dynamics(dev, cdt)
+    _, dyn = flagship_dynamics(dev, cdt, hidden=h)
     gcl = dyn.egnn.e_block_0.gcl_0
     _, x0, edge_mask = flagship_geometry(1, b, dev)
     g = torch.Generator(device=dev).manual_seed(2)
@@ -444,19 +506,25 @@ def check_k1(dev, dtype_name, b=B):
     radial = ((x[:, :, None] - gather_rows(x, idx)) ** 2).sum(-1, keepdim=True)
     dist0 = ((x0[:, :, None] - gather_rows(x0, idx)) ** 2).sum(-1, keepdim=True)
     edge_attr = torch.cat([radial.to(cdt), dist0.to(cdt)], dim=-1)
-    h = torch.randn(b, N_P + N_Q, H, generator=g, device=dev)
-    wi, wj = gcl.edge_in.project(h, cdt)
+    hin = torch.randn(b, N_P + N_Q, h, generator=g, device=dev)
+    wi, wj = gcl.edge_in.project(hin, cdt)
     args = (wi, wj, idx, edge_attr[..., 0], edge_attr[..., 1], kmask.to(cdt),
             gcl.edge_in.w_e.weight.t(), gcl.edge_out.weight.t(),
-            gcl.edge_out.bias, (gcl.att.weight.reshape(H), gcl.att.bias), 100.0, cdt)
-    log(f"K1 {dtype_name} B={b}:")
+            gcl.edge_out.bias, (gcl.att.weight.reshape(h), gcl.att.bias), 100.0, cdt)
+    log(f"K1 {dtype_name} B={b} H={h}" + (f" on the {route} route:" if route else ":"))
+
+    def wrapper():
+        if route is None:
+            return gcl_message_agg(*args)
+        return prepare_launch(*args, route=route)()
+
     with torch.no_grad():
-        out = gcl_message_agg(*args)
+        out = wrapper()
         ref = gcl_message_agg_plain(*args)
         torch.cuda.synchronize()
         checks = [compare("agg", out, ref, TOL_REL[dtype_name])]
-        ms = cuda_ms(lambda: gcl_message_agg(*args), 50)
-        run = prepare_launch(*args)
+        ms = cuda_ms(wrapper, 50)
+        run = prepare_launch(*args, route=route)
         kernel_ms = cuda_ms(run, 100)
         stamps = torch.zeros(len(STAGES) + 1, dtype=torch.int64, device=dev)
         run(stamps)
@@ -465,34 +533,45 @@ def check_k1(dev, dtype_name, b=B):
     plan = run.plan
     grid = {"blocks": plan["grid"], "threads": 512, "route": plan["route"],
             "receivers_per_item": plan["receivers"], "items": plan["items"],
-            "units": plan["units"]}
+            "units": plan["units"], "rows": plan["rows"], "hp": plan["hp"]}
     log(f"  grid: {grid}")
     es = 4 if dtype_name == "float32" else 2
-    flops, nbytes = k1_work(b, N_P + N_Q, K, H, es)
+    flops, nbytes = k1_work(b, N_P + N_Q, K, h, es)
     out = timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
     log(f"  kernel alone: kernel_ms={kernel_ms:.4f} ({kernel_ms / out['bound_ms']:.1f}x its bound)")
     log(f"  stages, share of block 0's clock over its {stages['tiles']} tiles "
         f"(ms at kernel_ms): " + ", ".join(
             f"{name} {stages[name]:.1%} ({stages[name] * kernel_ms:.4f})" for name in STAGES))
-    out.update(kernel_ms=kernel_ms, grid=grid, batch=b, stage_shares=stages)
+    out.update(kernel_ms=kernel_ms, grid=grid, batch=b, hidden=h, stage_shares=stages)
     return out
 
 
-def check_k2(dev, dtype_name, b=B):
-    """K2's wrapper at the flagship shape (batch b), on the inputs the fused
+def check_k2(dev, dtype_name, b=B, hidden=H, bf16_limits=False, route=None):
+    """K2's wrapper at the flagship shape (batch b, width hidden), on the inputs the fused
     engine gives it (``make_fused_apply``: float32 type encoders, the 6 Å
     cutoff, pocket rows held): kernel vs plain. h and the displacement
-    x_out - x_in are compared each on its own scale. Times the wrapper
-    (``ms``: neighbor list, embeddings and the kernel) and the kernel alone
-    (``kernel_ms``: ``_layers_kernel``), and reports the grid it launched."""
+    x_out - x_in are compared each on its own scale; in bf16 with
+    ``bf16_limits`` the displacement is held by BF16_DX_LIMITS, to the
+    bf16 plain version and to the float32 one, beside the readings of
+    seeded faults (``seeded_column_fault``). Times the
+    wrapper (``ms``: neighbor list, embeddings and the kernel) and the
+    kernel alone (``kernel_ms``: ``_layers_kernel``), and reports the grid
+    it launched. ``route``: ``launch_plan``'s (the wrapper then is the
+    fused forward with ``_layers_kernel`` on that route)."""
+    import functools
+
     import torch
 
+    from cmdgen_tpu_torch.ops import egnn_fused as ef
     from cmdgen_tpu_torch.ops.egnn_fused import (
         PHASES, _layers_kernel, egnn_forward_fused, egnn_forward_fused_plain, fused_params,
         layer_args, phase_shares)
 
+    layers = functools.partial(_layers_kernel, route=route)
+    fused = (egnn_forward_fused if route is None
+             else lambda *a, **k: ef._forward(layers, *a, **k))
     cdt = getattr(torch, dtype_name)
-    _, dyn = flagship_dynamics(dev, cdt)
+    _, dyn = flagship_dynamics(dev, cdt, hidden=hidden)
     ecfg = dyn.cfg.egnn
     params = fused_params(dyn.egnn, cdt)
     pocket, x, _ = flagship_geometry(3, b, dev)
@@ -511,9 +590,9 @@ def check_k2(dev, dtype_name, b=B):
               norm_constant=ecfg.norm_constant, coords_range=ecfg.coords_range,
               normalization_factor=ecfg.normalization_factor, tanh=ecfg.tanh,
               update_rows=N_P, compute_dtype=cdt)
-    log(f"K2 {dtype_name} B={b}:")
+    log(f"K2 {dtype_name} B={b} H={hidden}" + (f" on the {route} route:" if route else ":"))
     with torch.no_grad():
-        oh, ox = egnn_forward_fused(*args, **kw)
+        oh, ox = fused(*args, **kw)
         rh, rx = egnn_forward_fused_plain(*args, **kw)
         torch.cuda.synchronize()
         grid = dict(egnn_forward_fused.last_grid)
@@ -523,8 +602,10 @@ def check_k2(dev, dtype_name, b=B):
         if not torch.equal(ox[:, N_P:], x[:, N_P:]):
             raise AssertionError(f"K2 {dtype_name} moved pocket rows")
         rel = TOL_REL_FUSED[dtype_name]
-        checks = [compare("h", oh, rh, rel["h"]),
-                  compare("dx", ox[:, :N_P] - x[:, :N_P], rx[:, :N_P] - x[:, :N_P], rel["dx"])]
+
+        def dx(xx):
+            return xx[:, :N_P] - x[:, :N_P]
+
         vs_f32 = None
         if cdt != torch.float32:
             # both bf16 versions against the float32 plain version: the
@@ -535,28 +616,45 @@ def check_k2(dev, dtype_name, b=B):
             def rel_err(o, r):
                 return (o - r).abs().max().item() / r.abs().max().item()
 
-            def dx(xx):
-                return xx[:, :N_P] - x[:, :N_P]
-
             vs_f32 = {who: [rel_err(hh, th), rel_err(dx(xx), dx(tx))]
                       for who, hh, xx in (("kernel", oh, ox), ("plain", rh, rx))}
+        checks = [compare("h", oh, rh, rel["h"])]
+        if bf16_limits and vs_f32 is not None:
+            checks += [compare("dx", dx(ox), dx(rx), BF16_DX_LIMITS["bf16 plain"]),
+                       compare("dx vs float32", dx(ox), dx(tx), BF16_DX_LIMITS["float32"])]
+            # what seeded faults read on the same scales (h, dx; against
+            # the bf16 plain version, then float32)
+            readings = {"bf16 plain vs float32": vs_f32["plain"]}
+            for linear in ("edge_out", "coord_mid"):
+                q = fused_params(seeded_column_fault(dyn, linear, hidden).egnn, cdt)
+                fh, fx = egnn_forward_fused_plain(q, *args[1:], **kw)
+                readings[f"fault {linear} column {hidden - 1}"] = [
+                    rel_err(fh, rh), rel_err(dx(fx), dx(rx)), rel_err(fh, th), rel_err(dx(fx), dx(tx))]
+            log("  readings, of max|ref| (h, dx vs the bf16 plain version; h, dx vs float32): "
+                + "; ".join(f"{k} " + ", ".join(f"{v:.3e}" for v in vals)
+                            for k, vals in readings.items()))
+            checks[-1]["readings"] = readings
+        else:
+            checks.append(compare("dx", dx(ox), dx(rx), rel["dx"]))
+        if vs_f32 is not None:
             log(f"  relative to the float32 plain version (h, dx): kernel "
                 f"{vs_f32['kernel'][0]:.2e}, {vs_f32['kernel'][1]:.2e}; bf16 plain "
                 f"{vs_f32['plain'][0]:.2e}, {vs_f32['plain'][1]:.2e}")
-        ms = cuda_ms(lambda: egnn_forward_fused(*args, **kw), 10)
+        ms = cuda_ms(lambda: fused(*args, **kw), 10)
         largs = layer_args(*args[:5], **kw)
-        kernel_ms = cuda_ms(lambda: _layers_kernel(*largs), 20)
+        kernel_ms = cuda_ms(lambda: layers(*largs), 20)
         stamps = torch.zeros(1 + len(PHASES) * L, dtype=torch.int64, device=dev)
-        _layers_kernel(*largs, stamps=stamps)
+        layers(*largs, stamps=stamps)
         phases = phase_shares(stamps)
         plain_ms = cuda_ms(lambda: egnn_forward_fused_plain(*args, **kw), 5)
     es = 4 if dtype_name == "float32" else 2
-    flops, nbytes = k2_work(b, n, N_P, K, H, L, es)
+    flops, nbytes = k2_work(b, n, N_P, K, hidden, L, es)
     out = timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
     log(f"  kernel alone: kernel_ms={kernel_ms:.4f} ({kernel_ms / out['bound_ms']:.1f}x its bound)")
     log("  phases, share of one launch's clock (ms at kernel_ms): " + ", ".join(
         f"{name} {v:.1%} ({v * kernel_ms:.3f})" for name, v in phases.items()))
-    out.update(kernel_ms=kernel_ms, grid=grid, batch=b, phases=phases, vs_f32=vs_f32)
+    out.update(kernel_ms=kernel_ms, grid=grid, batch=b, hidden=hidden, phases=phases,
+               vs_f32=vs_f32)
     return out
 
 
@@ -1304,6 +1402,198 @@ def options_phase(dev, repo):
         raise AssertionError("the chain sampler disagrees with the CPU or follows ddim_eta")
     return {"card_vs_cpu": errs, "k1_launches": launches, "chain_card_vs_cpu": chain_err,
             "chain_ancestral_under_ddim": ancestral, "frames": list(frames.shape)}
+
+
+def widths_phase(dev, k1_flagship, k2_flagship):
+    """K1 and K2 at every kind of width they take (WIDTHS, NEXT_WIDTH):
+    each against its plain version at the flagship geometry (B=48, N=118,
+    K=12, 5 layers; K2's bf16 displacement by BF16_DX_LIMITS) and timed
+    beside the next width's time; at bf16 H=256
+    also on the block_gemm route (``route="block_gemm"``), the route past
+    256, beside the mma route's time (``k1_flagship`` and ``k2_flagship``:
+    the kernels phase's bf16 checks); at the cutoff-exact full-atom shape;
+    then ``sample_given_pocket`` at B=48, T=WIDTH_T through both engines on
+    seeded ``ca_config`` models of WIDTH_SAMPLING's widths, launches counted
+    (5 K1 launches a denoiser call, 1 K2) and the first call's denoiser on
+    the card against the CPU's over all B samples (float32: DENOISER_TOL;
+    bf16: BF16_DENOISER_LIMITS). Returns the
+    ``widths`` record: {"k1": ..., "k2": ..., "sampling": ...}."""
+    import dataclasses
+
+    import torch
+
+    from cmdgen_tpu_torch import config as cfgmod
+    from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
+    from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, make_fused_apply
+    from cmdgen_tpu_torch.ops import egnn_msgpass as mp
+    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
+    from cmdgen_tpu_torch.utils.synthetic import full_atom_pocket_pdb
+
+    t0 = time.perf_counter()
+    keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "comparisons")
+    out = {"k1": {"widths": []}, "k2": {"widths": []}}
+
+    def k2_check(dev, dtype_name, b, h, route=None):
+        return check_k2(dev, dtype_name, b, h, bf16_limits=True, route=route)
+
+    for dtype_name, widths in WIDTHS.items():
+        for h in widths:
+            for key, check in (("k1", check_k1), ("k2", k2_check)):
+                rec = check(dev, dtype_name, B, h)
+                row = {"dtype": dtype_name, "hidden": h, **{k: rec[k] for k in keys},
+                       "grid": rec["grid"]}
+                nxt = NEXT_WIDTH.get((dtype_name, h))
+                if nxt is not None:
+                    row["next_hidden"] = nxt
+                    row["next_kernel_ms"] = check(dev, dtype_name, B, nxt)["kernel_ms"]
+                elif key == "k2":  # bf16 past 256: no width K2 took before
+                    row["next_hidden"] = f"256 scaled by (H/256)^2 = {(h / 256) ** 2:.4g}"
+                    row["next_kernel_ms"] = k2_flagship["kernel_ms"] * (h / 256) ** 2
+                else:  # K1 took bf16 320 and 384 before (H % 32 == 0, H <= 512)
+                    row["next_hidden"] = None
+                if row["next_hidden"] is not None:
+                    row["vs_next"] = row["kernel_ms"] / row["next_kernel_ms"]
+                log(f"widths {key} {dtype_name} H={h}: kernel_ms={row['kernel_ms']:.4f} "
+                    f"bound_ms={row['bound_ms']:.5f} plain_ms={row['plain_ms']:.4f} "
+                    f"next ({row['next_hidden']}): {row.get('next_kernel_ms')} "
+                    f"ratio {row.get('vs_next')} ({time.perf_counter() - t0:.1f} s)")
+                out[key]["widths"].append(row)
+
+    # both routes at the one bf16 width where both run
+    for key, check, ref in (("k1", check_k1, k1_flagship), ("k2", k2_check, k2_flagship)):
+        rec = check(dev, "bfloat16", B, H, route="block_gemm")
+        out[key]["block_gemm_route_at_256"] = {
+            "kernel_ms": rec["kernel_ms"], "mma_route_kernel_ms": ref["kernel_ms"],
+            "ratio": rec["kernel_ms"] / ref["kernel_ms"], "comparisons": rec["comparisons"],
+            "grid": rec["grid"]}
+        log(f"widths {key} bf16 H=256 on the block_gemm route: kernel_ms="
+            f"{rec['kernel_ms']:.4f}, the mma route's {ref['kernel_ms']:.4f}")
+
+    # the cutoff-exact full-atom shape: full_atom_config (hidden 256, 3
+    # layers, float32, 6 A cutoff) with K=160 over 16 + 506 rows
+    cfg = cfgmod.full_atom_config()
+    ecfg = dataclasses.replace(cfg.dynamics.egnn, neighbor_k=FA_CUT_K)
+    dyn = EGNNDynamics(dataclasses.replace(cfg.dynamics, egnn=ecfg))
+    seeded_init(dyn, seed=0)
+    dyn = dyn.to(dev).eval()
+    rng = np.random.RandomState(21)
+    n_q = FA_CUT_ATOMS
+    xq = np.zeros((FA_CUT_B, n_q, 3))
+    mq = np.zeros((FA_CUT_B, n_q))
+    for i in range(FA_CUT_B):  # pockets around a ligand-sized blob at the origin
+        lig = rng.randn(24, 3) * 2.0
+        pdb, _ = full_atom_pocket_pdb(rng, ["C"] * 24, lig - lig.mean(0), 160, n_q)
+        xyz = np.array([[float(line[30:38]), float(line[38:46]), float(line[46:54])]
+                        for line in pdb.splitlines() if line.startswith("ATOM")])
+        xq[i, :len(xyz)], mq[i, :len(xyz)] = xyz, 1.0
+    xh_q = np.concatenate([xq, np.eye(11)[rng.randint(0, 11, (FA_CUT_B, n_q))]], -1)
+    xh_p = np.concatenate([rng.randn(FA_CUT_B, 16, 3) * 2.0,
+                           np.eye(8)[rng.randint(0, 8, (FA_CUT_B, 16))]], -1)
+    inputs = [torch.tensor(v, dtype=torch.float32, device=dev) for v in
+              (xh_p, xh_q, rng.rand(FA_CUT_B, 1), np.ones((FA_CUT_B, 16)), mq)]
+    x_all = torch.cat([inputs[0][..., :3], inputs[1][..., :3]], 1)
+    m_all = torch.cat([inputs[3], inputs[4]], 1)
+    d2 = ((x_all[:, :, None] - x_all[:, None]) ** 2).sum(-1)
+    in_cutoff = ((d2 <= cfg.dynamics.edge_cutoff ** 2) * m_all[:, :, None] * m_all[:, None]).sum(-1)
+    max_in_cutoff = int(in_cutoff.max().item())
+    if max_in_cutoff > FA_CUT_K:
+        raise AssertionError(f"full-atom widths shape: {max_in_cutoff} rows within the cutoff "
+                             f"of one receiver, more than K={FA_CUT_K}: the list is not exact")
+    _, k1_calls, k2_calls = recorded_kernel_calls(
+        {"msgpass": dyn, "fused": make_fused_apply(dyn)}, {0: inputs})
+    k1_checks, k2_checks = check_kernel_calls(k1_calls, k2_calls, "float32")
+    k1, k2 = time_kernel_calls(k1_calls[0], k2_calls[0], "float32", ecfg, k1_checks, k2_checks)
+    shape = {"batch": FA_CUT_B, "rows": [16, n_q], "neighbor_k": FA_CUT_K, "hidden": ecfg.hidden_nf,
+             "layers": ecfg.n_layers, "dtype": "float32", "max_in_cutoff": max_in_cutoff,
+             "pocket_atoms": [int(m.sum()) for m in mq]}
+    for key, rec in (("k1", k1), ("k2", k2)):
+        out[key]["full_atom_cutoff_exact"] = dict(shape, **{k: rec[k] for k in keys})
+    log(f"widths full-atom cutoff-exact {shape}: K1 kernel_ms={k1['kernel_ms']:.4f}, "
+        f"K2 kernel_ms={k2['kernel_ms']:.4f} ({time.perf_counter() - t0:.1f} s)")
+
+    # the sampling path at two of the widths, both engines
+    sampling, res = {}, []
+    for dtype_name, hidden in WIDTH_SAMPLING:
+        cdt = getattr(torch, dtype_name)
+        cfg, dyn = flagship_dynamics(dev, cdt, hidden=hidden)
+        pocket, _, _ = flagship_geometry(5, B, dev)
+        num_nodes = torch.full((B,), N_P, device=dev)
+        rec = {"launches": {}}
+        recorded = None
+        for engine in ("msgpass", "fused"):
+            model = ConditionalDDPM(cfg.ddpm, dyn,
+                                    apply_fn=make_fused_apply(dyn) if engine == "fused" else None)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            mp.gcl_message_agg.launches = 0
+            egnn_forward_fused.launches = 0
+            run = (lambda: model.sample_given_pocket(pocket, num_nodes, N_P,
+                                                     timesteps=WIDTH_T, generator=gen))
+            if engine == "msgpass":
+                recorded, _ = record_denoiser_inputs(dyn, 1, lambda: res.append(run()))
+            else:
+                res.append(run())
+            torch.cuda.synchronize()
+            phar, _ = res.pop()
+            launches = {"gcl_message_agg": mp.gcl_message_agg.launches,
+                        "egnn_forward_fused": egnn_forward_fused.launches}
+            calls = WIDTH_T + 1
+            want = ({"gcl_message_agg": calls * L, "egnn_forward_fused": 0}
+                    if engine == "msgpass" else {"gcl_message_agg": 0, "egnn_forward_fused": calls})
+            if launches != want or not torch.isfinite(phar.x).all():
+                raise AssertionError(f"widths sampling {dtype_name} H={hidden} {engine}: launches "
+                                     f"{launches}, expected {want}, or non-finite samples")
+            rec["launches"][engine] = launches
+        # each engine's denoiser against the CPU's, on every sample of the
+        # first call (the card's launch plan is the sampler's own): the
+        # msgpass engine's float32 denoiser (the engines agree in float32)
+        # and, in bf16, the same engine's bf16 one (the two engines round
+        # bf16 at other points). In bf16, DENOISER_TOL is below one bf16
+        # step of the outputs: the card is held to both by
+        # BF16_DENOISER_LIMITS, beside the readings of the CPU's bf16
+        # denoiser and of the card's with seeded faults (seeded_column_fault)
+        inputs = recorded[0]
+        cpu = {}
+        for name, dt in (("bf16", cdt), ("float32", torch.float32)):
+            m = EGNNDynamics(dataclasses.replace(
+                dyn.cfg, egnn=dataclasses.replace(dyn.cfg.egnn, compute_dtype=dt)))
+            m.load_state_dict({k: v.cpu() for k, v in dyn.state_dict().items()})
+            cpu[name] = m.eval()
+        rec["denoiser_vs_cpu"], rec["tol"], rec["readings"] = {}, {}, {}
+        with torch.no_grad():
+            f32 = [o.cpu() for o in cpu["float32"](*(v.cpu() for v in inputs))]
+            for engine in ("msgpass", "fused"):
+                def run_on(m, d):
+                    fn = m if engine == "msgpass" else make_fused_apply(m)
+                    return [o.cpu() for o in fn(*(v.to(d) for v in inputs))]
+
+                def dist(a, b):
+                    return max((o - r).abs().max().item() for o, r in zip(a, b))
+
+                got = run_on(dyn, dev)
+                if cdt == torch.float32:
+                    err, tol = {"float32": dist(got, f32)}, {"float32": DENOISER_TOL}
+                else:
+                    ref = {"bf16": run_on(cpu["bf16"], "cpu"), "float32": f32}
+                    err = {name: dist(got, r) for name, r in ref.items()}
+                    tol = dict(BF16_DENOISER_LIMITS)
+                    readings = {"cpu bf16 vs float32": [dist(ref["bf16"], ref["float32"])]}
+                    for linear in ("edge_out", "coord_mid"):
+                        faulty = run_on(seeded_column_fault(dyn, linear, hidden), dev)
+                        readings[f"fault {linear} column {hidden - 1}"] = [
+                            dist(faulty, ref["bf16"]), dist(faulty, ref["float32"])]
+                    rec["readings"][engine] = readings
+                rec["denoiser_vs_cpu"][engine], rec["tol"][engine] = err, tol
+        log(f"widths sampling {dtype_name} H={hidden}: B={B} T={WIDTH_T}, launches "
+            f"{rec['launches']}; the first denoiser call ({B} samples) card vs the CPU's: "
+            f"max_abs_err {rec['denoiser_vs_cpu']} tol={rec['tol']}; readings "
+            f"{rec['readings']} ({time.perf_counter() - t0:.1f} s)")
+        if not all(rec["denoiser_vs_cpu"][e][r] <= rec["tol"][e][r]
+                   for e in rec["tol"] for r in rec["tol"][e]):
+            raise AssertionError(f"widths sampling {dtype_name} H={hidden}: denoiser card vs CPU "
+                                 f"{rec['denoiser_vs_cpu']} > {rec['tol']}")
+        sampling[f"{dtype_name}_H{hidden}"] = rec
+    out["sampling"] = sampling
+    return out
 
 
 def seeded_gcpg(cfg, vocab, seed):
@@ -3164,6 +3454,8 @@ def main():
         done("consensus")
         consensus["options"] = options_phase(dev, repo)
         done("options")
+        widths = widths_phase(dev, k1[-1], k2[-1])
+        done("widths")
         consensus["tf32_default"] = tf32
         decode, smiles_t07 = decode_phase(dev, repo, hypothesis)
         done("decode")
@@ -3183,14 +3475,17 @@ def main():
     done("joint")
 
     def entry(name, source, replaces, flagship, main_path, run_all_path, joint_path,
-              parallel_path, full_atom_path):
+              parallel_path, full_atom_path, widths_path):
         """The kernel's line: launches, times and bound at the main path's
         (training's) shape; run-all's, the flagship checks (bf16, the
         flagship sampling dtype, last), the joint shape's, the parallel
-        path's checks and the full-atom shape's beside them; max_abs_err is
-        the comparison nearest its limit over every check."""
+        path's checks, the full-atom shape's and the widths phase's beside
+        them; max_abs_err is the comparison nearest its limit over every
+        check."""
+        width_checks = [*widths_path["widths"], widths_path["block_gemm_route_at_256"],
+                        widths_path["full_atom_cutoff_exact"]]
         worst = max((c for chk in (*flagship, main_path, run_all_path, joint_path, parallel_path,
-                                   full_atom_path)
+                                   full_atom_path, *width_checks)
                      for c in chk["comparisons"]),
                     key=lambda c: c["max_abs_err"] / c["tol"])
         bf16 = flagship[-1]
@@ -3213,6 +3508,7 @@ def main():
             "full_atom_shape": dict(full_atom_path["shape"], **{
                 key: full_atom_path[key] for key in (
                     "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "comparisons")}),
+            "widths": widths_path,
         }
 
     # launches and times: training's (this slice's main path: K1 in its
@@ -3222,11 +3518,11 @@ def main():
         entry("gcl_message_agg", "cmdgen_tpu_torch/csrc/egnn_msgpass.cu",
               "cmdgen_tpu/ops/egnn_msgpass.py:111", k1, train_kernels["k1"],
               run_all["kernels"]["k1"], joint["k1"], parallel_checks["k1"],
-              full_atom_kernels["k1"]),
+              full_atom_kernels["k1"], widths["k1"]),
         entry("egnn_forward_fused", "cmdgen_tpu_torch/csrc/egnn_fused.cu",
               "cmdgen_tpu/ops/egnn_fused.py:209", k2, train_kernels["k2"],
               run_all["kernels"]["k2"], joint["k2"], parallel_checks["k2"],
-              full_atom_kernels["k2"]),
+              full_atom_kernels["k2"], widths["k2"]),
     ]
     for kern, engine, key in zip(kernels, ("msgpass", "fused"), ("k1", "k2")):
         kern["launches_by_path"] = {
@@ -3261,6 +3557,7 @@ def main():
         "timesteps": args.timesteps, "batch": B,
         "trained_launches": trained, "card": card, "phase_done_at_s": phase_s,
     }))
+    log(json.dumps({"widths": {"sampling": widths["sampling"]}, "card": card}))
     log(json.dumps({"consensus": consensus, "card": card}))
     log(json.dumps({"decode": decode, "card": card}))
     log(json.dumps({"align": align, "card": card}))

@@ -23,16 +23,14 @@
 
 #include <type_traits>
 
+#include "egnn_plan.h"
+
 namespace egnn {
 
-constexpr int kThreads = 512;  // threads per block: 16 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int kTM = 8;         // float path: output rows per thread per pass
 constexpr int kTN = 4;         // float path: output columns per thread
 // bf16 path: 16x16 output tiles per warp per pass, 64 per block
 constexpr int kMaxTiles = 64 / kWarps;
-constexpr int kSlabK = 16;     // bf16 path: weight rows per shared-memory slab
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use on sm_90
 using bf16 = __nv_bfloat16;
 
 template <typename T>
@@ -56,12 +54,10 @@ struct Cvt<bf16> {
   }
 };
 
-// Row padding, in elements, of bf16 operands in shared memory. +8 shifts
-// consecutive rows by 4 banks, so a WMMA fragment load (8 rows of 16 bytes
-// per phase) touches 32 distinct banks instead of 4.
+// Row padding of T operands in shared memory (egnn_plan.h: row_pad).
 template <typename T>
 __host__ __device__ constexpr int row_pad() {
-  return std::is_same<T, float>::value ? 0 : 8;
+  return row_pad(std::is_same<T, bf16>::value);
 }
 
 // SiLU written as v / (1 + exp(-v)) with each step rounded to T, as the JAX
@@ -86,11 +82,44 @@ __device__ __forceinline__ float warp_sum(float v) {
 // W reaches shared memory in chunks of rows by cp.async, the next chunk
 // loading while the current one multiplies, so the FMA loop reads it from there instead of waiting on L2.
 
-constexpr int kF32Stages = 2;      // W chunks in the ring
-constexpr int kF32Chunk = 8192;    // floats per W chunk (32 KB)
+// (the ring's chunks: egnn_plan.h, kF32Stages, f32_chunk_rows; the widths
+// each instantiation takes: egnn_plan.h, ragged_width)
 
-// W rows per chunk of the float ring (H is a power of two, 4 <= H <= 1024).
-__host__ __device__ inline int f32_chunk_rows(int H) { return min(H, kF32Chunk / H); }
+// Copies rows [r0, r1) of a weight matrix W [hw, hw] (global, row-major,
+// row stride hw) into dst (row stride ldd, row r0 first), columns [0, hp):
+// rows and columns past hw read as zero (hw <= hp). Where hw == hp and a row
+// is a whole number of 16-byte vectors the copies are 16-byte cp.async,
+// which the caller commits and waits for; else (a width that is not a
+// multiple of the tile, the ragged case) plain loads and stores, which the
+// caller's barrier before the reads makes visible. Every thread of the
+// block takes part.
+template <typename T>
+__device__ __forceinline__ void copy_weight_rows(T* dst, int ldd, const T* W, int hw, int hp,
+                                                 int r0, int r1) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (hw == hp && hw % kVec == 0) {
+    if (ldd == hw) {  // the rows lie contiguous in both
+      const int n = (r1 - r0) * hw;
+      const T* src = W + (size_t)r0 * hw;
+      for (int o = threadIdx.x * kVec; o < n; o += kThreads * kVec)
+        __pipeline_memcpy_async(dst + o, src + o, 16);
+      return;
+    }
+    const int per_row = hw / kVec;
+    const int n = (r1 - r0) * per_row;
+    for (int p = threadIdx.x; p < n; p += kThreads) {
+      const int r = p / per_row, q = (p % per_row) * kVec;
+      __pipeline_memcpy_async(dst + (size_t)r * ldd + q, W + (size_t)(r0 + r) * hw + q, 16);
+    }
+    return;
+  }
+  const int n = (r1 - r0) * hp;
+  for (int p = threadIdx.x; p < n; p += kThreads) {
+    const int r = p / hp, c = p % hp;
+    const int g = r0 + r;
+    dst[(size_t)r * ldd + c] = g < hw && c < hw ? W[(size_t)g * hw + c] : Cvt<T>::from_f(0.0f);
+  }
+}
 
 // Adds A[m, k0:k1] . W[k0:k1, n0..n0+3] into acc for the TM rows this
 // thread owns (arow[i]: its rows of A, float in shared memory). W points at
@@ -122,26 +151,35 @@ __device__ __forceinline__ void accumulate_f32(float (&acc)[TM][kTN], const floa
 // A pass covers rg_count * TM rows; W1's chunks, then W2's, stream through
 // the ring (`ring`: kF32Stages * f32_chunk_rows(H) * H floats), each waited
 // for and made visible by one barrier, after which the slot of the chunk
-// before it is refilled. The sums run in k order, W1 then W2.
-template <int TM, typename Epi>
+// before it is refilled. The sums run in k order, W1 then W2. Where H / kTN
+// column groups do not divide the block, the threads past rg_count whole
+// row groups only help with the copies.
+template <int TM, bool kRagged, typename Epi>
 __device__ void gemm_f32(const float* A1, int lda1, const float* W1,
                          const float* A2, int lda2, const float* W2, int M,
-                         int H, Epi& epi, float* ring) {
+                         int H, int Hw, Epi& epi, float* ring) {
   const int cg_count = H / kTN;
   const int rg_count = kThreads / cg_count;
   const int cg = threadIdx.x % cg_count;
   const int rg = threadIdx.x / cg_count;
+  const bool active = !kRagged || rg < rg_count;
   const int n0 = cg * kTN;
   const int rows_per_pass = rg_count * TM;
   const int kr = f32_chunk_rows(H);
-  const int per_op = H / kr;
+  const int per_op = kRagged ? (H + kr - 1) / kr : H / kr;
   const int nq = (A2 != nullptr ? 2 : 1) * per_op;
   auto issue = [&](int q) {
     if (q < nq) {
-      const float* src = (q < per_op ? W1 : W2) + (size_t)(q % per_op) * kr * H;
-      float* dst = ring + (size_t)(q % kF32Stages) * kr * H;
-      for (int o = threadIdx.x * 4; o < kr * H; o += kThreads * 4)
-        __pipeline_memcpy_async(dst + o, src + o, 16);
+      if constexpr (kRagged) {
+        const int k0 = (q % per_op) * kr;
+        copy_weight_rows(ring + (size_t)(q % kF32Stages) * kr * H, H, q < per_op ? W1 : W2, Hw,
+                         H, k0, min(H, k0 + kr));
+      } else {
+        const float* src = (q < per_op ? W1 : W2) + (size_t)(q % per_op) * kr * H;
+        float* dst = ring + (size_t)(q % kF32Stages) * kr * H;
+        for (int o = threadIdx.x * 4; o < kr * H; o += kThreads * 4)
+          __pipeline_memcpy_async(dst + o, src + o, 16);
+      }
     }
     __pipeline_commit();
   };
@@ -166,13 +204,14 @@ __device__ void gemm_f32(const float* A1, int lda1, const float* W1,
       issue(q + kF32Stages - 1);
       const int k0 = (q % per_op) * kr;
       accumulate_f32<TM>(acc, q < per_op ? arow1 : arow2,
-                         ring + (size_t)(q % kF32Stages) * kr * H, H, k0, k0 + kr, n0);
+                         ring + (size_t)(q % kF32Stages) * kr * H, H, k0,
+                         kRagged ? min(H, k0 + kr) : k0 + kr, n0);
     }
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int m = base + rg + i * rg_count;
-      if (m < M) {
+      if (m < M && active) {
 #pragma unroll
         for (int j = 0; j < kTN; ++j) epi(m, n0 + j, acc[i][j]);
       }
@@ -190,25 +229,30 @@ __device__ void gemm_f32(const float* A1, int lda1, const float* W1,
 // one load latency per slab instead of one per fragment. A warp stages each
 // finished tile through its 16x16 float slice of `stage` to hand the
 // epilogue one element at a time.
-template <typename Epi>
+template <bool kRagged, typename Epi>
 __device__ void gemm_bf16(const bf16* A1, int lda1, const bf16* W1,
                           const bf16* A2, int lda2, const bf16* W2, int M,
-                          int H, Epi& epi, float* stage, bf16* wslab) {
+                          int H, int Hw, Epi& epi, float* stage, bf16* wslab) {
   namespace wmma = nvcuda::wmma;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nt = H / 16;
   const int rt = max(1, min(4, kWarps * kMaxTiles / nt));
   const int per_operand = H / kSlabK;
   const int nslab = (A2 != nullptr ? 2 : 1) * per_operand;
-  const int slab_elems = kSlabK * H;
   const int lds = H + row_pad<bf16>();
   float* st = stage + warp * 256;
 
   auto issue = [&](int s) {
-    const bf16* src = (s < per_operand ? W1 : W2) + (size_t)(s % per_operand) * slab_elems;
     bf16* dst = wslab + (s & 1) * kSlabK * lds;
-    for (int o = threadIdx.x * 8; o < slab_elems; o += kThreads * 8)
-      __pipeline_memcpy_async(dst + (o / H) * lds + o % H, src + o, 16);
+    if constexpr (kRagged) {
+      const int k0 = (s % per_operand) * kSlabK;
+      copy_weight_rows(dst, lds, s < per_operand ? W1 : W2, Hw, H, k0, k0 + kSlabK);
+    } else {
+      const int slab_elems = kSlabK * H;
+      const bf16* src = (s < per_operand ? W1 : W2) + (size_t)(s % per_operand) * slab_elems;
+      for (int o = threadIdx.x * 8; o < slab_elems; o += kThreads * 8)
+        __pipeline_memcpy_async(dst + (o / H) * lds + o % H, src + o, 16);
+    }
     __pipeline_commit();
   };
 
@@ -266,67 +310,56 @@ __device__ void gemm_bf16(const bf16* A1, int lda1, const bf16* W1,
 }
 
 // Block-wide C = A1 @ W1 (+ A2 @ W2) for M rows and H output columns,
-// accumulated in float. A operands are T in shared memory (row stride lda);
-// W operands are T in global memory, row-major [H, H]. epi(m, n, acc)
+// accumulated in float. A operands are T in shared memory (row stride lda,
+// H columns: any past Hw must hold finite values, zeros in the kernels);
+// W operands are T in global memory, row-major [Hw, Hw] (Hw <= H; rows and
+// columns past Hw read as zero: copy_weight_rows). epi(m, n, acc)
 // receives each output once, after a block barrier that follows every read
 // of the pass's A rows, so it may overwrite row m of A1 in place; a barrier
 // also follows the last write. All threads must call this with the same M.
 // The bf16 path reads A in whole 16-row tiles: the rows up to the next
-// multiple of 16 must lie inside the allocation (tile_rows; their values
-// are ignored).
-// Requires, for float, H % 4 == 0 and (H / 4) dividing kThreads; for bf16,
-// H % 32 == 0 and H <= 512. GemmSmem holds the products' shared memory.
-// The float path commits cp.async groups of its own: the caller's older
-// groups are complete once it returns.
+// multiple of 16 must lie inside the allocation (egnn_plan.h: alloc_rows;
+// their values are ignored).
+// Requires, for float, H % 4 == 0 and H <= 2048; for bf16, H % 16 == 0 and
+// H <= 1024 (at most kMaxTiles tiles a warp); with kRagged = false, also
+// Hw == H and, for float, H a power of two (ragged_width). GemmSmem holds
+// the products' shared memory (egnn_plan.h: gemm_smem_bytes). Both paths commit cp.async groups of their
+// own: the caller's older groups are complete once it returns.
 struct GemmSmem {
   float* stage;  // bf16: kWarps * 256 floats
   bf16* wslab;   // bf16: 2 * kSlabK * (H + 8) bf16
   float* ring;   // float: the W ring of gemm_f32
 };
 
-template <typename T, typename Epi>
+template <typename T, bool kRagged, typename Epi>
+__device__ void block_gemm(const T* A1, int lda1, const T* W1, const T* A2,
+                           int lda2, const T* W2, int M, int H, int Hw,
+                           const GemmSmem& gs, Epi epi) {
+  if constexpr (std::is_same<T, float>::value && kRagged) {
+    // one register tile for every M: widths that are not a power of two
+    // are not tuned, and each variant would be compiled at every call site
+    gemm_f32<kTM, true>(A1, lda1, W1, A2, lda2, W2, M, H, Hw, epi, gs.ring);
+  } else if constexpr (std::is_same<T, float>::value) {
+    const int rg_count = kThreads / (H / kTN);
+    if (M <= rg_count)
+      gemm_f32<1, false>(A1, lda1, W1, A2, lda2, W2, M, H, Hw, epi, gs.ring);
+    else if (M <= 2 * rg_count)
+      gemm_f32<2, false>(A1, lda1, W1, A2, lda2, W2, M, H, Hw, epi, gs.ring);
+    else if (M <= 4 * rg_count)
+      gemm_f32<4, false>(A1, lda1, W1, A2, lda2, W2, M, H, Hw, epi, gs.ring);
+    else
+      gemm_f32<kTM, false>(A1, lda1, W1, A2, lda2, W2, M, H, Hw, epi, gs.ring);
+  } else {
+    gemm_bf16<kRagged>(A1, lda1, W1, A2, lda2, W2, M, H, Hw, epi, gs.stage, gs.wslab);
+  }
+}
+
+// The same with W1, W2 [H, H].
+template <typename T, bool kRagged, typename Epi>
 __device__ void block_gemm(const T* A1, int lda1, const T* W1, const T* A2,
                            int lda2, const T* W2, int M, int H,
                            const GemmSmem& gs, Epi epi) {
-  if constexpr (std::is_same<T, float>::value) {
-    const int rg_count = kThreads / (H / kTN);
-    if (M <= rg_count)
-      gemm_f32<1>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
-    else if (M <= 2 * rg_count)
-      gemm_f32<2>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
-    else if (M <= 4 * rg_count)
-      gemm_f32<4>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
-    else
-      gemm_f32<kTM>(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.ring);
-  } else {
-    gemm_bf16(A1, lda1, W1, A2, lda2, W2, M, H, epi, gs.stage, gs.wslab);
-  }
-}
-
-// Bytes of GemmSmem for width H.
-template <typename T>
-__host__ __device__ inline size_t gemm_smem_bytes(int H) {
-  return std::is_same<T, float>::value
-             ? 4 * (size_t)kF32Stages * f32_chunk_rows(H) * H
-             : 4 * (size_t)kWarps * 256 + 2 * (size_t)2 * kSlabK * (H + row_pad<T>());
-}
-
-// Offsets of 128-byte-aligned arrays in dynamic shared memory; the same
-// sequence of take() calls sizes the allocation on the host.
-struct Carver {
-  size_t off = 0;
-  __host__ __device__ size_t take(size_t bytes) {
-    const size_t o = off;
-    off += (bytes + 127) / 128 * 128;
-    return o;
-  }
-};
-
-// Rows to allocate for an A operand of `rows` rows: the bf16 products read
-// whole 16-row tiles, the float products only the rows they use.
-template <typename T>
-__host__ __device__ inline size_t tile_rows(size_t rows) {
-  return std::is_same<T, float>::value ? rows : (rows + 15) / 16 * 16;
+  block_gemm<T, kRagged>(A1, lda1, W1, A2, lda2, W2, M, H, H, gs, epi);
 }
 
 }  // namespace egnn

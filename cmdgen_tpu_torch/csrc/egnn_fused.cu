@@ -29,13 +29,13 @@
 // largest phase's work-item count) walks the layers in four batch-wide
 // phases separated by grid barriers:
 //   A. node projections proj = h w_j + b, wia = h w_i, one item per
-//      kEdgeRows-row tile and matrix;
+//      rows-row tile and matrix;
 //   B. GCL messages, one item per R receivers x K edges of one sample
-//      (R * K <= kEdgeRows): edge load, pair layer, edge_out product, silu,
+//      (R * K <= rows): edge load, pair layer, edge_out product, silu,
 //      attention gate and the K-sum into agg, all inside the block (no
 //      atomics: the summation order is fixed); a last round that would
 //      leave blocks idle is taken in half items (SplitTail);
-//   C. node MLP residual and h *= node_mask, one item per kNodeRows-row
+//   C. node MLP residual and h *= node_mask, one item per rows/2-row
 //      tile (the h and agg tiles side by side; the hidden layer stays in
 //      shared memory between its two products), then the coordinate
 //      projections of the new h from shared memory: coord w_j over the
@@ -46,14 +46,30 @@
 //      are copied times node_mask.
 // h (compute dtype), proj, wia, agg ([B*N, H] each, ~2.9 MB in bf16 at the
 // flagship shape) and the two x buffers live in global memory, in L2.
-// bf16 products run on the tensor cores by mma.sync from shared memory
-// (egnn_tiles.cuh), epilogues straight from the accumulator registers:
-// edge_out's and coord_mid's weights are loaded once per phase and stay
-// resident beside the 128-row edge tile; the node phases stream each
-// matrix through the same buffer in 64-row chunks, the next matrix loading
-// while the current one multiplies. float products stay exact-float FMAs
-// (block_gemm<float>, weights through a ring of shared-memory chunks), in
-// the same phases.
+// bf16 products up to H = 256 run on the tensor cores by mma.sync from
+// shared memory (egnn_tiles.cuh), epilogues straight from the accumulator
+// registers: edge_out's and coord_mid's weights are loaded once per phase
+// and stay resident beside the 128-row edge tile; the node phases stream
+// each matrix through the same buffer in 64-row chunks, the next matrix
+// loading while the current one multiplies. float products stay
+// exact-float FMAs (block_gemm<float>, weights through a ring of
+// shared-memory chunks), and wider bf16 ones stream every matrix through
+// WMMA slabs (block_gemm<bf16>), in the same phases.
+//
+// Shapes (egnn_plan.h: k2_plan, passed in by the wrapper): the tile holds
+// `rows` rows (128 on the mma route; on the block_gemm routes the most, a
+// multiple of 32, that fits in shared memory beside the products' buffers),
+// a node MLP tile half as many; the layout of shared memory is egnn_plan.h's
+// TileSmem. A receiver
+// with more edges than a tile holds takes them in chunks of kc in phases B
+// and D, one receiver an item, its running sums (the K-sum of messages,
+// the coordinate pass's translation) carried from chunk to chunk in k
+// order. The stack runs at the width H that the wrapper gives it, a
+// multiple of 32 (bf16) or 4 (float): a model whose width is not one runs
+// with its stacked weights zero-padded once (ops/egnn_fused.py:
+// fused_params) and its entry h padded; the padded columns stay zero
+// through every layer (silu(0) = 0, zero weights and biases) and are
+// dropped on the way out.
 #include <cooperative_groups.h>
 
 #include "egnn_common.cuh"
@@ -87,11 +103,6 @@ struct FusedWeights {
   const T* cg;      // [L, H]    coord_gate (no bias)
 };
 
-// rows of one message tile (R receivers x K edges, also the row tile of
-// phase A) and of one node MLP tile; the wrapper's launch_plan uses the
-// same numbers
-constexpr int kEdgeRows = 128;
-constexpr int kNodeRows = 64;
 constexpr int kPhases = 4;  // per layer
 
 template <typename T>
@@ -116,65 +127,33 @@ struct FusedArgs {
   // barrier, [1 + kPhases * L] (phase p of layer l ends at 1 + kPhases * l + p)
   long long* stamps;
   int B, N, K, H, L, r_true, R;
+  int rows;             // rows of a message, coordinate or phase A tile; node tiles: half
+  int kc, chunks;       // edges per tile, tiles per receiver (chunks > 1: R = 1)
   float norm_constant, coords_range, norm_factor;
   int use_tanh;
 };
 
-// bf16 products run on mma.sync from shared memory (egnn_tiles.cuh); float
-// products stay exact-float FMAs (block_gemm<float>).
-template <typename T>
-constexpr bool kMma = std::is_same<T, bf16>::value;
-
-// Shared memory of one block: a tile of kEdgeRows rows (the message or
-// coordinate tile, the row tile of phase A, or two node MLP tiles of
-// kNodeRows rows in phase C), the bf16 path's weight matrix [H, H], the
-// per-row partial sums of the bf16 epilogues' dot products or the float
-// products' weight ring, the vectors of
-// the phase's pair MLP (GclVecs) and the per-edge arrays of one tile.
-template <typename T>
-struct FusedSmem {
-  size_t abuf, wsm, part, ring, vec, eidx, ercv, ekm, erad, ed0, escale, ediff, total;
-  __host__ __device__ explicit FusedSmem(int H) {
-    const size_t ld = H + row_pad<T>();
-    Carver c;
-    abuf = c.take(sizeof(T) * kEdgeRows * ld);
-    wsm = c.take(kMma<T> ? sizeof(T) * H * ld : 0);
-    part = c.take(kMma<T> ? 4 * tiles::kWarpCols * kEdgeRows : 0);
-    ring = c.take(kMma<T> ? 0 : gemm_smem_bytes<T>(H));
-    vec = c.take(4 * 4 * (size_t)H);
-    eidx = c.take(4 * kEdgeRows);
-    ercv = c.take(4 * kEdgeRows);
-    ekm = c.take(4 * kEdgeRows);
-    erad = c.take(4 * kEdgeRows);
-    ed0 = c.take(4 * kEdgeRows);
-    escale = c.take(4 * kEdgeRows);
-    ediff = c.take(4 * 3 * kEdgeRows);
-    total = c.off;
-  }
-};
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// Loads the K edges of receivers [i0, i0 + rv) of one sample into shared
-// memory: the clamped neighbor index, the receiver within the tile, kmask,
-// dist0 rounded to T, and the squared distance from the sample's x (xs) --
-// rounded to T at every step for the GCL (the JAX kernel gathers x in the
-// compute dtype), in float for the coordinate pass (which also keeps the
-// difference vectors).
+// Loads edges [k0, k0 + kc) of receivers [i0, i0 + rv) of one sample
+// (E = rv * kc) into shared memory: the clamped neighbor index, the
+// receiver within the tile, kmask, dist0 rounded to T, and the squared
+// distance from the sample's x (xs) -- rounded to T at every step for the
+// GCL (the JAX kernel gathers x in the compute dtype), in float for the
+// coordinate pass (which also keeps the difference vectors).
 template <typename T>
 __device__ void load_edges(const int* idx, const float* kmask,
                            const float* dist0, const float* xs, size_t row0,
-                           int i0, int E, int K, int N, bool coord_pass,
+                           int i0, int E, int K, int k0, int kc, int N, bool coord_pass,
                            const EdgeTile& et, float* ediff) {
   using C = Cvt<T>;
   int* eidx = et.eidx;
   float *ekm = et.ekm, *ed0 = et.ed0, *erad = et.erad;
   for (int e = threadIdx.x; e < E; e += kThreads) {
-    const size_t off = row0 * K + e;
-    const int i = i0 + e / K;
+    const int q = e / kc;
+    const size_t off = (row0 + q) * K + k0 + (e - q * kc);
+    const int i = i0 + q;
     const int j = min(max(idx[off], 0), N - 1);
     eidx[e] = j;
-    et.ercv[e] = e / K;
+    et.ercv[e] = q;
     ekm[e] = kmask[off];
     ed0[e] = C::rnd(dist0[off]);
     float s = 0.0f;
@@ -195,14 +174,14 @@ __device__ void load_edges(const int* idx, const float* kmask,
 // The work of a phase of n items over the grid's G blocks, with its tail
 // split: the last n % G items (all n when n < G), which would run as a
 // round that leaves blocks idle, are taken as two halves each when twice as
-// many still fit in one round, so that round ends sooner. Work unit w < total
-// is item(w, half), half 0 for a whole item, 1 or 2 for its first or second
-// half (take_half).
+// many still fit in one round and an item has receivers to split, so that
+// round ends sooner. Work unit w < total is item(w, half), half 0 for a
+// whole item, 1 or 2 for its first or second half (take_half).
 struct SplitTail {
   int whole, total;
-  __device__ explicit SplitTail(int n) {
+  __device__ SplitTail(int n, bool splittable) {
     const int tail = n % (int)gridDim.x;
-    const int split = 2 * tail <= (int)gridDim.x ? tail : 0;
+    const int split = splittable && 2 * tail <= (int)gridDim.x ? tail : 0;
     whole = n - split;
     total = n + split;
   }
@@ -232,34 +211,46 @@ __device__ void load_rows(T* dst, int ld, const T* src, int H, int rows, int val
   __pipeline_commit();
 }
 
-template <typename T>
+template <typename T, bool kMma, bool kRagged, bool kChunked>
 __global__ void __launch_bounds__(kThreads, 1)
 egnn_fused_kernel(const FusedArgs<T> a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   using C = Cvt<T>;
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int H = a.H, N = a.N, K = a.K, R = a.R, r = a.r_true;
-  const FusedSmem<T> S(H);
-  T* abuf = reinterpret_cast<T*>(smem_raw + S.abuf);
+  // rows of an edge / A tile and of a node tile: 128 and 64 on the mma
+  // route and for float at H <= 256 (the regular float instantiation)
+  constexpr bool kFullTile = kMma || (std::is_same<T, float>::value && !kRagged);
+  const int erows = kFullTile ? 128 : a.rows, nrows = erows / 2;
+  // tiles per receiver in phases B and D: one (all K edges) unless
+  // kChunked; a chunk loop compiled beside the one-tile path costs the
+  // whole kernel a few percent, so the regular instantiations have both
+  const int chunks = kChunked ? a.chunks : 1;
+  const TileSmem S(H, erows, kMma, std::is_same<T, bf16>::value, true);
+  T* abuf = reinterpret_cast<T*>(smem_raw + S.buf);
   float* ediff = reinterpret_cast<float*>(smem_raw + S.ediff);
+  float* xcarry = reinterpret_cast<float*>(smem_raw + S.xcarry);
   bf16* wsm = reinterpret_cast<bf16*>(smem_raw + S.wsm);
   float* part = reinterpret_cast<float*>(smem_raw + S.part);
   const int ld = H + row_pad<T>();  // row stride of the tiles
 
-  // the float products' weight ring
-  const GemmSmem gs{nullptr, nullptr, reinterpret_cast<float*>(smem_raw + S.ring)};
+  // the block_gemm routes' buffers: the float weight ring, or the bf16
+  // staging tiles and weight slabs
+  const GemmSmem gs{reinterpret_cast<float*>(smem_raw + S.gemm),
+                    reinterpret_cast<bf16*>(smem_raw + S.gemm + 4 * kWarps * 256),
+                    reinterpret_cast<float*>(smem_raw + S.gemm)};
   const bf16* resident = nullptr;       // the weight matrix wsm holds
   // the message and coordinate tiles (egnn_message.cuh)
   MsgSmem<T> sm;
   sm.buf = abuf;
   sm.ld = ld;
-  sm.rows = kEdgeRows;
+  sm.rows = erows;
   sm.wsm = wsm;
   sm.part = part;
   sm.gs = gs;
   float* vec = reinterpret_cast<float*>(smem_raw + S.vec);
   sm.vec = GclVecs{vec, vec + H, vec + 2 * H, vec + 3 * H};
-  sm.carry = nullptr;  // K <= kEdgeRows: one tile per receiver
+  sm.carry = reinterpret_cast<float*>(smem_raw + S.carry);
   EdgeTile& et = sm.et;
   et.eidx = reinterpret_cast<int*>(smem_raw + S.eidx);
   et.ercv = reinterpret_cast<int*>(smem_raw + S.ercv);
@@ -281,10 +272,10 @@ egnn_fused_kernel(const FusedArgs<T> a) {
     }
   };
 
-  T* const tile2 = abuf + (size_t)kNodeRows * ld;  // second node tile
+  T* const tile2 = abuf + (size_t)nrows * ld;      // second node tile
   const int BN = a.B * N;
-  const int tiles = cdiv(BN, kNodeRows);           // node MLP tiles
-  const int wtiles = cdiv(BN, kEdgeRows);          // A tiles
+  const int tiles = cdiv(BN, nrows);               // node MLP tiles
+  const int wtiles = cdiv(BN, erows);              // A tiles
   const int tps = cdiv(N, R);                      // message items per sample
   const int cps = cdiv(r, R);                      // coordinate items per sample
   const T* none = nullptr;
@@ -307,12 +298,12 @@ egnn_fused_kernel(const FusedArgs<T> a) {
 
     // ---- A: proj = h w_j + b and wia = h w_i over every row
     for (int it = blockIdx.x; it < 2 * wtiles; it += gridDim.x) {
-      const int row0 = (it % wtiles) * kEdgeRows;
-      const int rows = min(kEdgeRows, BN - row0);
+      const int row0 = (it % wtiles) * erows;
+      const int rows = min(erows, BN - row0);
       const float* bias = a.w.wjb + oH;
       __syncthreads();
-      load_rows(abuf, ld, h_in, H, kEdgeRows, rows, all_rows(row0));
-      if constexpr (kMma<T>) {
+      load_rows(abuf, ld, h_in, H, erows, rows, all_rows(row0));
+      if constexpr (kMma) {
         tiles::use_weights(resident, wsm, ld, (it < wtiles ? a.w.wj : a.w.wi) + oHH, H);
         tiles::Acc<2> acc;
         acc.zero();
@@ -333,12 +324,12 @@ egnn_fused_kernel(const FusedArgs<T> a) {
       __pipeline_wait_prior(0);
       __syncthreads();
       if (it < wtiles) {
-        block_gemm<T>(abuf, ld, a.w.wj + oHH, none, 0, none, rows, H, gs,
+        block_gemm<T, kRagged>(abuf, ld, a.w.wj + oHH, none, 0, none, rows, H, gs,
                       [&](int m, int n, float acc) {
                         a.proj[(size_t)(row0 + m) * H + n] = C::from_f(acc + bias[n]);
                       });
       } else {
-        block_gemm<T>(abuf, ld, a.w.wi + oHH, none, 0, none, rows, H, gs,
+        block_gemm<T, kRagged>(abuf, ld, a.w.wi + oHH, none, 0, none, rows, H, gs,
                       [&](int m, int n, float acc) {
                         a.wia[(size_t)(row0 + m) * H + n] = C::from_f(acc);
                       });
@@ -349,7 +340,7 @@ egnn_fused_kernel(const FusedArgs<T> a) {
     // ---- B: messages of R receivers of one sample into agg
     use_vecs(a.w.we + 2 * oH, a.w.w2b + oH, a.w.att + oH);
     const float inv = C::rnd(1.0f / a.norm_factor);
-    const SplitTail msg_items(a.B * tps);
+    const SplitTail msg_items(a.B * tps, R >= 2);
     for (int w = blockIdx.x; w < msg_items.total; w += gridDim.x) {
       int half;
       const int it = msg_items.item(w, half);
@@ -357,16 +348,24 @@ egnn_fused_kernel(const FusedArgs<T> a) {
       int i0 = (it % tps) * R;
       int rv = min(R, N - i0);
       take_half(half, i0, rv);
-      const int E = rv * K;
-      __syncthreads();
-      // edge_out's weights stay in shared memory for the whole phase
-      if constexpr (kMma<T>) tiles::use_weights(resident, wsm, ld, a.w.w2 + oHH, H);
-      load_edges<T>(a.idx, a.kmask, a.dist0, x_in + nb * 3, nb + i0, i0, E, K,
-                    N, false, et, ediff);
-      __syncthreads();
-      message_tile<T, kMma<T>, false>(sm, a.wia + (nb + i0) * H, a.proj + nb * H,
-                                      a.w.w2 + oHH, a.w.attb[l], true, E, rv, K, H, true,
-                                      true, inv, a.agg + (nb + i0) * H, no_clock);
+      // the item's receivers' edges in chunks of kc, in k order (one chunk
+      // where K fits in a tile)
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int k0 = kChunked ? ch * a.kc : 0;
+        const int kc = kChunked ? min(a.kc, K - k0) : K;
+        const bool first = ch == 0, last = ch == chunks - 1;
+        const int E = rv * kc;
+        __syncthreads();
+        // edge_out's weights stay in shared memory for the whole phase
+        if constexpr (kMma) tiles::use_weights(resident, wsm, ld, a.w.w2 + oHH, H);
+        load_edges<T>(a.idx, a.kmask, a.dist0, x_in + nb * 3, nb + i0, i0, E, K, k0, kc, N,
+                      false, et, ediff);
+        __syncthreads();
+        message_tile<T, kMma, false, kRagged>(sm, a.wia + (nb + i0) * H, a.proj + nb * H,
+                                              a.w.w2 + oHH, a.w.attb[l], true, E, rv, kc, H, H,
+                                              first, last, inv, a.agg + (nb + i0) * H,
+                                              no_clock);
+      }
     }
     phase_end(1 + kPhases * l + 1);  // B
 
@@ -374,16 +373,16 @@ egnn_fused_kernel(const FusedArgs<T> a) {
     // h: proj = h coord_w_j + b, and wia = h coord_w_i on the movable rows
     // (row g moves when g % N < r)
     for (int it = blockIdx.x; it < tiles; it += gridDim.x) {
-      const int row0 = it * kNodeRows;
-      const int rows = min(kNodeRows, BN - row0);
+      const int row0 = it * nrows;
+      const int rows = min(nrows, BN - row0);
       const float* nib = a.w.nib + oH;
       const float* nob = a.w.nob + oH;
       const float* cwjb = a.w.cwjb + oH;
       auto moves = [&](int m) { return m < rows && (row0 + m) % N < r; };
       __syncthreads();
-      load_rows(abuf, ld, h_in, H, kNodeRows, rows, all_rows(row0));
-      load_rows(tile2, ld, a.agg, H, kNodeRows, rows, all_rows(row0));
-      if constexpr (kMma<T>) {
+      load_rows(abuf, ld, h_in, H, nrows, rows, all_rows(row0));
+      load_rows(tile2, ld, a.agg, H, nrows, rows, all_rows(row0));
+      if constexpr (kMma) {
         // node_in's halves, node_out, coord w_j and coord w_i stream through
         // wsm, each loading while the one before it multiplies
         const T* cwi = r > 0 ? a.w.cwi + oHH : nullptr;
@@ -428,13 +427,13 @@ egnn_fused_kernel(const FusedArgs<T> a) {
       }
       __pipeline_wait_prior(0);
       __syncthreads();
-      block_gemm<T>(abuf, ld, a.w.nih + oHH, tile2, ld, a.w.nia + oHH, rows, H, gs,
+      block_gemm<T, kRagged>(abuf, ld, a.w.nih + oHH, tile2, ld, a.w.nia + oHH, rows, H, gs,
                     [&](int m, int n, float acc) {
                       tile2[(size_t)m * ld + n] = C::from_f(silu_c<T>(C::rnd(acc + nib[n])));
                     });
       // the new h replaces the hidden layer row by row, after the product
       // has read those rows
-      block_gemm<T>(tile2, ld, a.w.no + oHH, none, 0, none, rows, H, gs,
+      block_gemm<T, kRagged>(tile2, ld, a.w.no + oHH, none, 0, none, rows, H, gs,
                     [&](int m, int n, float acc) {
                       const size_t g = (size_t)(row0 + m) * H + n;
                       const float hv = C::rnd(C::to_f(h_in[g]) + C::rnd(acc + nob[n]));
@@ -443,12 +442,12 @@ egnn_fused_kernel(const FusedArgs<T> a) {
                       a.hw[g] = hn;
                       if (last) a.hout[g] = C::to_f(hn);
                     });
-      block_gemm<T>(tile2, ld, a.w.cwj + oHH, none, 0, none, rows, H, gs,
+      block_gemm<T, kRagged>(tile2, ld, a.w.cwj + oHH, none, 0, none, rows, H, gs,
                     [&](int m, int n, float acc) {
                       a.proj[(size_t)(row0 + m) * H + n] = C::from_f(acc + cwjb[n]);
                     });
       if (r == 0) continue;
-      block_gemm<T>(tile2, ld, a.w.cwi + oHH, none, 0, none, rows, H, gs,
+      block_gemm<T, kRagged>(tile2, ld, a.w.cwi + oHH, none, 0, none, rows, H, gs,
                     [&](int m, int n, float acc) {
                       if (moves(m)) a.wia[(size_t)(row0 + m) * H + n] = C::from_f(acc);
                     });
@@ -466,7 +465,7 @@ egnn_fused_kernel(const FusedArgs<T> a) {
     const T* cg = a.w.cg + oH;
     const float* cmb = a.w.cmb + oH;
     use_vecs(a.w.cwe + 2 * oH, nullptr, nullptr);
-    const SplitTail coord_items(a.B * cps);
+    const SplitTail coord_items(a.B * cps, R >= 2);
     for (int w = blockIdx.x; w < coord_items.total; w += gridDim.x) {
       int half;
       const int it = coord_items.item(w, half);
@@ -474,81 +473,104 @@ egnn_fused_kernel(const FusedArgs<T> a) {
       int i0 = (it % cps) * R;
       int rv = min(R, r - i0);
       take_half(half, i0, rv);
-      const int E = rv * K;
-      __syncthreads();
-      // coord_mid's weights stay in shared memory for the whole phase
-      if constexpr (kMma<T>) tiles::use_weights(resident, wsm, ld, a.w.cm + oHH, H);
-      load_edges<T>(a.idx, a.kmask, a.dist0, x_in + nb * 3, nb + i0, i0, E, K,
-                    N, true, et, ediff);
-      __syncthreads();
-      pair_layer<T>(a.wia + (nb + i0) * H, a.proj + nb * H, sm.vec, et, E, H, abuf, ld);
-      // edge e's gate g = silu(buf @ coord_mid + b) . coord_gate, into its
-      // translation ediff[e] (times kmask, over the normalised distance)
-      auto translate = [&](int e, float g) {
-        if (a.use_tanh) g = tanhf(g) * a.coords_range;
-        const float norm = sqrtf(erad[e] + 1e-8f);
-        for (int c = 0; c < 3; ++c)
-          ediff[e * 3 + c] = ediff[e * 3 + c] / (norm + a.norm_constant) * g * ekm[e];
-      };
-      if constexpr (kMma<T>) {
-        __pipeline_wait_prior(0);
+      // the item's receivers' edges in chunks of kc, in k order (one chunk
+      // where K fits in a tile)
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int k0 = kChunked ? ch * a.kc : 0;
+        const int kc = kChunked ? min(a.kc, K - k0) : K;
+        const bool first = ch == 0, last = ch == chunks - 1;
+        const int E = rv * kc;
         __syncthreads();
-        tiles::Acc<2> acc;
-        acc.zero();
-        tiles::mma_tile<2>(acc, abuf, ld, wsm, ld, H);
-        tiles::row_partials<2>(acc, H, part, kEdgeRows, [&](int m, int n, float v0, float v1) {
-          if (m >= E) return 0.0f;
-          return silu_c<T>(C::rnd(v0 + cmb[n])) * C::to_f(cg[n]) +
-                 silu_c<T>(C::rnd(v1 + cmb[n + 1])) * C::to_f(cg[n + 1]);
-        });
+        // coord_mid's weights stay in shared memory for the whole phase
+        if constexpr (kMma) tiles::use_weights(resident, wsm, ld, a.w.cm + oHH, H);
+        load_edges<T>(a.idx, a.kmask, a.dist0, x_in + nb * 3, nb + i0, i0, E, K, k0, kc, N,
+                      true, et, ediff);
         __syncthreads();
-        for (int e = threadIdx.x; e < E; e += kThreads) {
-          float g = part[e];
-          for (int w = 1; w < tiles::kWarpCols; ++w) g += part[w * kEdgeRows + e];
-          translate(e, g);
+        pair_layer<T, kRagged>(a.wia + (nb + i0) * H, a.proj + nb * H, sm.vec, et, E, H, H,
+                               abuf, ld);
+        // edge e's gate g = silu(buf @ coord_mid + b) . coord_gate, into its
+        // translation ediff[e] (times kmask, over the normalised distance)
+        auto translate = [&](int e, float g) {
+          if (a.use_tanh) g = tanhf(g) * a.coords_range;
+          const float norm = sqrtf(erad[e] + 1e-8f);
+          for (int c = 0; c < 3; ++c)
+            ediff[e * 3 + c] = ediff[e * 3 + c] / (norm + a.norm_constant) * g * ekm[e];
+        };
+        if constexpr (kMma) {
+          __pipeline_wait_prior(0);
+          __syncthreads();
+          tiles::Acc<2> acc;
+          acc.zero();
+          tiles::mma_tile<2>(acc, abuf, ld, wsm, ld, H);
+          tiles::row_partials<2>(acc, H, part, erows, [&](int m, int n, float v0, float v1) {
+            if (m >= E) return 0.0f;
+            return silu_c<T>(C::rnd(v0 + cmb[n])) * C::to_f(cg[n]) +
+                   silu_c<T>(C::rnd(v1 + cmb[n + 1])) * C::to_f(cg[n + 1]);
+          });
+          __syncthreads();
+          for (int e = threadIdx.x; e < E; e += kThreads) {
+            float g = part[e];
+            for (int w = 1; w < tiles::kWarpCols; ++w) g += part[w * erows + e];
+            translate(e, g);
+          }
+        } else {
+          __syncthreads();
+          block_gemm<T, kRagged>(abuf, ld, a.w.cm + oHH, none, 0, none, E, H, gs,
+                                 [&](int m, int n, float acc) {
+                                   abuf[(size_t)m * ld + n] =
+                                       C::from_f(silu_c<T>(C::rnd(acc + cmb[n])));
+                                 });
+          const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+          for (int e = warp; e < E; e += kWarps) {
+            float g = 0.0f;
+            for (int c = lane; c < H; c += 32)
+              g = fmaf(C::to_f(abuf[(size_t)e * ld + c]), C::to_f(cg[c]), g);
+            g = warp_sum(g);
+            if (lane == 0) translate(e, g);
+          }
         }
-      } else {
         __syncthreads();
-        block_gemm<T>(abuf, ld, a.w.cm + oHH, none, 0, none, E, H, gs,
-                      [&](int m, int n, float acc) {
-                        abuf[(size_t)m * ld + n] = C::from_f(silu_c<T>(C::rnd(acc + cmb[n])));
-                      });
-        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-        for (int e = warp; e < E; e += kWarps) {
-          float g = 0.0f;
-          for (int c = lane; c < H; c += 32)
-            g = fmaf(C::to_f(abuf[(size_t)e * ld + c]), C::to_f(cg[c]), g);
-          g = warp_sum(g);
-          if (lane == 0) translate(e, g);
+        // each receiver's translations summed in k order, carried from one
+        // chunk to the next (one receiver an item when chunked)
+        for (int p = threadIdx.x; p < rv * 3; p += kThreads) {
+          const int i = p / 3, c = p % 3;
+          const float* d = ediff + (size_t)i * kc * 3 + c;
+          float s = first ? d[0] : xcarry[c];
+          for (int k = first ? 1 : 0; k < kc; ++k) s += d[k * 3];
+          if (last) {
+            const size_t row = nb + i0 + i;
+            x_out[row * 3 + c] = (x_in[row * 3 + c] + s / a.norm_factor) * a.nmask[row];
+          } else {
+            xcarry[c] = s;
+          }
         }
-      }
-      __syncthreads();
-      for (int p = threadIdx.x; p < rv * 3; p += kThreads) {
-        const int i = p / 3, c = p % 3;
-        float s = ediff[(i * K) * 3 + c];
-        for (int k = 1; k < K; ++k) s += ediff[(i * K + k) * 3 + c];
-        const size_t row = nb + i0 + i;
-        x_out[row * 3 + c] = (x_in[row * 3 + c] + s / a.norm_factor) * a.nmask[row];
       }
     }
     phase_end(1 + kPhases * l + 3);  // D
   }
 }
 
-template <typename T>
-static int launch(FusedArgs<T> a, int max_items, cudaStream_t stream,
-                  int* grid_out) {
-  if (a.L < 1 || a.R < 1 || a.R * a.K > kEdgeRows) return (int)cudaErrorInvalidValue;
-  const size_t smem = FusedSmem<T>(a.H).total;
+template <typename T, bool kMma, bool kRagged, bool kChunked>
+static int launch(const FusedArgs<T>& a, int max_items, cudaStream_t stream, int* grid_out) {
+  const bool shape_ok = a.B >= 1 && a.N >= 1 && a.K >= 1 && a.L >= 1 && a.R >= 1 &&
+                        a.kc >= 1 && a.R * a.kc <= a.rows && a.chunks * a.kc >= a.K &&
+                        (a.chunks == 1 || a.R == 1) && a.rows % 32 == 0 &&
+                        a.rows <= kEdgeRows && (!kMma || a.rows == kEdgeRows) &&
+                        (!std::is_same<T, float>::value || kRagged || a.rows == kEdgeRows) &&
+                        (kChunked || a.chunks == 1) &&
+                        a.H == padded_width(a.H, std::is_same<T, bf16>::value) &&
+                        (!kMma || a.H <= kMmaMaxH);
+  if (!shape_ok) return (int)cudaErrorInvalidValue;
+  const size_t smem = TileSmem(a.H, a.rows, kMma, std::is_same<T, bf16>::value, true).total;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
-      egnn_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      egnn_fused_kernel<T, kMma, kRagged, kChunked>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, egnn_fused_kernel<T>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, egnn_fused_kernel<T, kMma, kRagged, kChunked>,
                                                       kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -556,20 +578,31 @@ static int launch(FusedArgs<T> a, int max_items, cudaStream_t stream,
   grid_out[0] = blocks;
   grid_out[1] = per_sm;
   grid_out[2] = (int)smem;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(egnn_fused_kernel<T>, dim3(blocks), dim3(kThreads),
-                                    args, smem, stream);
+  FusedArgs<T> args = a;
+  void* params[] = {&args};
+  err = cudaLaunchCooperativeKernel(egnn_fused_kernel<T, kMma, kRagged, kChunked>, dim3(blocks), dim3(kThreads),
+                                    params, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// The instantiations this build holds: every one, or with EGNN_VARIANT
+// defined only the one of that number (egnn_plan.h: k2_variant), so that
+// ops/_build.py compiles them in parallel, one library each.
+#ifdef EGNN_VARIANT
+constexpr int kVariant = EGNN_VARIANT;
+#else
+constexpr int kVariant = -1;
+#endif
+constexpr bool holds(int v) { return kVariant < 0 || kVariant == v; }
+
 template <typename T>
-static int launch_typed(const void* h0, const void* x0, const void* idx,
+static int launch_typed(int mma, const void* h0, const void* x0, const void* idx,
                         const void* kmask, const void* dist0, const void* nmask,
                         const void* const* wp, void* work, void* coords,
                         void* hout, void* xout, int B, int N, int K, int H,
-                        int L, int r_true, int R, int max_items,
-                        float norm_constant, float coords_range,
+                        int L, int r_true, int R, int rows, int kc, int chunks,
+                        int max_items, float norm_constant, float coords_range,
                         float norm_factor, int use_tanh, void* stamps,
                         cudaStream_t stream, int* grid_out) {
   FusedArgs<T> a;
@@ -616,43 +649,79 @@ static int launch_typed(const void* h0, const void* x0, const void* idx,
   a.L = L;
   a.r_true = r_true;
   a.R = R;
+  a.rows = rows;
+  a.kc = kc;
+  a.chunks = chunks;
   a.norm_constant = norm_constant;
   a.coords_range = coords_range;
   a.norm_factor = norm_factor;
   a.use_tanh = use_tanh;
-  return launch<T>(a, max_items, stream, grid_out);
+  if (mma && !std::is_same<T, bf16>::value) return (int)cudaErrorInvalidValue;
+  switch (k2_variant(std::is_same<T, bf16>::value, mma != 0, H, chunks > 1)) {
+    case 0:
+      if constexpr (holds(0) && !std::is_same<T, bf16>::value)
+        return launch<T, false, false, false>(a, max_items, stream, grid_out);
+      break;
+    case 1:
+      if constexpr (holds(1) && !std::is_same<T, bf16>::value)
+        return launch<T, false, true, true>(a, max_items, stream, grid_out);
+      break;
+    case 2:
+      if constexpr (holds(2) && std::is_same<T, bf16>::value)
+        return launch<T, true, false, false>(a, max_items, stream, grid_out);
+      break;
+    case 3:
+      if constexpr (holds(3) && std::is_same<T, bf16>::value)
+        return launch<T, false, false, true>(a, max_items, stream, grid_out);
+      break;
+    case 4:
+      if constexpr (holds(4) && !std::is_same<T, bf16>::value)
+        return launch<T, false, false, true>(a, max_items, stream, grid_out);
+      break;
+    case 5:
+      if constexpr (holds(5) && std::is_same<T, bf16>::value)
+        return launch<T, true, false, true>(a, max_items, stream, grid_out);
+      break;
+  }
+  return (int)cudaErrorNotSupported;  // another variant's
 }
 
 }  // namespace egnn
 
-// dtype: 0 = float32, 1 = bfloat16. weights: the 20 device pointers of
-// FusedWeights, in its order. work: [4, B*N, H] in the compute dtype (h,
-// proj, wia, agg); coords: [2, B*N, 3] float. R: receivers per message tile
-// (R * K <= 128); max_items: the largest phase's work-item count, which
-// caps the grid. stamps: null, or [1 + 4 * L] int64 for block 0's clock at
-// the start and at the end of each phase. grid_out receives the grid launched: blocks, blocks per
-// SM, dynamic shared memory per block. Returns a cudaError_t value (0 = ok).
-extern "C" int egnn_fused_launch(int dtype, const void* h0, const void* x0,
+// dtype: 0 = float32, 1 = bfloat16; mma: 1 for the mma.sync route (bf16,
+// H <= 256, rows = 128), 0 for block_gemm. weights: the 20 device pointers
+// of FusedWeights, in its order, at width H. work: [4, B*N, H] in the
+// compute dtype (h, proj, wia, agg); coords: [2, B*N, 3] float. H: the
+// stack's width, a multiple of 32 (bf16) or 4 (float), at most 1024. R:
+// receivers per message tile, rows: rows of a tile (a multiple of 32, at
+// most 128), kc: edges per tile and chunks: tiles per receiver (R * kc <=
+// rows; chunks > 1 only with R = 1); max_items: the largest phase's
+// work-item count, which caps the grid. stamps: null, or [1 + 4 * L] int64
+// for block 0's clock at the start and at the end of each phase. grid_out
+// receives the grid launched: blocks, blocks per SM, dynamic shared memory
+// per block. Returns a cudaError_t value (0 = ok).
+extern "C" int egnn_fused_launch(int dtype, int mma, const void* h0, const void* x0,
                                  const void* idx, const void* kmask,
                                  const void* dist0, const void* nmask,
                                  const void* const* weights, void* work,
                                  void* coords, void* hout, void* xout, int B,
                                  int N, int K, int H, int L, int r_true, int R,
+                                 int rows, int kc, int chunks,
                                  int max_items, float norm_constant,
                                  float coords_range, float norm_factor,
                                  int use_tanh, void* stamps, void* stream,
                                  int* grid_out) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return egnn::launch_typed<float>(h0, x0, idx, kmask, dist0, nmask, weights,
+    return egnn::launch_typed<float>(mma, h0, x0, idx, kmask, dist0, nmask, weights,
                                      work, coords, hout, xout, B, N, K, H, L,
-                                     r_true, R, max_items, norm_constant,
+                                     r_true, R, rows, kc, chunks, max_items, norm_constant,
                                      coords_range, norm_factor, use_tanh,
                                      stamps, s, grid_out);
   if (dtype == 1)
-    return egnn::launch_typed<egnn::bf16>(h0, x0, idx, kmask, dist0, nmask,
+    return egnn::launch_typed<egnn::bf16>(mma, h0, x0, idx, kmask, dist0, nmask,
                                           weights, work, coords, hout, xout, B,
-                                          N, K, H, L, r_true, R, max_items,
+                                          N, K, H, L, r_true, R, rows, kc, chunks, max_items,
                                           norm_constant, coords_range,
                                           norm_factor, use_tanh, stamps, s,
                                           grid_out);

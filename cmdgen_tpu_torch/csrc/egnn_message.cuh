@@ -16,6 +16,16 @@
 // block_gemm (exact-float FMAs; WMMA for bf16), the weights streamed
 // through shared memory, and one warp per edge for the attention dot.
 //
+// Widths: the tile runs its product at Hp, H rounded up to the product's
+// granule (32 for bf16, 4 for float); kRagged (egnn_plan.h:
+// ragged_width) compiles the paths that widths other than a power of two
+// (float) or a multiple of 32 (bf16) need. Columns [H, Hp) of the edge tile and
+// of the shared-memory vectors hold zeros, and so do W2's rows and columns
+// past H on their way into shared memory (copy_weight_rows): a padded
+// column of m is silu(0 + 0) = 0, adds 0 to the attention dot and to the
+// K-sum, and is never stored. wi, proj, W2 and agg keep their H columns in
+// global memory; nothing is padded there.
+//
 // A receiver with more edges than a tile holds is taken in chunks of kc
 // edges, one tile each, in k order: the K-sum carries its running sum from
 // one chunk to the next (`carry`) and writes agg after the last, so the
@@ -81,52 +91,78 @@ __device__ inline void take_half(int half, int& i0, int& rv) {
   }
 }
 
-// V consecutive values as float, and back rounded to T, in one or two
-// 16-byte accesses (8-byte for bf16 at V = 4).
+// V consecutive values (V = 8, 4, 2, 1; p aligned to V elements) as float,
+// and back rounded to T, in one access of V elements (two 16-byte ones for
+// float at V = 8).
 template <int V>
 __device__ __forceinline__ void loadv(const bf16* p, float (&o)[V]) {
-  static_assert(V == 4 || V == 8, "bf16 vectors of 4 or 8");
-  uint32_t u[V / 2];
-  if constexpr (V == 8) {
-    const uint4 w = *reinterpret_cast<const uint4*>(p);
-    u[0] = w.x; u[1] = w.y; u[2] = w.z; u[3] = w.w;
+  static_assert(V == 1 || V == 2 || V == 4 || V == 8, "bf16 vectors of 1, 2, 4 or 8");
+  if constexpr (V == 1) {
+    o[0] = __bfloat162float(*p);
   } else {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    u[0] = w.x; u[1] = w.y;
-  }
+    uint32_t u[V / 2];
+    if constexpr (V == 8) {
+      const uint4 w = *reinterpret_cast<const uint4*>(p);
+      u[0] = w.x; u[1] = w.y; u[2] = w.z; u[3] = w.w;
+    } else if constexpr (V == 4) {
+      const uint2 w = *reinterpret_cast<const uint2*>(p);
+      u[0] = w.x; u[1] = w.y;
+    } else {
+      u[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
 #pragma unroll
-  for (int q = 0; q < V / 2; ++q) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[q]));
-    o[2 * q] = f.x;
-    o[2 * q + 1] = f.y;
+    for (int q = 0; q < V / 2; ++q) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[q]));
+      o[2 * q] = f.x;
+      o[2 * q + 1] = f.y;
+    }
   }
 }
 template <int V>
 __device__ __forceinline__ void loadv(const float* p, float (&o)[V]) {
+  if constexpr (V >= 4) {
 #pragma unroll
-  for (int q = 0; q < V; q += 4) {
-    const float4 w = *reinterpret_cast<const float4*>(p + q);
-    o[q] = w.x; o[q + 1] = w.y; o[q + 2] = w.z; o[q + 3] = w.w;
+    for (int q = 0; q < V; q += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(p + q);
+      o[q] = w.x; o[q + 1] = w.y; o[q + 2] = w.z; o[q + 3] = w.w;
+    }
+  } else if constexpr (V == 2) {
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    o[0] = w.x; o[1] = w.y;
+  } else {
+    o[0] = *p;
   }
 }
 template <int V>
 __device__ __forceinline__ void storev(bf16* p, const float (&v)[V]) {
-  uint32_t u[V / 2];
+  if constexpr (V == 1) {
+    *p = __float2bfloat16(v[0]);
+  } else {
+    uint32_t u[V / 2];
 #pragma unroll
-  for (int q = 0; q < V / 2; ++q) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
-    u[q] = *reinterpret_cast<const uint32_t*>(&h);
+    for (int q = 0; q < V / 2; ++q) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+      u[q] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    if constexpr (V == 8)
+      *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+    else if constexpr (V == 4)
+      *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+    else
+      *reinterpret_cast<uint32_t*>(p) = u[0];
   }
-  if constexpr (V == 8)
-    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
-  else
-    *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
 }
 template <int V>
 __device__ __forceinline__ void storev(float* p, const float (&v)[V]) {
+  if constexpr (V >= 4) {
 #pragma unroll
-  for (int q = 0; q < V; q += 4)
-    *reinterpret_cast<float4*>(p + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+    for (int q = 0; q < V; q += 4)
+      *reinterpret_cast<float4*>(p + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
 }
 
 // Rounds two values to T at once (bf16: one cvt.rn.bf16x2.f32).
@@ -186,34 +222,27 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// The pair layer of E edges into buf (row stride ldb), V channels per
-// thread: each thread keeps one group of V columns, so its we values stay
-// in registers and no index is divided inside the loop. wi holds the tile's
-// receiver rows, proj the sample's rows (both [*, H] in T, read with plain
-// loads: K2 writes them earlier in the same launch). Each add is rounded to
-// T as the JAX kernels do.
+// One vector of V channels (columns c..c+V) of edge e's pair layer into
+// buf, each add rounded to T as the JAX kernels do (two channels per
+// rounding where V >= 2).
 template <typename T, int V>
-__device__ void pair_layer_v(const T* wi, const T* proj, const GclVecs& g,
-                             const EdgeTile& et, int E, int H, T* __restrict__ buf,
-                             int ldb) {
+__device__ __forceinline__ void pair_vector(const T* wi, const T* proj, const EdgeTile& et,
+                                            int e, int c, int H, const float (&w0)[V],
+                                            const float (&w1)[V], T* __restrict__ buf,
+                                            int ldb) {
   using C = Cvt<T>;
-  const int cpr = H / V;            // vectors per row
-  const int step = kThreads / cpr;  // rows per pass
-  if ((int)threadIdx.x >= step * cpr) return;
-  const int c = (threadIdx.x % cpr) * V;
-  float w0[V], w1[V];
+  float a[V], p[V], o[V];
+  loadv<V>(wi + (size_t)et.ercv[e] * H + c, a);
+  loadv<V>(proj + (size_t)et.eidx[e] * H + c, p);
+  const float rad = C::rnd(et.erad[e]), d0 = et.ed0[e];
+  if constexpr (V == 1) {
+    float v = C::rnd(a[0] + p[0]);
+    v = C::rnd(v + C::rnd(rad * w0[0]));
+    v = C::rnd(v + C::rnd(d0 * w1[0]));
+    o[0] = silu_m<T, false>(v);  // storev rounds
+  } else {
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    w0[j] = g.we0[c + j];
-    w1[j] = g.we1[c + j];
-  }
-  for (int e = threadIdx.x / cpr; e < E; e += step) {
-    float a[V], p[V], o[V];
-    loadv<V>(wi + (size_t)et.ercv[e] * H + c, a);
-    loadv<V>(proj + (size_t)et.eidx[e] * H + c, p);
-    const float rad = C::rnd(et.erad[e]), d0 = et.ed0[e];
-#pragma unroll
-    for (int j = 0; j < V; j += 2) {  // two channels per rounding
+    for (int j = 0; j < V; j += 2) {
       float v0 = a[j] + p[j], v1 = a[j + 1] + p[j + 1];
       rnd2<T>(v0, v1);
       float t0 = rad * w0[j], t1 = rad * w0[j + 1];
@@ -231,17 +260,67 @@ __device__ void pair_layer_v(const T* wi, const T* proj, const GclVecs& g,
       o[j] = v0;
       o[j + 1] = v1;
     }
-    storev<V>(buf + (size_t)e * ldb + c, o);
   }
+  storev<V>(buf + (size_t)e * ldb + c, o);
 }
 
-template <typename T>
+// The pair layer of E edges into buf (row stride ldb), V channels per
+// thread (H % V == 0): each thread keeps one group of V columns, so its we
+// values stay in registers and no index is divided inside the loop; where
+// a row has more groups than the block has threads (V = 1 past 512
+// columns) the threads walk (edge, group) pairs instead. wi holds the
+// tile's receiver rows, proj the sample's rows (both [*, H] in T, read with
+// plain loads: K2 writes them earlier in the same launch).
+template <typename T, int V>
+__device__ void pair_layer_v(const T* wi, const T* proj, const GclVecs& g,
+                             const EdgeTile& et, int E, int H, T* __restrict__ buf,
+                             int ldb) {
+  const int cpr = H / V;  // vectors per row
+  float w0[V], w1[V];
+  if constexpr (V == 1) {  // the only vector that leaves a row wider than the block
+    if (cpr > kThreads) {
+      for (int q = threadIdx.x; q < E * cpr; q += kThreads) {
+        const int e = q / cpr;
+        w0[0] = g.we0[q - e * cpr];
+        w1[0] = g.we1[q - e * cpr];
+        pair_vector<T, V>(wi, proj, et, e, q - e * cpr, H, w0, w1, buf, ldb);
+      }
+      return;
+    }
+  }
+  const int step = kThreads / cpr;  // rows per pass
+  if ((int)threadIdx.x >= step * cpr) return;
+  const int c = (threadIdx.x % cpr) * V;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    w0[j] = g.we0[c + j];
+    w1[j] = g.we1[c + j];
+  }
+  for (int e = threadIdx.x / cpr; e < E; e += step)
+    pair_vector<T, V>(wi, proj, et, e, c, H, w0, w1, buf, ldb);
+}
+
+// The pair layer, its vector the widest that divides H (8 or 4 where
+// kRagged is false); with kRagged, columns [H, Hp) of the E rows of buf are
+// zeroed.
+template <typename T, bool kRagged>
 __device__ void pair_layer(const T* wi, const T* proj, const GclVecs& g, const EdgeTile& et,
-                           int E, int H, T* buf, int ldb) {
-  if (H % 8 == 0)
+                           int E, int H, int Hp, T* buf, int ldb) {
+  if (H % 8 == 0) {
     pair_layer_v<T, 8>(wi, proj, g, et, E, H, buf, ldb);
-  else
+  } else if (!kRagged || H % 4 == 0) {
     pair_layer_v<T, 4>(wi, proj, g, et, E, H, buf, ldb);
+  } else if constexpr (kRagged) {
+    if (H % 2 == 0)
+      pair_layer_v<T, 2>(wi, proj, g, et, E, H, buf, ldb);
+    else
+      pair_layer_v<T, 1>(wi, proj, g, et, E, H, buf, ldb);
+  }
+  if constexpr (kRagged) {
+    const int pad = Hp - H;
+    for (int q = threadIdx.x; q < E * pad; q += kThreads)
+      buf[(size_t)(q / pad) * ldb + H + q % pad] = Cvt<T>::from_f(0.0f);
+  }
 }
 
 // Shared memory and layout of one message tile.
@@ -254,28 +333,29 @@ struct MsgSmem {
   GemmSmem gs;      // block_gemm route, bf16: its staging
   GclVecs vec;
   EdgeTile et;
-  float* carry;     // [H] the running K-sum between chunks (chunked tiles only)
+  float* carry;     // [Hp] the running K-sum between chunks (chunked tiles only)
 };
 
 // One message tile after its edge load (see the top of this file). The
-// caller has filled sm.et and sm.vec and put a block barrier after them;
-// with kMma the W2 copies into sm.wsm (as [k, n], or [n, k] with WT) are the
-// last cp.async groups in flight, or complete. wi: the tile's receiver
-// rows; proj: the sample's rows; W2 [H, H] in global memory ([in, out]; the
+// caller has filled sm.et and sm.vec (Hp each, zero past H) and put a block
+// barrier after them; with kMma the W2 copies into sm.wsm (as [k, n], or
+// [n, k] with WT; Hp x Hp, zero past H) are the last cp.async groups in
+// flight, or complete. wi: the tile's receiver rows; proj: the sample's
+// rows (both [*, H]); W2 [H, H] in global memory ([in, out]; the
 // block_gemm route reads it from there); att_b: the attention bias.
 // first / last: this tile is its receivers' first / last chunk of edges.
 // out: agg row of the tile's first receiver (row stride H). Ends without a
 // barrier after the K-sum; the clock ticks at every stage but the K-sum,
 // whose end the caller marks at its next barrier.
-template <typename T, bool kMma, bool WT>
+template <typename T, bool kMma, bool WT, bool kRagged>
 __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, const T* W2,
-                             float att_b, bool attention, int E, int rv, int kc, int H,
+                             float att_b, bool attention, int E, int rv, int kc, int H, int Hp,
                              bool first, bool last, float inv, T* out, StageClock& clk) {
   using C = Cvt<T>;
   T* const buf = sm.buf;
   const int ld = sm.ld;
   const EdgeTile& et = sm.et;
-  pair_layer<T>(wi, proj, sm.vec, et, E, H, buf, ld);
+  pair_layer<T, kRagged>(wi, proj, sm.vec, et, E, H, Hp, buf, ld);
   if constexpr (kMma) __pipeline_wait_prior(0);
   __syncthreads();
   clk.tick(kPairLayer);
@@ -283,14 +363,14 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
   if constexpr (kMma) {
     tiles::Acc<2> acc;
     acc.zero();
-    tiles::mma_tile<2, WT>(acc, buf, ld, sm.wsm, ld, H);
+    tiles::mma_tile<2, WT>(acc, buf, ld, sm.wsm, ld, Hp);
     __syncthreads();  // every warp has read the edge tile
     clk.tick(kProduct);
     // m = silu(acc + b2) back into the edge tile, and its attention dot
     const float* b2 = sm.vec.b2;
     const float* att = sm.vec.att;
     if (attention) {
-      tiles::row_partials<2>(acc, H, sm.part, sm.rows, [&](int m, int n, float v0, float v1) {
+      tiles::row_partials<2>(acc, Hp, sm.part, sm.rows, [&](int m, int n, float v0, float v1) {
         if (m >= E) return 0.0f;  // rows past the tile's edges
         v0 += b2[n];
         v1 += b2[n + 1];
@@ -300,7 +380,7 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
         return v0 * att[n] + v1 * att[n + 1];
       });
     } else {
-      tiles::for_each_pair<2>(acc, H, [&](int m, int n, float v0, float v1) {
+      tiles::for_each_pair<2>(acc, Hp, [&](int m, int n, float v0, float v1) {
         if (m >= E) return;
         v0 += b2[n];
         v1 += b2[n + 1];
@@ -321,7 +401,7 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     }
   } else {
     const float* b2 = sm.vec.b2;
-    block_gemm<T>(buf, ld, W2, (const T*)nullptr, 0, (const T*)nullptr, E, H, sm.gs,
+    block_gemm<T, kRagged>(buf, ld, W2, (const T*)nullptr, 0, (const T*)nullptr, E, Hp, H, sm.gs,
                   [&](int m, int n, float acc) {
                     // from_f rounds
                     buf[(size_t)m * ld + n] = C::from_f(silu_m<T, false>(C::rnd(acc + b2[n])));
@@ -342,8 +422,8 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
   __syncthreads();
   clk.tick(kEpilogue);
 
-  // the K-sum in T, in k order, two columns per thread
-  const int cp = H / 2;
+  // the K-sum in T, in k order, two columns per thread (Hp is even)
+  const int cp = Hp / 2;
   const int rpp = kThreads / cp;  // receivers per pass
   if ((int)threadIdx.x >= rpp * cp) return;
   const int c = 2 * (threadIdx.x % cp);
@@ -371,7 +451,13 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
       rnd2<T>(s0, s1);
     }
     if (last) {
-      store2(out + (size_t)i * H + c, s0 * inv, s1 * inv);
+      T* o = out + (size_t)i * H + c;
+      if (!kRagged || H % 2 == 0) {  // c < H holds c + 1 < H, the pair aligned
+        if (!kRagged || c < H) store2(o, s0 * inv, s1 * inv);
+      } else {
+        if (c < H) o[0] = C::from_f(s0 * inv);
+        if (c + 1 < H) o[1] = C::from_f(s1 * inv);
+      }
     } else {  // one receiver per chunked tile: this thread reads it back
       sm.carry[c] = s0;
       sm.carry[c + 1] = s1;

@@ -21,8 +21,8 @@
 // item is R receivers of one sample with all their K edges, R * K <= rows
 // (128 rows: R = 10 at K = 12, 576 items at the flagship shape); a last
 // round that would leave blocks idle is taken as half items. The plan
-// (R, the split, the grid) is computed by the wrapper (ops/egnn_msgpass.py:
-// launch_plan). Each item runs the message tile of egnn_message.cuh, the
+// (R, the split, the grid) is egnn_plan.h's k1_plan, which the wrapper
+// (ops/egnn_msgpass.py: launch_plan) passes in. Each item runs the message tile of egnn_message.cuh, the
 // same routine as K2's message phase: the neighbor indices and edge
 // scalars into shared memory, the pair layer gathering wj rows by address,
 // the edge_out product, the SiLU epilogue and attention gate, and the
@@ -32,7 +32,12 @@
 // float keeps exact-float FMAs (block_gemm, W2 streamed through a ring of
 // shared-memory chunks), and bf16 wider than 256 streams W2 through WMMA
 // slabs (block_gemm). A receiver with more than `rows` edges takes them in
-// chunks, its running K-sum carried from one to the next. The mma route
+// chunks, its running K-sum carried from one to the next. Any H from 1 to
+// 1024: the tile computes at Hp, H rounded up to 32 (bf16) or 4 (float),
+// with zero columns in shared memory only (egnn_message.cuh); the inputs
+// and agg keep their H columns, and a width that is not a whole number of
+// vectors takes narrower loads and stores. `rows` shrinks where a wide
+// tile would not fit in shared memory (the wrapper's plan). The mma route
 // reads W2 as [out, in] in memory, the layout of the nn.Linear weight whose
 // transpose the model passes, so the model's calls copy nothing;
 // block_gemm reads it as [in, out]. With `stamps`, block 0 records its
@@ -65,6 +70,7 @@ struct K1Params {
   void* out;            // [B*N, H] T
   long long* stamps;    // null, or [kStages + 1] (StageClock)
   int B, N, K, H;
+  int Hp;               // the tile's width: H rounded up to 32 (bf16) or 4 (float)
   int R;                // receivers per item
   int rows;             // rows of the edge tile
   int kc, chunks;       // edges per tile, tiles per item (K = kc when chunks = 1)
@@ -74,37 +80,16 @@ struct K1Params {
 
 namespace egnn {
 
-template <typename T>
-struct K1Smem {
-  size_t buf, wsm, part, gemm, vec, carry, eidx, ercv, ekm, erad, ed0, escale, total;
-  __host__ __device__ K1Smem(int H, int rows, bool mma) {
-    const size_t ld = H + row_pad<T>();
-    Carver c;
-    buf = c.take(sizeof(T) * tile_rows<T>(rows) * ld);
-    wsm = c.take(mma ? sizeof(bf16) * H * ld : 0);
-    part = c.take(mma ? 4 * tiles::kWarpCols * (size_t)rows : 0);
-    gemm = c.take(mma ? 0 : gemm_smem_bytes<T>(H));
-    vec = c.take(4 * 4 * (size_t)H);
-    carry = c.take(4 * (size_t)H);
-    eidx = c.take(4 * (size_t)rows);
-    ercv = c.take(4 * (size_t)rows);
-    ekm = c.take(4 * (size_t)rows);
-    erad = c.take(4 * (size_t)rows);
-    ed0 = c.take(4 * (size_t)rows);
-    escale = c.take(4 * (size_t)rows);
-    total = c.off;
-  }
-};
-
-template <typename T, bool kMma>
+template <typename T, bool kMma, bool kRagged>
 __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Params a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   using C = Cvt<T>;
-  const int H = a.H, N = a.N, K = a.K, R = a.R;
-  const K1Smem<T> L(H, a.rows, kMma);
+  const int H = a.H, Hp = a.Hp, N = a.N, K = a.K, R = a.R;
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  const TileSmem L(Hp, a.rows, kMma, kBf16, false);
   MsgSmem<T> sm;
   sm.buf = reinterpret_cast<T*>(smem_raw + L.buf);
-  sm.ld = H + row_pad<T>();
+  sm.ld = Hp + row_pad<T>();
   sm.rows = a.rows;
   sm.wsm = reinterpret_cast<bf16*>(smem_raw + L.wsm);
   sm.part = reinterpret_cast<float*>(smem_raw + L.part);
@@ -112,7 +97,7 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
                    reinterpret_cast<bf16*>(smem_raw + L.gemm + 4 * kWarps * 256),
                    reinterpret_cast<float*>(smem_raw + L.gemm)};
   float* vec = reinterpret_cast<float*>(smem_raw + L.vec);
-  sm.vec = GclVecs{vec, vec + H, vec + 2 * H, vec + 3 * H};
+  sm.vec = GclVecs{vec, vec + Hp, vec + 2 * Hp, vec + 3 * Hp};
   sm.carry = reinterpret_cast<float*>(smem_raw + L.carry);
   EdgeTile& et = sm.et;
   et.eidx = reinterpret_cast<int*>(smem_raw + L.eidx);
@@ -131,12 +116,14 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
   T* out = static_cast<T*>(a.out);
   StageClock clk(a.stamps);
 
-  // the GCL's vectors, w_e and att rounded to T as the JAX kernel casts them
-  for (int c = threadIdx.x; c < H; c += kThreads) {
-    sm.vec.we0[c] = C::rnd(a.we[(size_t)c * a.we_s1]);
-    sm.vec.we1[c] = C::rnd(a.we[a.we_s0 + (size_t)c * a.we_s1]);
-    sm.vec.b2[c] = a.b2[c];
-    sm.vec.att[c] = a.attention ? C::rnd(a.att[c]) : 0.0f;
+  // the GCL's vectors, w_e and att rounded to T as the JAX kernel casts
+  // them, zero past H
+  for (int c = threadIdx.x; c < Hp; c += kThreads) {
+    const bool in = c < H;
+    sm.vec.we0[c] = in ? C::rnd(a.we[(size_t)c * a.we_s1]) : 0.0f;
+    sm.vec.we1[c] = in ? C::rnd(a.we[a.we_s0 + (size_t)c * a.we_s1]) : 0.0f;
+    sm.vec.b2[c] = in ? a.b2[c] : 0.0f;
+    sm.vec.att[c] = in && a.attention ? C::rnd(a.att[c]) : 0.0f;
   }
   const float att_b = a.attention ? a.att_b[0] : 0.0f;
   const float inv = C::rnd(1.0f / a.norm_factor);
@@ -165,7 +152,8 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
       clk.tick(kKsum);
       // edge_out's weights stay in shared memory for the whole launch
       if constexpr (kMma)
-        tiles::use_weights(resident, sm.wsm, sm.ld, reinterpret_cast<const bf16*>(W2), H);
+        tiles::use_weights<kRagged>(resident, sm.wsm, sm.ld, reinterpret_cast<const bf16*>(W2),
+                                    H, Hp);
       for (int e = threadIdx.x; e < E; e += kThreads) {
         const int r = e / kc;
         const size_t off = (row0 + r) * K + k0 + (e - r * kc);
@@ -177,8 +165,8 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
       }
       __syncthreads();
       clk.tick(kEdgeLoad);
-      message_tile<T, kMma, kMma>(sm, wi + row0 * H, wj + (size_t)b * N * H, W2, att_b,
-                                a.attention != 0, E, rv, kc, H, ch == 0,
+      message_tile<T, kMma, kMma, kRagged>(sm, wi + row0 * H, wj + (size_t)b * N * H, W2, att_b,
+                                a.attention != 0, E, rv, kc, H, Hp, ch == 0,
                                 ch == a.chunks - 1, inv, out + row0 * H, clk);
     }
   }
@@ -187,15 +175,35 @@ __global__ void __launch_bounds__(kThreads, 1) gcl_message_agg_kernel(const K1Pa
   clk.write();
 }
 
-template <typename T, bool kMma>
-static int launch(const K1Params& a, cudaStream_t stream) {
-  const size_t smem = K1Smem<T>(a.H, a.rows, kMma).total;
+template <typename T, bool kMma, bool kRagged>
+static int launch_as(const K1Params& a, cudaStream_t stream) {
+  const size_t smem = TileSmem(a.Hp, a.rows, kMma, std::is_same<T, bf16>::value, false).total;
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(gcl_message_agg_kernel<T, kMma>,
+  cudaError_t err = cudaFuncSetAttribute(gcl_message_agg_kernel<T, kMma, kRagged>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gcl_message_agg_kernel<T, kMma><<<a.grid, kThreads, smem, stream>>>(a);
+  gcl_message_agg_kernel<T, kMma, kRagged><<<a.grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The instantiations this build holds: every one, or with EGNN_VARIANT
+// defined only the regular (0) or the ragged ones (1), so that
+// ops/_build.py compiles them in parallel, one library each.
+#ifdef EGNN_VARIANT
+constexpr int kVariant = EGNN_VARIANT;
+#else
+constexpr int kVariant = -1;
+#endif
+constexpr bool holds(int v) { return kVariant < 0 || kVariant == v; }
+
+template <typename T, bool kMma>
+static int launch(const K1Params& a, cudaStream_t stream) {
+  const int v = k1_variant(a.H, std::is_same<T, bf16>::value);
+  if constexpr (holds(0))
+    if (v == 0) return launch_as<T, kMma, false>(a, stream);
+  if constexpr (holds(1))
+    if (v == 1) return launch_as<T, kMma, true>(a, stream);
+  return (int)cudaErrorNotSupported;  // the other variant's
 }
 
 }  // namespace egnn
@@ -207,15 +215,16 @@ extern "C" int egnn_msgpass_launch(const K1Params* p, void* stream) {
   const K1Params& a = *p;
   cudaStream_t s = (cudaStream_t)stream;
   const bool shape_ok = a.B >= 1 && a.N >= 1 && a.K >= 1 && a.R >= 1 && a.kc >= 1 &&
-                        a.R * a.kc <= a.rows && a.rows <= 128 && a.chunks * a.kc >= a.K &&
-                        a.grid >= 1 && a.units >= a.whole && a.whole >= 0;
+                        a.R * a.kc <= a.rows && a.rows <= egnn::kEdgeRows &&
+                        a.chunks * a.kc >= a.K && a.grid >= 1 && a.units >= a.whole &&
+                        a.whole >= 0 && (a.dtype == 0 || a.dtype == 1) &&
+                        a.Hp == egnn::padded_width(a.H, a.dtype == 1);
   if (!shape_ok) return (int)cudaErrorInvalidValue;
   if (a.dtype == 0) {
-    if (a.mma || a.H % 4 || 256 % (a.H / 4)) return (int)cudaErrorInvalidValue;
+    if (a.mma) return (int)cudaErrorInvalidValue;
     return egnn::launch<float, false>(a, s);
   }
-  if (a.dtype != 1 || a.H % 32 || a.H > 512) return (int)cudaErrorInvalidValue;
   if (!a.mma) return egnn::launch<egnn::bf16, false>(a, s);
-  if (a.H > 256 || a.rows != 128) return (int)cudaErrorInvalidValue;
+  if (a.Hp > egnn::kMmaMaxH || a.rows != egnn::kEdgeRows) return (int)cudaErrorInvalidValue;
   return egnn::launch<egnn::bf16, true>(a, s);
 }

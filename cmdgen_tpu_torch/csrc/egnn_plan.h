@@ -1,0 +1,227 @@
+// The two EGNN kernels' launch plans and shared-memory layout, in plain
+// C++: the kernels (egnn_msgpass.cu, egnn_fused.cu) include this header
+// for their constants, layout and launch checks, and egnn_plan.cpp exports
+// it to the wrappers (ops/egnn_msgpass.py, ops/egnn_fused.py) through
+// ctypes, so that every decision here has one owner: the widths taken and
+// the width the tiles compute at, the route, the tile's rows, the split of
+// a receiver's edges into chunks, the work items and the library variant
+// that holds a launch's instantiation.
+#pragma once
+
+#include <stddef.h>
+
+#ifdef __CUDACC__
+#define EGNN_HD __host__ __device__
+#else
+#define EGNN_HD
+#endif
+
+namespace egnn {
+
+constexpr int kThreads = 512;     // threads per block: 16 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kWarpCols = 4;      // mma.sync tiles: a 4 x 4 grid of warps
+constexpr int kSlabK = 16;        // bf16 block_gemm: weight rows per shared-memory slab
+constexpr int kF32Stages = 2;     // float block_gemm: W chunks in the ring
+constexpr int kF32Chunk = 8192;   // floats per W chunk (32 KB)
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use on sm_90
+constexpr int kEdgeRows = 128;    // rows of a message tile at most
+constexpr int kMaxH = 1024;       // the widest stack: 64 bf16 16x16 tiles a warp pass
+// the widest bf16 stack on the mma.sync route, W2 resident in shared
+// memory beside the edge tile (135 KB at 256). Wider, a column split would
+// need a second edge tile for m, whose every column the attention gate
+// reads before the K-sum: both kernels take the block_gemm route there
+constexpr int kMmaMaxH = 256;
+
+EGNN_HD inline int imin(int a, int b) { return a < b ? a : b; }
+EGNN_HD inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Row padding, in elements, of bf16 operands in shared memory. +8 shifts
+// consecutive rows by 4 banks, so a WMMA fragment load (8 rows of 16 bytes
+// per phase) touches 32 distinct banks instead of 4.
+EGNN_HD constexpr int row_pad(bool bf16) { return bf16 ? 8 : 0; }
+
+// W rows per chunk of the float ring: a multiple of 4, at most H
+// (H % 4 == 0, 4 <= H <= 2048; H / rows chunks for a power of two).
+EGNN_HD inline int f32_chunk_rows(int H) { return imin(H, (kF32Chunk / H) & ~3); }
+
+// The width Hp at which the kernels' products run for a stack of width H:
+// H rounded up to 32 for bf16 (tensor-core tiles), to 4 for float (4-column
+// register tiles); 0 for a width the kernels do not take (1 <= H <= kMaxH).
+EGNN_HD inline int padded_width(int H, bool bf16) {
+  if (H < 1 || H > kMaxH) return 0;
+  const int g = bf16 ? 32 : 4;
+  return cdiv(H, g) * g;
+}
+
+// Widths: a kernel instantiated with kRagged = false takes only the widths
+// its tiles divide evenly (float: a power of two, 4 <= H <= 1024; bf16:
+// H % 32 == 0), on the same code as before any other width was taken;
+// kRagged = true takes every H up to 1024: float column groups that do not
+// divide the block, partial weight chunks, weight matrices narrower than
+// the tile (zero-padded on their way into shared memory), vectors of 2 and
+// 1 in the pair layer and single-column stores.
+EGNN_HD inline bool ragged_width(int H, bool bf16) {
+  return bf16 ? H % 32 != 0 : (H < 4 || (H & (H - 1)) != 0);
+}
+
+// Bytes of block_gemm's shared memory (GemmSmem) at width H: bf16's
+// staging tiles and two weight slabs, or float's ring of weight chunks.
+EGNN_HD inline size_t gemm_smem_bytes(int H, bool bf16) {
+  return bf16 ? 4 * (size_t)kWarps * 256 + 2 * (size_t)2 * kSlabK * (H + row_pad(true))
+              : 4 * (size_t)kF32Stages * f32_chunk_rows(H) * H;
+}
+
+// Offsets of 128-byte-aligned arrays in dynamic shared memory; the same
+// sequence of take() calls sizes the allocation on the host.
+struct Carver {
+  size_t off = 0;
+  EGNN_HD size_t take(size_t bytes) {
+    const size_t o = off;
+    off += (bytes + 127) / 128 * 128;
+    return o;
+  }
+};
+
+// Rows to allocate for an A operand of `rows` rows: the bf16 products read
+// whole 16-row tiles, the float products only the rows they use.
+EGNN_HD inline size_t alloc_rows(size_t rows, bool bf16) {
+  return bf16 ? (rows + 15) / 16 * 16 : rows;
+}
+
+// Shared memory of one block of either kernel at width H (the tile's, Hp)
+// with tiles of `rows` rows: the tile (K2: also the row tile of phase A and
+// two node MLP tiles of rows / 2 rows in phase C), on the mma route the
+// weight matrix [H, H] and the per-row partial sums of the epilogues' dot
+// products, on the block_gemm route the products' buffers (GemmSmem), the
+// vectors of the pair MLP (GclVecs), the running K-sum of a chunked
+// receiver, the per-edge arrays of one tile and, with `coords` (K2's
+// coordinate pass), the edges' coordinate differences and running sum.
+struct TileSmem {
+  size_t buf, wsm, part, gemm, vec, carry, eidx, ercv, ekm, erad, ed0, escale, ediff, xcarry,
+      total;
+  EGNN_HD TileSmem(int H, int rows, bool mma, bool bf16, bool coords) {
+    const size_t ld = H + row_pad(bf16);
+    Carver c;
+    buf = c.take((bf16 ? 2 : 4) * alloc_rows(rows, bf16) * ld);
+    wsm = c.take(mma ? 2 * (size_t)H * ld : 0);
+    part = c.take(mma ? 4 * kWarpCols * (size_t)rows : 0);
+    gemm = c.take(mma ? 0 : gemm_smem_bytes(H, bf16));
+    vec = c.take(4 * 4 * (size_t)H);
+    carry = c.take(4 * (size_t)H);
+    eidx = c.take(4 * (size_t)rows);
+    ercv = c.take(4 * (size_t)rows);
+    ekm = c.take(4 * (size_t)rows);
+    erad = c.take(4 * (size_t)rows);
+    ed0 = c.take(4 * (size_t)rows);
+    escale = c.take(4 * (size_t)rows);
+    ediff = c.take(coords ? 4 * 3 * (size_t)rows : 0);
+    xcarry = c.take(coords ? 4 * 3 : 0);
+    total = c.off;
+  }
+};
+
+// ---- plans (host)
+
+enum PlanStatus { kPlanOk = 0, kPlanEmpty, kPlanWidth, kPlanNoTile, kPlanRows };
+
+// The route: mma.sync (bf16, Hp <= kMmaMaxH) wherever it runs, unless
+// `block_gemm` asks for the block_gemm route, which runs at every width.
+inline bool takes_mma(int hp, bool bf16, bool block_gemm) {
+  return bf16 && hp <= kMmaMaxH && !block_gemm;
+}
+
+// The most rows, a multiple of `step` up to kEdgeRows, whose block_gemm
+// tile fits in shared memory; 0 if none does.
+inline int fit_rows(int hp, bool bf16, bool coords, int step) {
+  for (int rows = kEdgeRows; rows > 0; rows -= step)
+    if (TileSmem(hp, rows, false, bf16, coords).total <= (size_t)kMaxSmem) return rows;
+  return 0;
+}
+
+// A message item: `receivers` receivers of one sample with all their K
+// edges (receivers * K <= rows); a receiver with more than `rows` edges is
+// an item of its own, taken in `chunks` tiles of `chunk` edges, in k order.
+struct Chunking {
+  int receivers, chunk, chunks;
+};
+
+inline Chunking chunking(int K, int rows) {
+  if (K <= rows) return {rows / K, K, 1};
+  const int chunks = cdiv(K, rows);
+  return {1, cdiv(K, chunks), chunks};
+}
+
+// K1's plan (egnn_msgpass.cu). The grid, one block per SM, walks the units
+// of work in a strided loop: items [0, whole) whole, then the rest as two
+// half items each (a last round that would leave blocks idle, split when
+// twice as many still fit in one round and an item has two receivers to
+// split); the grid is capped at the number of units. rows: kEdgeRows on the
+// mma route, else the most rows, a multiple of 16, that fit. variant: the
+// library that holds the launch's instantiation (egnn_msgpass.cu:
+// EGNN_VARIANT).
+struct K1Plan {
+  int hp, mma, variant, rows, receivers, chunk, chunks, items, whole, units, grid, smem_bytes;
+};
+
+inline int k1_variant(int H, bool bf16) { return ragged_width(H, bf16) ? 1 : 0; }
+
+inline int k1_plan(int B, int N, int K, int H, bool bf16, int sms, bool block_gemm, K1Plan* p) {
+  if (B < 1 || N < 1 || K < 1 || sms < 1) return kPlanEmpty;
+  const int hp = padded_width(H, bf16);
+  if (!hp) return kPlanWidth;
+  const bool mma = takes_mma(hp, bf16, block_gemm);
+  const int rows = mma ? kEdgeRows : fit_rows(hp, bf16, false, 16);
+  if (!rows) return kPlanNoTile;
+  const Chunking c = chunking(K, rows);
+  const int items = B * cdiv(N, c.receivers);
+  const int tail = items % sms;
+  const int split = c.receivers >= 2 && 2 * tail <= sms ? tail : 0;
+  const int units = items + split;
+  *p = {hp, mma, k1_variant(H, bf16), rows, c.receivers, c.chunk, c.chunks, items,
+        items - split, units, imin(sms, units), (int)TileSmem(hp, rows, mma, bf16, false).total};
+  return kPlanOk;
+}
+
+// K2's plan (egnn_fused.cu): four phases a layer, each a list of work
+// items: A, the node projections (two matrices a `rows`-row tile); B, the
+// GCL messages (an item per Chunking item); C, the node MLP and the
+// coordinate projections (a tile of rows / 2 rows); D, the coordinate pass
+// on the r_true movable receivers. rows: kEdgeRows on the mma route, else
+// the most, a multiple of 32, that fit (kEdgeRows for float at a power of
+// two up to 256, which the regular instantiations take with their tiles
+// fixed). max_items caps the cooperative grid. variant (egnn_fused.cu:
+// EGNN_VARIANT): 0 float at a power of two up to 256, 1 float at other
+// widths, 2 bf16 mma, 3 bf16 block_gemm, 4 and 5 the builds of 0 and 2
+// whose receivers take their edges in chunks.
+struct K2Plan {
+  int hp, mma, variant, rows, node_rows, receivers, chunk, chunks, items[4], max_items,
+      smem_bytes;
+};
+
+inline int k2_variant(bool bf16, bool mma, int hp, bool chunked) {
+  if (bf16) return mma ? (chunked ? 5 : 2) : 3;
+  return ragged_width(hp, false) || hp > 256 ? 1 : (chunked ? 4 : 0);
+}
+
+inline int k2_plan(int B, int N, int K, int H, int r_true, bool bf16, bool block_gemm,
+                   K2Plan* p) {
+  if (B < 1 || N < 1 || K < 1) return kPlanEmpty;
+  if (r_true < 0 || r_true > N) return kPlanRows;
+  const int hp = padded_width(H, bf16);
+  if (!hp) return kPlanWidth;
+  const bool mma = takes_mma(hp, bf16, block_gemm);
+  const int rows = mma ? kEdgeRows : fit_rows(hp, bf16, true, 32);
+  if (!rows) return kPlanNoTile;
+  const Chunking c = chunking(K, rows);
+  const int items[4] = {2 * cdiv(B * N, rows), B * cdiv(N, c.receivers), cdiv(B * N, rows / 2),
+                        B * cdiv(r_true, c.receivers)};
+  int most = 0;
+  for (int v : items) most = v > most ? v : most;
+  *p = {hp, mma, k2_variant(bf16, mma, hp, c.chunks > 1), rows, rows / 2, c.receivers, c.chunk,
+        c.chunks, {items[0], items[1], items[2], items[3]}, most,
+        (int)TileSmem(hp, rows, mma, bf16, true).total};
+  return kPlanOk;
+}
+
+}  // namespace egnn

@@ -3,7 +3,8 @@
 //
 // A block multiplies a tile of 16 * MI * 4 rows (64 or 128) of a bf16
 // operand A in shared memory by a bf16 weight matrix W [H, H] (row-major
-// [in, out], H % 32 == 0, H <= 256) also in shared memory, rows of both
+// [in, out], H % 32 == 0, H <= 256) also in shared memory (a smaller matrix
+// [hw, hw] zero-padded to H on its way there: load_chunk), rows of both
 // padded by 8 elements (row_pad: an ldmatrix phase then reads 8 rows on 32
 // distinct banks). The 16 warps form a 4 x 4 grid; warp (wr, wc) owns rows
 // [wr * 16 * MI, +16 * MI) and columns [wc * H / 4, +H / 4): a register
@@ -31,7 +32,7 @@ namespace tiles {
 
 static_assert(kThreads == 512, "the tile products are laid out for 16 warps");
 
-constexpr int kWarpCols = 4;  // warp grid: 4 x 4 over the block's 16 warps
+using egnn::kWarpCols;  // warp grid: 4 x 4 over the block's 16 warps
 constexpr int kMaxNT = 8;     // n8 tiles per warp at H = 256
 constexpr int kChunk = 64;    // weight rows per cp.async group
 
@@ -112,32 +113,46 @@ __device__ __forceinline__ void wait_pending(int n) {
   }
 }
 
-// Copies rows [c * kChunk, +kChunk) of W [H, H] (global) into the same rows
-// of wsm (row stride ldw) and commits them as one group.
-__device__ __forceinline__ void load_chunk(bf16* wsm, int ldw, const bf16* W, int H, int c) {
-  const int per_row = H / 8;
+// Copies rows [c * kChunk, +kChunk) of W [hw, hw] (global; zero past hw,
+// copy_weight_rows) into the same rows of wsm (row stride ldw, H columns)
+// and commits them as one group.
+template <bool kRagged>
+__device__ __forceinline__ void load_chunk(bf16* wsm, int ldw, const bf16* W, int hw, int H,
+                                           int c) {
   const int r0 = c * kChunk;
-  const int n = (min(H, r0 + kChunk) - r0) * per_row;
-  for (int p = threadIdx.x; p < n; p += kThreads) {
-    const int r = r0 + p / per_row, q = (p % per_row) * 8;
-    __pipeline_memcpy_async(wsm + (size_t)r * ldw + q, W + (size_t)r * H + q, 16);
+  if constexpr (kRagged) {
+    copy_weight_rows(wsm + (size_t)r0 * ldw, ldw, W, hw, H, r0, min(H, r0 + kChunk));
+  } else {
+    const int per_row = H / 8;
+    const int n = (min(H, r0 + kChunk) - r0) * per_row;
+    for (int p = threadIdx.x; p < n; p += kThreads) {
+      const int r = r0 + p / per_row, q = (p % per_row) * 8;
+      __pipeline_memcpy_async(wsm + (size_t)r * ldw + q, W + (size_t)r * H + q, 16);
+    }
   }
   __pipeline_commit();
 }
 
-// Starts loading W into wsm as nchunks(H) groups, or commits as many empty
-// groups if wsm already holds W (resident tracks what wsm holds). Every
-// warp must be done with wsm's previous contents.
+// Starts loading W [hw, hw] into wsm as nchunks(H) groups, or commits as
+// many empty groups if wsm already holds W (resident tracks what wsm
+// holds). Every warp must be done with wsm's previous contents.
+template <bool kRagged = false>
 __device__ __forceinline__ void use_weights(const bf16*& resident, bf16* wsm, int ldw,
-                                            const bf16* W, int H) {
+                                            const bf16* W, int hw, int H) {
   const int nch = nchunks(H);
   for (int c = 0; c < nch; ++c) {
     if (resident == W)
       __pipeline_commit();
     else
-      load_chunk(wsm, ldw, W, H, c);
+      load_chunk<kRagged>(wsm, ldw, W, hw, H, c);
   }
   resident = W;
+}
+
+// The same with W [H, H].
+__device__ __forceinline__ void use_weights(const bf16*& resident, bf16* wsm, int ldw,
+                                            const bf16* W, int H) {
+  use_weights<false>(resident, wsm, ldw, W, H, H);
 }
 
 // acc += A[warp rows, k0:k1] . W[k0:k1, warp columns], all in shared memory
@@ -213,7 +228,7 @@ __device__ __forceinline__ void mma_streamed(Acc<MI>& acc, const bf16* A, int ld
     mma_range<MI>(acc, A, lda, wsm, ldw, H, c * kChunk, min(H, (c + 1) * kChunk));
     if (next != nullptr) {
       __syncthreads();
-      load_chunk(wsm, ldw, next, H, c);
+      load_chunk<false>(wsm, ldw, next, H, H, c);
     } else {
       __pipeline_commit();
     }

@@ -143,8 +143,11 @@ def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
     """The dynamics forward with the EGNN stack in one K2 launch
     (``ops.egnn_fused``); counterpart of the JAX package's
     ``make_pallas_apply``. The type MLPs and embeddings run in float32, as
-    there. Weights are stacked once, here. Inference only. Raises
-    ValueError for a shape K2 cannot run, naming the limit
+    there. Weights are stacked once, here. Inference only. Refuses what
+    ``make_pallas_apply`` refuses (the mode, ``sin_embedding``,
+    ``inv_sublayers``, no ``neighbor_k``, aggregation other than sum) and a
+    model without attention, whose ``att`` weights the kernel reads, as the
+    JAX kernel does; and a width past the kernels' widest stack, 1024
     (``check_fused_shape``)."""
     cfg = dynamics.cfg
     ecfg = cfg.egnn
@@ -156,7 +159,7 @@ def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
         raise ValueError("the fused engine needs neighbor_k")
     if ecfg.aggregation_method != "sum" or not ecfg.attention:
         raise ValueError("the fused engine needs sum aggregation and attention")
-    check_fused_shape(ecfg.hidden_nf, ecfg.compute_dtype, ecfg.neighbor_k)
+    check_fused_shape(ecfg.hidden_nf, ecfg.compute_dtype)
     with torch.no_grad():
         params = fused_params(dynamics.egnn, ecfg.compute_dtype)
 

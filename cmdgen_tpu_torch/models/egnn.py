@@ -8,11 +8,10 @@ Two engines, as in the JAX package:
   aggregation and the two raw edge features (radial, dist0) the GCL
   message pass goes through ``ops.egnn_msgpass.gcl_message_agg`` (the CUDA
   kernel on the GPU, its plain version on the CPU), as the JAX package
-  sends only such GCLs to its Pallas kernel; with ``sin_embedding`` (24
-  edge features), at a hidden width the kernel does not take, or where
-  autograd records the forward pass (``ops.egnn_msgpass.kernel_route``: the
-  kernel has no backward pass, as the JAX package's has none), it runs in
-  PyTorch. Training therefore takes the torch message path, as the JAX
+  sends only such GCLs to its Pallas kernel, at any hidden width; with
+  ``sin_embedding`` (24 edge features), or where autograd records the
+  forward pass (``ops.egnn_msgpass.kernel_route``: the kernel has no
+  backward pass, as the JAX package's has none), it runs in PyTorch. Training therefore takes the torch message path, as the JAX
   package's training takes XLA's, and every sampler, under
   ``torch.no_grad()``, takes the kernel.
 
@@ -183,11 +182,10 @@ class GCL(nn.Module):
         cfg = self.cfg
         dt = cfg.compute_dtype
         hdim = cfg.hidden_nf
-        # K1 takes neighbor-list GCLs with sum aggregation, the two edge
-        # scalars and a width it supports, outside autograd; the rest take
-        # the torch path
+        # K1 takes neighbor-list GCLs with sum aggregation and the two edge
+        # scalars, outside autograd; the rest take the torch path
         if (nbr_idx is not None and cfg.aggregation_method == "sum"
-                and edge_attr.shape[-1] == 2 and kernel_route(hdim, dt)):
+                and edge_attr.shape[-1] == 2 and kernel_route()):
             wi, wj = self.edge_in.project(h, dt)
             att = (self.att.weight.reshape(hdim), self.att.bias) if cfg.attention else None
             agg = gcl_message_agg(

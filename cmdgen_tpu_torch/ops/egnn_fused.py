@@ -11,6 +11,12 @@ the plain layers.
 
 Like the JAX kernel, the GCL radial is computed from x rounded to the
 compute dtype; the coordinate pass gathers x in float32.
+
+Widths: the kernel runs the stack at ``padded_width(H)`` (H rounded up to
+32 for bfloat16, 4 for float32). ``fused_params`` pads the stacked weights
+to it once, with zeros, and the kernel's entry h is padded on each call;
+the padded columns stay zero through every layer and are cut from the
+kernel's output. The plain layers take the weights back to H.
 """
 from __future__ import annotations
 
@@ -18,15 +24,17 @@ import ctypes
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from cmdgen_tpu_torch.ops import _build
 from cmdgen_tpu_torch.ops.egnn_msgpass import (
     _DTYPE_CODE,
-    WIDTH_LIMITS,
     _check,
+    block_gemm_asked,
     gather_rows,
-    kernel_takes,
     ksum,
+    padded_width,
+    plan_error,
     refuse_autograd,
     silu_cdt,
 )
@@ -38,6 +46,26 @@ WEIGHT_NAMES = (
     "cwi", "cwj", "cwjb", "cwe", "cm", "cmb", "cg",
 )
 _F32_NAMES = frozenset({"wjb", "w2b", "attb", "nib", "nob", "cwjb", "cmb"})
+# the trailing dimensions of each stack that are H wide ([L, H, H]
+# matrices: 2; [L, 2, H] edge rows and [L, H] vectors: 1; attb [L]: 0)
+_H_DIMS = {name: 2 for name in WEIGHT_NAMES}
+_H_DIMS.update({name: 1 for name in ("wjb", "we", "w2b", "att", "nib", "nob", "cwjb",
+                                     "cwe", "cmb", "cg")}, attb=0)
+
+
+def resize_stacks(p: Dict[str, torch.Tensor], h: int) -> Dict[str, torch.Tensor]:
+    """The stacks of ``p`` (``WEIGHT_NAMES``) at width h: zero-padded where
+    they are narrower, cut (views) where wider; other entries as they are."""
+    out = dict(p)
+    for name in WEIGHT_NAMES:
+        t, d = p[name], _H_DIMS[name]
+        if d == 0 or t.shape[-1] == h:
+            continue
+        if t.shape[-1] < h:
+            out[name] = F.pad(t, (0, h - t.shape[-1]) * d).contiguous()
+        else:
+            out[name] = t[..., :h, :h] if d == 2 else t[..., :h]
+    return out
 
 
 def _kernel_io(lin: torch.nn.Linear) -> torch.Tensor:
@@ -50,7 +78,9 @@ def fused_params(egnn, compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     layout: matrices [L, H, H] as [in, out] and edge rows [L, 2, H] in the
     compute dtype; biases [L, H] in float32. Also carries the input and
     output embeddings in float32. Every entry is a copy: a snapshot of the
-    weights as they are now, which later optimizer steps do not reach."""
+    weights as they are now, which later optimizer steps do not reach. The
+    stacks are zero-padded to the kernel's width (``padded_width``), once,
+    here; the embeddings keep H."""
     cfg = egnn.cfg
     hdim = cfg.hidden_nf
     blocks = [getattr(egnn, f"e_block_{i}") for i in range(cfg.n_layers)]
@@ -87,6 +117,7 @@ def fused_params(egnn, compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         "cmb": stack(lambda b: cu(b).coord_mid.bias, True),
         "cg": stack(lambda b: cu(b).coord_gate.weight.reshape(hdim)),
     }
+    p = resize_stacks(p, padded_width(hdim, compute_dtype))
     p["emb_w"] = _kernel_io(egnn.embedding).detach().float().contiguous()
     p["emb_b"] = egnn.embedding.bias.detach().float().clone()
     p["out_w"] = _kernel_io(egnn.embedding_out).detach().float().contiguous()
@@ -96,8 +127,9 @@ def fused_params(egnn, compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
 
 def _layers_plain(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
                   norm_constant, coords_range, norm_factor, tanh, cdt):
-    """The kernel's layer stack in plain PyTorch. Returns (h [B,N,H] f32,
-    x [B,N,3] f32)."""
+    """The kernel's layer stack in plain PyTorch, at h0's width H (the
+    stacks are cut back to it). Returns (h [B,N,H] f32, x [B,N,3] f32)."""
+    p = resize_stacks(p, h0.shape[-1])
     h = h0.to(cdt)
     x = x.float()
     idx = idx.long()
@@ -150,96 +182,89 @@ def _layers_plain(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
     return h.float(), x
 
 
-# rows of one message tile (R receivers x K edges, R * K <= 128), also the
-# row tile of phase A, and of one node MLP tile (csrc/egnn_fused.cu:
-# kEdgeRows, kNodeRows)
-EDGE_ROWS = 128
-NODE_ROWS = 64
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-# the widest bf16 stack K2 takes: its node phases keep bf16 tiles of up to
-# 256 columns (csrc/egnn_fused.cu)
-FUSED_BF16_MAX_H = 256
-
-
-def check_fused_shape(hdim: int, cdt: torch.dtype, k: int) -> None:
+def check_fused_shape(hdim: int, cdt: torch.dtype) -> None:
     """Raise ValueError, naming the limit, for a stack K2 cannot run:
-    compute dtypes float32 and bfloat16; the widths K1 takes
-    (``WIDTH_LIMITS``), and for bf16 H <= ``FUSED_BF16_MAX_H``; neighbor_k
-    in [1, ``EDGE_ROWS``]."""
+    compute dtypes float32 and bfloat16, widths 1 <= H <=
+    ``kernel_limits()["max_h"]``."""
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"the fused kernel takes float32 or bfloat16, not {cdt}")
-    if not kernel_takes(hdim, cdt):
-        raise ValueError(f"hidden width {hdim} unsupported by the fused {cdt} kernel: "
-                         f"{WIDTH_LIMITS[cdt]}")
-    if cdt == torch.bfloat16 and hdim > FUSED_BF16_MAX_H:
-        raise ValueError(f"hidden width {hdim} unsupported by the fused bf16 kernel: "
-                         f"H <= {FUSED_BF16_MAX_H}")
-    if not 1 <= k <= EDGE_ROWS:
-        raise ValueError(f"neighbor_k {k} unsupported by the fused kernel: "
-                         f"1 <= K <= {EDGE_ROWS}")
+    padded_width(hdim, cdt)
 
 
-def launch_plan(b: int, n: int, k: int, hdim: int, r_true: int) -> Dict[str, object]:
-    """The kernel's work decomposition, computed here and passed to it.
+class _K2Plan(ctypes.Structure):
+    """csrc/egnn_plan.h: K2Plan, field for field."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "hp", "mma", "variant", "rows", "node_rows", "receivers", "chunk", "chunks")] + [
+        ("items", ctypes.c_int * 4), ("max_items", ctypes.c_int), ("smem_bytes", ctypes.c_int)]
+
+
+def launch_plan(b: int, n: int, k: int, hdim: int, r_true: int, cdt: torch.dtype,
+                route: Optional[str] = None) -> Dict[str, object]:
+    """The kernel's work decomposition (csrc/egnn_plan.h: k2_plan), passed
+    to it.
 
     Each layer runs as four phases over the whole batch (csrc/egnn_fused.cu),
     each a list of work items that the blocks of one cooperative grid take
     in a strided loop: A, the node projections w_j, w_i (one item per
-    EDGE_ROWS-row tile and matrix); B, the GCL messages (one item per R
+    ``rows``-row tile and matrix); B, the GCL messages (one item per R
     receivers of one sample); C, the node MLP and then the coordinate
-    projections of the new h (one item per NODE_ROWS-row tile); D, the
+    projections of the new h (one item per ``node_rows``-row tile); D, the
     coordinate pass (one item per R movable receivers of one sample). In B
     and D the kernel takes a last, partial round of items as half items
-    where twice as many still fit in the grid. The grid is capped at the
-    largest phase's item count. Workspace: the four [B*N, H] arrays (h,
-    proj, wia, agg) and two [B*N, 3] coordinate buffers.
+    where twice as many still fit in the grid and R >= 2. A receiver with
+    more than ``rows`` edges is an item of its own, its edges taken in
+    ``chunks`` tiles of ``chunk``. The stack runs at width ``hp``
+    (``padded_width``); ``rows`` is 128 on the mma route (bf16, hp <= 256;
+    ``route``: ``block_gemm_asked``), else the most, a multiple of 32, that
+    fits in shared memory. The grid is capped at the largest phase's item
+    count. ``variant``: the library of the launch's instantiation.
+    Workspace: the four [B*N, hp] arrays (h, proj, wia, agg) and two
+    [B*N, 3] coordinate buffers.
     """
-    if not 1 <= k <= EDGE_ROWS:
-        raise ValueError(f"neighbor_k {k} outside [1, {EDGE_ROWS}]")
-    if not 0 <= r_true <= n:
+    p = _K2Plan()
+    st = _build.plan_library().egnn_k2_plan(b, n, k, hdim, r_true, int(cdt == torch.bfloat16),
+                                            block_gemm_asked(route), ctypes.byref(p))
+    if st == 4:
         raise ValueError(f"update_rows {r_true} outside [0, {n}]")
-    rcv = EDGE_ROWS // k
-    wide = _cdiv(b * n, EDGE_ROWS)
-    items = {
-        "A": 2 * wide,
-        "B": b * _cdiv(n, rcv),
-        "C": _cdiv(b * n, NODE_ROWS),
-        "D": b * _cdiv(r_true, rcv),
-    }
-    return {"receivers": rcv, "items": items, "max_items": max(items.values()),
-            "work": (4, b * n, hdim), "coords": (2, b * n, 3)}
+    if st:
+        raise plan_error(st, hdim, f"empty layer stack: B={b}, N={n}, neighbor_k={k}")
+    items = dict(zip("ABCD", p.items))
+    return {"route": "mma" if p.mma else "block_gemm", "hp": p.hp, "rows": p.rows,
+            "variant": p.variant, "node_rows": p.node_rows, "smem_bytes": p.smem_bytes,
+            "receivers": p.receivers, "chunk": p.chunk, "chunks": p.chunks, "items": items,
+            "max_items": p.max_items, "work": (4, b * n, p.hp), "coords": (2, b * n, 3)}
 
 
 def _layers_kernel(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
                    norm_constant, coords_range, norm_factor, tanh, cdt, *,
-                   stamps: Optional[torch.Tensor] = None):
+                   stamps: Optional[torch.Tensor] = None, route: Optional[str] = None):
     """Launch csrc/egnn_fused.cu on CUDA tensors, or raise. ``stamps``: an
     int64 CUDA tensor of 1 + len(PHASES) * n_layers elements, or None; the
     kernel then writes one block's SM clock at its start and after each
-    phase (:func:`phase_shares`)."""
+    phase (:func:`phase_shares`). ``route``: :func:`launch_plan`'s."""
     b, n, hdim = h0.shape
     k = idx.shape[-1]
-    check_fused_shape(hdim, cdt, k)
-    plan = launch_plan(b, n, k, hdim, int(r_true))
+    check_fused_shape(hdim, cdt)
+    plan = launch_plan(b, n, k, hdim, int(r_true), cdt, route)
+    hp = plan["hp"]
     dev = h0.device
-    h0 = h0.to(cdt).contiguous()
+    h0 = h0.to(cdt)
+    if hp > hdim:
+        h0 = F.pad(h0, (0, hp - hdim))
+    h0 = h0.contiguous()
     x = x.to(torch.float32).contiguous()
     idx = idx.to(torch.int32).contiguous()
     kmask = kmask.to(torch.float32).contiguous()
     dist0 = dist0.to(torch.float32).contiguous()
     nmask = nmask.to(torch.float32).contiguous()
     L = n_layers
-    shapes = {"wjb": (L, hdim), "w2b": (L, hdim), "attb": (L,),
-              "nib": (L, hdim), "nob": (L, hdim), "cwjb": (L, hdim),
-              "cmb": (L, hdim), "we": (L, 2, hdim), "cwe": (L, 2, hdim),
-              "att": (L, hdim), "cg": (L, hdim)}
+    shapes = {"wjb": (L, hp), "w2b": (L, hp), "attb": (L,),
+              "nib": (L, hp), "nob": (L, hp), "cwjb": (L, hp),
+              "cmb": (L, hp), "we": (L, 2, hp), "cwe": (L, 2, hp),
+              "att": (L, hp), "cg": (L, hp)}
     for t, name, shape, dt in (
-        (h0, "h0", (b, n, hdim), cdt), (x, "x", (b, n, 3), torch.float32),
+        (h0, "h0", (b, n, hp), cdt), (x, "x", (b, n, 3), torch.float32),
         (idx, "idx", (b, n, k), torch.int32),
         (kmask, "kmask", (b, n, k), torch.float32),
         (dist0, "dist0", (b, n, k), torch.float32),
@@ -248,10 +273,10 @@ def _layers_kernel(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
         _check(t, name, shape, dt)
     for name in WEIGHT_NAMES:
         dt = torch.float32 if name in _F32_NAMES else cdt
-        _check(p[name], name, shapes.get(name, (L, hdim, hdim)), dt)
+        _check(p[name], name, shapes.get(name, (L, hp, hp)), dt)
     work = torch.empty(plan["work"], dtype=cdt, device=dev)
     coords = torch.empty(plan["coords"], dtype=torch.float32, device=dev)
-    hout = torch.empty((b, n, hdim), dtype=torch.float32, device=dev)
+    hout = torch.empty((b, n, hp), dtype=torch.float32, device=dev)
     xout = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
     wptrs = (ctypes.c_void_p * len(WEIGHT_NAMES))(
         *[p[name].data_ptr() for name in WEIGHT_NAMES]
@@ -259,20 +284,20 @@ def _layers_kernel(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
     if stamps is not None:
         _check(stamps, "stamps", (1 + len(PHASES) * L,), torch.int64)
     grid = (ctypes.c_int * 3)()
-    lib = _build.load("egnn_fused")
+    lib = _build.load("egnn_fused", plan["variant"])
     fn = lib.egnn_fused_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(
-        _DTYPE_CODE[cdt], h0.data_ptr(), x.data_ptr(), idx.data_ptr(),
-        kmask.data_ptr(), dist0.data_ptr(), nmask.data_ptr(),
+        _DTYPE_CODE[cdt], int(plan["route"] == "mma"), h0.data_ptr(), x.data_ptr(),
+        idx.data_ptr(), kmask.data_ptr(), dist0.data_ptr(), nmask.data_ptr(),
         ctypes.cast(wptrs, ctypes.c_void_p), work.data_ptr(), coords.data_ptr(),
-        hout.data_ptr(), xout.data_ptr(), b, n, k, hdim, L, int(r_true),
-        plan["receivers"], plan["max_items"],
+        hout.data_ptr(), xout.data_ptr(), b, n, k, hp, L, int(r_true),
+        plan["receivers"], plan["rows"], plan["chunk"], plan["chunks"], plan["max_items"],
         float(norm_constant), float(coords_range), float(norm_factor),
         int(bool(tanh)), None if stamps is None else stamps.data_ptr(), stream,
         ctypes.cast(grid, ctypes.c_void_p),
@@ -282,7 +307,7 @@ def _layers_kernel(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
     egnn_forward_fused.launches += 1
     egnn_forward_fused.last_grid = {"blocks": grid[0], "blocks_per_sm": grid[1],
                                     "smem_bytes": grid[2]}
-    return hout, xout
+    return hout[..., :hdim], xout
 
 
 def layer_args(params, h, x, edge_mask, node_mask, n_layers, neighbor_k,

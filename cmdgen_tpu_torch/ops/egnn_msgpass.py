@@ -93,29 +93,13 @@ def _check(t: torch.Tensor, name: str, shape, dtype) -> None:
         raise ValueError(f"{name} must start on a 32-byte boundary (tensor-core tile loads)")
 
 
-WIDTH_LIMITS = {torch.float32: "H/4 must divide 256 (H in 4, 8, 16, ..., 1024)",
-                torch.bfloat16: "H % 32 == 0 and H <= 512"}
-
-
-def kernel_takes(h: int, cdt: torch.dtype) -> bool:
-    """Whether the kernels take hidden width ``h`` in compute dtype ``cdt``:
-    float32 products need H/4 to divide 256, bf16 tensor-core products
-    H % 32 == 0 and H <= 512 (``WIDTH_LIMITS``). A static rule of (H, dtype)
-    alone: the model sends the other GCLs to its torch message path."""
-    if cdt == torch.bfloat16:
-        return h % 32 == 0 and 32 <= h <= 512
-    if cdt == torch.float32:
-        return h % 4 == 0 and 4 <= h <= 1024 and 256 % (h // 4) == 0
-    return False
-
-
-def kernel_route(h: int, cdt: torch.dtype) -> bool:
-    """Whether a GCL sends its message pass to :func:`gcl_message_agg`: at a
-    width the kernels take, and only outside autograd. The kernels have no
-    backward pass (nor have the JAX package's, which sends a GCL to its
-    kernel only under ``msgpass_pallas``, an inference flag), so a forward
-    pass whose gradient is wanted takes the torch message path."""
-    return kernel_takes(h, cdt) and not torch.is_grad_enabled()
+def kernel_route() -> bool:
+    """Whether a GCL sends its message pass to :func:`gcl_message_agg`:
+    only outside autograd. The kernels have no backward pass (nor have the
+    JAX package's, which sends a GCL to its kernel only under
+    ``msgpass_pallas``, an inference flag), so a forward pass whose
+    gradient is wanted takes the torch message path."""
+    return not torch.is_grad_enabled()
 
 
 def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -128,55 +112,98 @@ def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
                            "the model's torch path)")
 
 
-def _check_width(h: int, cdt: torch.dtype) -> None:
-    if not kernel_takes(h, cdt):
-        raise ValueError(f"hidden width {h} unsupported by the {cdt} kernels: "
-                         f"{WIDTH_LIMITS.get(cdt, 'float32 or bfloat16 only')}")
-
-
-# rows of one message tile: R receivers x K edges, R * K <= EDGE_ROWS
-# (csrc/egnn_msgpass.cu); float32 tiles wider than 256 hold fewer rows
-EDGE_ROWS = 128
 # the stages of a tile that the kernel's clock separates (StageClock in
 # csrc/egnn_message.cuh); the block_gemm route counts its SiLU epilogue in
 # the product
 STAGES = ("edge load", "pair layer", "product", "epilogue and attention", "K-sum")
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+def kernel_limits() -> Dict[str, int]:
+    """The kernels' limits (csrc/egnn_plan.h): ``max_h``, the widest stack;
+    ``max_smem``, the dynamic shared memory a block may use; ``edge_rows``,
+    the rows of a message tile at most."""
+    out = (ctypes.c_int * 3)()
+    _build.plan_library().egnn_limits(out)
+    return dict(zip(("max_h", "max_smem", "edge_rows"), out))
 
 
-def launch_plan(b: int, n: int, k: int, h: int, cdt: torch.dtype, sms: int) -> Dict[str, object]:
-    """The kernel's work decomposition, computed here and passed to it.
+def _width_error(h: int) -> ValueError:
+    return ValueError(f"hidden width {h} unsupported by the CUDA kernels: "
+                      f"1 <= H <= {kernel_limits()['max_h']}")
 
-    Route: ``mma`` (mma.sync, W2 resident in shared memory) for bf16 with
-    H <= 256, else ``block_gemm`` (exact-float FMAs for float32; WMMA with
-    W2 streamed for wider bf16). A work item is ``receivers`` receivers of
-    one sample with all their edges, ``receivers * k <= rows``; a receiver
-    with more than ``rows`` edges is one item of ``chunks`` tiles of
-    ``chunk`` edges each. The grid, one block per SM, walks the units of
-    work in a strided loop: items ``[0, whole)`` whole, then the rest as two
-    half items each (a last round that would leave blocks idle, split when
-    twice as many still fit in one round and an item has two receivers to
-    split). The grid is capped at the number of units.
+
+def padded_width(h: int, cdt: torch.dtype) -> int:
+    """The width Hp at which the kernels' products run for a stack of width
+    h (csrc/egnn_plan.h: padded_width): h rounded up to 32 for bfloat16
+    (tensor-core tiles), to 4 for float32 (4-column register tiles). The
+    kernels keep the columns past h at zero in shared memory; K2's workspace
+    holds them too (:mod:`.egnn_fused`). Raises ValueError, naming the
+    limit, for a width the kernels do not take."""
+    hp = _build.plan_library().egnn_padded_width(int(h), int(cdt == torch.bfloat16))
+    if hp == 0:
+        raise _width_error(h)
+    return hp
+
+
+def block_gemm_asked(route: Optional[str]) -> int:
+    """``route`` as the plans take it: None, the mma.sync route wherever it
+    runs (bf16 up to 256), or "block_gemm", the route of every other width,
+    at any width."""
+    if route not in (None, "block_gemm"):
+        raise ValueError(f"route {route!r}: None or 'block_gemm'")
+    return int(route == "block_gemm")
+
+
+def plan_error(status: int, h: int, what: str) -> ValueError:
+    """The error of a plan that csrc/egnn_plan.h refused (PlanStatus);
+    ``what`` names the shape for an empty one."""
+    if status == 2:
+        return _width_error(h)
+    if status == 3:
+        return ValueError(f"no tile of hidden width {h} fits in shared memory")
+    return ValueError(what)
+
+
+class _K1Plan(ctypes.Structure):
+    """csrc/egnn_plan.h: K1Plan, field for field."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "hp", "mma", "variant", "rows", "receivers", "chunk", "chunks", "items", "whole",
+        "units", "grid", "smem_bytes")]
+
+
+def launch_plan(b: int, n: int, k: int, h: int, cdt: torch.dtype, sms: int,
+                route: Optional[str] = None) -> Dict[str, object]:
+    """The kernel's work decomposition (csrc/egnn_plan.h: k1_plan), passed
+    to it.
+
+    Width: the tile computes at ``hp`` (:func:`padded_width`), any h from 1
+    to ``kernel_limits()["max_h"]``. Route: ``mma`` (mma.sync, W2 resident
+    in shared memory) for bf16 with hp <= 256, else ``block_gemm``
+    (exact-float FMAs for float32; WMMA with W2 streamed for wider bf16);
+    ``route="block_gemm"`` asks for it where mma would run
+    (:func:`block_gemm_asked`).
+    ``rows``: 128 on the mma route, else the most rows (a multiple of 16)
+    whose tile fits in shared memory (``smem_bytes``). A work item is
+    ``receivers`` receivers of one sample with all their edges,
+    ``receivers * k <= rows``; a receiver with more than ``rows`` edges is
+    one item of ``chunks`` tiles of ``chunk`` edges each. The grid, one
+    block per SM, walks the units of work in a strided loop: items ``[0,
+    whole)`` whole, then the rest as two half items each (a last round that
+    would leave blocks idle, split when twice as many still fit in one
+    round and an item has two receivers to split). The grid is capped at
+    the number of units. ``variant``: the library of the launch's
+    instantiation.
     """
-    if b < 1 or n < 1 or k < 1:
-        raise ValueError(f"empty message pass: B={b}, N={n}, K={k}")
-    mma = cdt == torch.bfloat16 and h <= 256
-    rows = EDGE_ROWS if cdt == torch.bfloat16 or h <= 256 else EDGE_ROWS * 256 // h
-    if k <= rows:
-        rcv, chunks, chunk = rows // k, 1, k
-    else:
-        rcv, chunks = 1, _cdiv(k, rows)
-        chunk = _cdiv(k, chunks)
-    items = b * _cdiv(n, rcv)
-    tail = items % sms
-    split = tail if rcv >= 2 and 2 * tail <= sms else 0
-    units = items + split
-    return {"route": "mma" if mma else "block_gemm", "rows": rows, "receivers": rcv,
-            "chunk": chunk, "chunks": chunks, "items": items, "whole": items - split,
-            "units": units, "grid": min(sms, units)}
+    p = _K1Plan()
+    st = _build.plan_library().egnn_k1_plan(b, n, k, h, int(cdt == torch.bfloat16), sms,
+                                            block_gemm_asked(route), ctypes.byref(p))
+    if st:
+        raise plan_error(st, h, f"empty message pass: B={b}, N={n}, K={k}")
+    return {"route": "mma" if p.mma else "block_gemm", "hp": p.hp, "rows": p.rows,
+            "variant": p.variant, "smem_bytes": p.smem_bytes, "receivers": p.receivers,
+            "chunk": p.chunk, "chunks": p.chunks, "items": p.items, "whole": p.whole,
+            "units": p.units, "grid": p.grid}
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,15 +237,15 @@ class _Params(ctypes.Structure):
         ("norm_factor", ctypes.c_float),
         ("out", ctypes.c_void_p), ("stamps", ctypes.c_void_p),
         ("B", ctypes.c_int), ("N", ctypes.c_int), ("K", ctypes.c_int), ("H", ctypes.c_int),
-        ("R", ctypes.c_int), ("rows", ctypes.c_int), ("kc", ctypes.c_int),
+        ("Hp", ctypes.c_int), ("R", ctypes.c_int), ("rows", ctypes.c_int), ("kc", ctypes.c_int),
         ("chunks", ctypes.c_int), ("whole", ctypes.c_int), ("units", ctypes.c_int),
         ("grid", ctypes.c_int),
     ]
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel() -> Callable:
-    fn = _build.load("egnn_msgpass").egnn_msgpass_launch
+def _kernel(variant: int) -> Callable:
+    fn = _build.load("egnn_msgpass", variant).egnn_msgpass_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     return fn
@@ -242,25 +269,28 @@ def _edge_view(t: torch.Tensor, name: str, shape, cdt: torch.dtype) -> Tuple[tor
 
 
 def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_factor,
-                   compute_dtype=None) -> Callable[..., torch.Tensor]:
+                   compute_dtype=None, *, route: Optional[str] = None
+                   ) -> Callable[..., torch.Tensor]:
     """Everything :func:`gcl_message_agg` does on CUDA tensors before the
     launch: checks, the few casts the kernel cannot read through, the plan
     and the output. Returns ``run(stamps=None)``, which launches the kernel
     on those arguments (counted in ``gcl_message_agg.launches``) and
     returns agg [B, N, H]; ``stamps``, an int64 CUDA tensor of
     ``len(STAGES) + 1`` elements, receives block 0's stage clock
-    (:func:`stage_shares`). Raises where the kernel cannot run."""
+    (:func:`stage_shares`). ``route``: :func:`launch_plan`'s. Raises where
+    the kernel cannot run: a dtype other than float32 and bfloat16, H past
+    ``kernel_limits()["max_h"]``, a tensor that is not on the card or not
+    of the expected shape."""
     cdt = compute_dtype or wi.dtype
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"unsupported compute dtype {cdt}")
     b, n, h = wi.shape
     k = idx.shape[-1]
-    _check_width(h, cdt)
     dev = wi.device
     if dev.type != "cuda":
         raise ValueError(f"wi must be a CUDA tensor, got {dev}")
     plan = launch_plan(b, n, k, h, cdt, _sm_count(dev.index if dev.index is not None
-                                                  else torch.cuda.current_device()))
+                                                  else torch.cuda.current_device()), route)
     mma = plan["route"] == "mma"
     wi, wj = wi.to(cdt).contiguous(), wj.to(cdt).contiguous()
     idx = idx.to(torch.int64).contiguous()
@@ -301,10 +331,10 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
         att=atk.data_ptr() if attention else None,
         att_b=atb.data_ptr() if attention else None, attention=int(attention),
         norm_factor=float(norm_factor), out=out.data_ptr(),
-        B=b, N=n, K=k, H=h, R=plan["receivers"], rows=plan["rows"], kc=plan["chunk"],
+        B=b, N=n, K=k, H=h, Hp=plan["hp"], R=plan["receivers"], rows=plan["rows"], kc=plan["chunk"],
         chunks=plan["chunks"], whole=plan["whole"], units=plan["units"], grid=plan["grid"],
     )
-    fn = _kernel()
+    fn = _kernel(plan["variant"])
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the tensors the kernel reads stay alive with the closure
     keep = (wi, wj, idx, radial, dist0, kmask, we, w2, w2b) + ((atk, atb) if attention else ())

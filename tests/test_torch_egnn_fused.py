@@ -21,13 +21,14 @@ from cmdgen_tpu_torch.models.dynamics import DynamicsConfig as TDynamicsConfig
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics as TEGNNDynamics
 from cmdgen_tpu_torch.models.dynamics import make_fused_apply
 from cmdgen_tpu_torch.ops.egnn_fused import (
-    EDGE_ROWS,
-    NODE_ROWS,
+    WEIGHT_NAMES,
     egnn_forward_fused,
     egnn_forward_fused_plain,
     fused_params,
     launch_plan,
+    resize_stacks,
 )
+from cmdgen_tpu_torch.ops.egnn_msgpass import kernel_limits, padded_width
 
 torch.set_num_threads(1)
 
@@ -129,6 +130,57 @@ def test_fused_dynamics_flagship_like_shape_matches_jax():
     _check_fused_dynamics(cfg, params, inputs, 5e-4, 5e-4)
 
 
+@pytest.mark.parametrize("hidden,n_q,k", [
+    (100, 9, None),   # a width that is not a power of two
+    (32, 136, 130),   # K = 130 over 140 rows: past one 128-row tile, chunked on the card
+], ids=["H100", "K130"])
+def test_fused_dynamics_matches_jax_at_any_width_and_k(hidden, n_q, k):
+    """Shapes the JAX fused kernel takes and the port's K2 took only from
+    this port on: the plain layers against ``make_pallas_apply`` in
+    interpret mode."""
+    cfg, params, inputs = _setup(n_q=n_q, hidden=hidden, k=k)
+    _check_fused_dynamics(cfg, params, inputs, 2e-4, 1e-4)
+
+
+@pytest.mark.parametrize("hidden,cdt", [(48, torch.bfloat16), (99, torch.float32)])
+def test_fused_params_pad_once_to_the_kernel_width(hidden, cdt):
+    """fused_params zero-pads every stack to the kernel's width at build,
+    and the plain layers, which cut them back, give the same stack as
+    unpadded weights; at float32 the fused engine still equals the msgpass
+    engine."""
+    from cmdgen_tpu_torch.models.egnn import EGNNConfig as TEGNNConfig
+
+    cfg = TDynamicsConfig(phar_nf=8, residue_nf=5, joint_nf=8, edge_cutoff=4.0,
+                          egnn=TEGNNConfig(hidden_nf=hidden, n_layers=2, inv_sublayers=1,
+                                           neighbor_k=6, compute_dtype=cdt))
+    torch.manual_seed(0)
+    dyn = TEGNNDynamics(cfg).eval()
+    hp = padded_width(hidden, cdt)
+    assert hp > hidden
+    with torch.no_grad():
+        p = fused_params(dyn.egnn, cdt)
+    for name in WEIGHT_NAMES:
+        t = p[name]
+        if name == "attb":
+            continue
+        assert t.shape[-1] == hp and t.is_contiguous()
+        assert not t[..., hidden:].any()
+        if t.dim() == 3 and t.shape[1] == hp:
+            assert not t[:, hidden:].any()
+    _, _, inputs = _setup(cutoff=4.0)
+    args = [torch.from_numpy(a) for a in inputs]
+    with torch.no_grad():
+        h, x, mask, edge_mask, ucm = dyn._inputs(*args, lambda mlp, v: mlp.forward_f32(v))
+        kw = dict(n_layers=2, neighbor_k=6, update_rows=4, compute_dtype=cdt)
+        padded = egnn_forward_fused_plain(p, h, x, edge_mask, mask, ucm, **kw)
+        cut = egnn_forward_fused_plain(resize_stacks(p, hidden), h, x, edge_mask, mask, ucm, **kw)
+        for u, v in zip(padded, cut):
+            torch.testing.assert_close(u, v, rtol=0, atol=0)
+        if cdt == torch.float32:
+            for u, v in zip(dyn(*args), make_fused_apply(dyn)(*args)):
+                torch.testing.assert_close(u, v, atol=2e-4, rtol=1e-4)
+
+
 def test_fused_engine_matches_msgpass_engine():
     """The two port engines compute the same dynamics at f32."""
     cfg, params, inputs = _setup(cutoff=4.0, k=6)
@@ -148,21 +200,51 @@ def test_fused_apply_rejects_unsupported_configs():
         make_fused_apply(dyn)
 
 
-@pytest.mark.parametrize("b,n,k,h,r", [
+ROW_CASES = [
     (48, 118, 12, 256, 8),   # the flagship shape
     (1, 37, 12, 256, 0),     # no movable rows
     (3, 130, 16, 128, 130),  # every row moves
     (160, 100, 12, 256, 8),
     (2, 12, 5, 32, 4),
     (2, 130, 128, 64, 3),    # one receiver per message tile
-])
-def test_launch_plan_covers_every_row_once(b, n, k, h, r):
+    (2, 140, 160, 256, 3),   # K past one tile: each receiver's edges in chunks
+    (3, 50, 12, 640, 4),     # bf16 past 256: the block_gemm route, 96-row tiles
+    (2, 20, 12, 48, 5),      # a width padded to 64
+]
+# float32: the regular variant (tiles of 128 rows fixed), its chunked
+# build, the ragged variant at a width that is not a power of two, past
+# 256 and chunked, and the cutoff-exact full-atom shape
+F32_ROW_CASES = [
+    (48, 118, 12, 256, 8), (2, 140, 160, 256, 3), (48, 118, 12, 100, 8),
+    (3, 50, 12, 640, 4), (2, 20, 12, 48, 5), (2, 140, 160, 99, 3), (16, 522, 160, 256, 16),
+]
+
+
+@pytest.mark.parametrize("b,n,k,h,r,cdt", [
+    pytest.param(*c, torch.bfloat16, id="-".join(map(str, c))) for c in ROW_CASES] + [
+    pytest.param(*c, torch.float32, id="f32-" + "-".join(map(str, c))) for c in F32_ROW_CASES])
+def test_launch_plan_covers_every_row_once(b, n, k, h, r, cdt):
     """The fused kernel's work items, from the wrapper's plan, cover each
-    row, receiver and movable receiver exactly once at ragged shapes."""
-    plan = launch_plan(b, n, k, h, r)
-    rcv, items = plan["receivers"], plan["items"]
-    assert rcv * k <= EDGE_ROWS < (rcv + 1) * k
-    for rows, n_tiles in ((NODE_ROWS, items["C"]), (EDGE_ROWS, items["A"] // 2)):
+    row, receiver and movable receiver exactly once at ragged shapes; the
+    library variant matches the plan's tiles."""
+    lim = kernel_limits()
+    plan = launch_plan(b, n, k, h, r, cdt)
+    rcv, items, erows = plan["receivers"], plan["items"], plan["rows"]
+    assert plan["smem_bytes"] <= lim["max_smem"] and plan["node_rows"] * 2 == erows
+    assert erows == lim["edge_rows"] if plan["route"] == "mma" else erows % 32 == 0
+    if cdt == torch.bfloat16:
+        assert plan["variant"] == ((5 if plan["chunks"] > 1 else 2) if plan["route"] == "mma"
+                                   else 3)
+    else:
+        regular = plan["hp"] <= 256 and plan["hp"] & (plan["hp"] - 1) == 0
+        assert plan["route"] == "block_gemm"
+        assert plan["variant"] == ((4 if plan["chunks"] > 1 else 0) if regular else 1)
+        assert not regular or erows == lim["edge_rows"]  # the regular tiles are fixed
+    if k <= erows:
+        assert rcv * k <= erows < (rcv + 1) * k and plan["chunks"] == 1
+    else:
+        assert rcv == 1 and plan["chunk"] <= erows < k <= plan["chunk"] * plan["chunks"]
+    for rows, n_tiles in ((plan["node_rows"], items["C"]), (erows, items["A"] // 2)):
         tiles = [list(range(t * rows, min((t + 1) * rows, b * n))) for t in range(n_tiles)]
         assert all(tiles) and sorted(sum(tiles, [])) == list(range(b * n))
     assert items["A"] % 2 == 0
@@ -187,27 +269,41 @@ def test_launch_plan_covers_every_row_once(b, n, k, h, r):
         assert list(range(i0, i0 + first)) + list(range(i0 + first, i0 + rv)) == list(
             range(i0, i0 + rv))
     assert plan["max_items"] == max(items.values())
-    assert plan["work"] == (4, b * n, h) and plan["coords"] == (2, b * n, 3)
+    assert plan["hp"] == padded_width(h, cdt)
+    assert plan["work"] == (4, b * n, plan["hp"]) and plan["coords"] == (2, b * n, 3)
 
 
 def test_launch_plan_rejects_what_the_kernel_cannot_tile():
-    with pytest.raises(ValueError, match="neighbor_k"):
-        launch_plan(1, 200, EDGE_ROWS + 1, 64, 0)
+    """K past one tile is a plan of chunks that covers each receiver's
+    edges once, in k order (the kernel's loop over ``chunks``); update_rows
+    past N and an empty neighbour list are refused."""
+    k = kernel_limits()["edge_rows"] + 1
+    plan = launch_plan(1, 200, k, 64, 0, torch.bfloat16)
+    assert plan["receivers"] == 1 and plan["chunks"] == 2
+    edges = []
+    for ch in range(plan["chunks"]):
+        k0 = ch * plan["chunk"]
+        edges += list(range(k0, k0 + min(plan["chunk"], k - k0)))
+    assert edges == list(range(k)) and plan["chunk"] <= plan["rows"]
     with pytest.raises(ValueError, match="update_rows"):
-        launch_plan(1, 10, 4, 64, 11)
+        launch_plan(1, 10, 4, 64, 11, torch.bfloat16)
+    with pytest.raises(ValueError, match="neighbor_k"):
+        launch_plan(1, 10, 0, 64, 0, torch.bfloat16)
 
 
 def test_launch_plan_of_the_wrapping_card_case():
     """tests/test_torch_kernels_cuda.py's (160, 100, ...) case gives every
     phase more work items than the H100's 132 SMs, so each strided item
     loop wraps."""
-    assert min(launch_plan(160, 100, 12, 256, 8)["items"].values()) > 132
+    assert min(launch_plan(160, 100, 12, 256, 8, torch.bfloat16)["items"].values()) > 132
 
 
 def test_fused_apply_refuses_kernel_limits_at_build():
-    """make_fused_apply refuses the shapes K2 cannot run when the model is
-    built, and the error names the limit: bf16 H = 320 (> 256), an f32
-    width K1's products do not take, K beyond one 128-row tile."""
+    """make_fused_apply builds at every width and K that K2 takes (bf16 H =
+    320, an f32 width that is not a power of two, K beyond one 128-row
+    tile) and refuses, naming it, only what the JAX package's
+    make_pallas_apply refuses (no neighbor_k here), a model without
+    attention and a width past the kernels' limit."""
     from cmdgen_tpu_torch.models.egnn import EGNNConfig as TEGNNConfig
 
     def dyn(**egnn):
@@ -215,10 +311,13 @@ def test_fused_apply_refuses_kernel_limits_at_build():
         return TEGNNDynamics(TDynamicsConfig(phar_nf=8, residue_nf=5, joint_nf=8,
                                              egnn=TEGNNConfig(**{**base, **egnn})))
 
-    with pytest.raises(ValueError, match=r"hidden width 320 .*bf16.*H <= 256"):
-        make_fused_apply(dyn(hidden_nf=320, compute_dtype=torch.bfloat16))
-    with pytest.raises(ValueError, match=r"hidden width 192 .*H/4 must divide 256"):
-        make_fused_apply(dyn(hidden_nf=192))
-    with pytest.raises(ValueError, match=r"neighbor_k 129 .*K <= 128"):
-        make_fused_apply(dyn(neighbor_k=129))
+    make_fused_apply(dyn(hidden_nf=320, compute_dtype=torch.bfloat16))
+    make_fused_apply(dyn(hidden_nf=192))
+    make_fused_apply(dyn(neighbor_k=129))
     make_fused_apply(dyn(hidden_nf=256, compute_dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="neighbor_k"):
+        make_fused_apply(dyn(neighbor_k=None))
+    with pytest.raises(ValueError, match="attention"):
+        make_fused_apply(dyn(attention=False))
+    with pytest.raises(ValueError, match=r"hidden width 1025 .*H <= 1024"):
+        make_fused_apply(dyn(hidden_nf=1025))

@@ -3,6 +3,7 @@ plain version on the CPU) and the port's dynamics on the neighbor-list engine
 against the JAX package's Pallas kernel in interpret mode, at f32, with the
 JAX suite's tolerances (atol 2e-4 / rtol 1e-4; 5e-4 at the flagship-like
 shape). The same numpy-seeded inputs and the same flax params drive both."""
+import ctypes
 import dataclasses
 import re
 from pathlib import Path
@@ -23,11 +24,12 @@ from cmdgen_tpu_torch.models.dynamics import DynamicsConfig as TDynamicsConfig
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics as TEGNNDynamics
 from cmdgen_tpu_torch.ops import egnn_msgpass
 from cmdgen_tpu_torch.ops.egnn_msgpass import (
-    EDGE_ROWS,
     STAGES,
     gcl_message_agg,
     gcl_message_agg_plain,
+    kernel_limits,
     launch_plan,
+    padded_width,
     stage_shares,
 )
 
@@ -74,10 +76,9 @@ def _check_dynamics(cfg, params, inputs, atol, rtol):
     np.testing.assert_allclose(out_q.numpy(), np.asarray(ref_q), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("attention", [True, False])
-def test_gcl_message_agg_plain_matches_pallas_interpret(attention):
+def _gcl_vs_pallas_interpret(attention, h):
     rng = np.random.RandomState(3)
-    b, n, k, h = 2, 11, 5, 32
+    b, n, k = 2, 11, 5
     wi = rng.randn(b, n, h).astype(np.float32)
     wj = rng.randn(b, n, h).astype(np.float32)
     idx = rng.randint(0, n, size=(b, n, k)).astype(np.int32)
@@ -102,6 +103,19 @@ def test_gcl_message_agg_plain_matches_pallas_interpret(attention):
     out2 = gcl_message_agg(*targs, tatt, 100.0)
     assert gcl_message_agg.launches == before
     torch.testing.assert_close(out2, out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("attention", [True, False])
+def test_gcl_message_agg_plain_matches_pallas_interpret(attention):
+    _gcl_vs_pallas_interpret(attention, 32)
+
+
+@pytest.mark.parametrize("h", [100, 192])
+def test_gcl_message_agg_plain_matches_pallas_interpret_at_other_widths(h):
+    """Widths that are not a power of two, which the CUDA kernel also
+    takes (it computes them at ``padded_width``): the plain version against
+    JAX's kernel at f32."""
+    _gcl_vs_pallas_interpret(True, h)
 
 
 @pytest.mark.parametrize("cutoff", [None, 4.0])
@@ -159,16 +173,24 @@ def plan_tiles(plan, n, k):
     (2, 9, 200, 256, torch.bfloat16),     # K past one tile: chunks of edges
     (2, 40, 70, 512, torch.float32),      # float32 wider than 256: 64-row tiles
     (1, 3, 1, 32, torch.bfloat16),        # K = 1
+    (48, 118, 12, 100, torch.float32),    # a width that is not a power of two
+    (2, 40, 12, 640, torch.bfloat16),     # bf16 past 512: 112-row tiles
+    (3, 140, 160, 256, torch.float32),    # K = 160: two chunks of 80 edges
+    (4, 30, 7, 99, torch.float32),        # an odd width: tiles of Hp = 100
 ])
 def test_launch_plan_covers_every_edge_once(b, n, k, h, cdt):
     """K1's work plan (``launch_plan``, walked as the kernel's item loop
     walks it) takes every (sample, receiver, edge) exactly once, each
-    receiver's edges in k order, in tiles that fit the kernel's rows."""
+    receiver's edges in k order, in tiles that fit the kernel's rows and
+    shared memory."""
     sms = 132
+    lim = kernel_limits()
     plan = launch_plan(b, n, k, h, cdt, sms)
     rows, rcv = plan["rows"], plan["receivers"]
     assert plan["route"] == ("mma" if cdt == torch.bfloat16 and h <= 256 else "block_gemm")
-    assert plan["chunk"] * plan["chunks"] >= k and rcv * plan["chunk"] <= rows <= EDGE_ROWS
+    assert plan["hp"] == padded_width(h, cdt) and plan["smem_bytes"] <= lim["max_smem"]
+    assert rows == lim["edge_rows"] or (plan["route"] == "block_gemm" and rows % 16 == 0)
+    assert plan["chunk"] * plan["chunks"] >= k and rcv * plan["chunk"] <= rows <= lim["edge_rows"]
     assert rcv == 1 or rcv * k <= rows < (rcv + 1) * k
     assert plan["grid"] == min(sms, plan["units"])
     split = plan["units"] - plan["items"]
@@ -214,6 +236,25 @@ def test_kernel_params_match_the_cuda_struct():
     assert got == [(name, want[t]) for name, t in fields]
 
 
+def test_plan_structs_match_the_header():
+    """The wrappers' ctypes structures list K1Plan's and K2Plan's fields in
+    csrc/egnn_plan.h's order, every one an int (``items`` four of them)."""
+    from cmdgen_tpu_torch.ops import egnn_fused
+
+    src = (Path(egnn_msgpass.__file__).resolve().parent.parent / "csrc"
+           / "egnn_plan.h").read_text()
+    for name, struct in (("K1Plan", egnn_msgpass._K1Plan), ("K2Plan", egnn_fused._K2Plan)):
+        body = re.search(rf"struct {name} \{{(.*?)\n\}};", src, re.S).group(1)
+        decl = re.fullmatch(r"\s*int (.*);\s*", body, re.S).group(1)
+        fields = [f.strip() for f in decl.replace("\n", " ").split(",")]
+        got = [(f, t) for f, t in struct._fields_]
+        want = [(f.split("[")[0], ctypes.c_int * int(f.split("[")[1][:-1]) if "[" in f
+                 else ctypes.c_int) for f in fields]
+        assert [f for f, _ in got] == [f for f, _ in want]
+        for (_, a), (_, b) in zip(got, want):
+            assert ctypes.sizeof(a) == ctypes.sizeof(b) and (a is b or a._type_ is b._type_)
+
+
 def test_stage_shares_from_stamps():
     stamps = torch.tensor([10, 30, 20, 25, 15, 7])
     shares = stage_shares(stamps)
@@ -223,19 +264,52 @@ def test_stage_shares_from_stamps():
     assert shares["pair layer"] == pytest.approx(0.3)
 
 
-@pytest.mark.parametrize("hidden,dtype,to_kernel", [
-    (192, torch.float32, False),   # 256 % (192 / 4) != 0
-    (48, torch.bfloat16, False),   # 48 % 32 != 0
-    (256, torch.bfloat16, True),   # the flagship width
-    (128, torch.float32, True),    # qrun_aa's width
-], ids=["f32_H192", "bf16_H48", "flagship_bf16_H256", "qrun_aa_f32_H128"])
-def test_gcl_routing_rule(monkeypatch, hidden, dtype, to_kernel):
-    """A neighbor-list GCL goes to K1's wrapper exactly where the static
-    width rule says the kernel takes its (H, dtype); elsewhere it takes the
-    torch message path, which gives the same function."""
+def test_padded_width_and_its_limit():
+    """The kernels' products run at H rounded up to 32 (bf16) or 4
+    (float32), any H from 1 to the widest stack (1024); past it the plan
+    raises by name."""
+    max_h = kernel_limits()["max_h"]
+    assert max_h == 1024
+    assert [padded_width(h, torch.bfloat16) for h in (1, 32, 48, 320, 1024)] == [
+        32, 32, 64, 320, 1024]
+    assert [padded_width(h, torch.float32) for h in (1, 4, 99, 100, 192, 1023)] == [
+        4, 4, 100, 100, 192, 1024]
+    with pytest.raises(ValueError, match=f"hidden width {max_h + 1} .*H <= {max_h}"):
+        launch_plan(1, 8, 4, max_h + 1, torch.float32, 132)
+    with pytest.raises(ValueError, match="hidden width 0 "):
+        padded_width(0, torch.bfloat16)
+
+
+def test_launch_plan_takes_the_route_it_is_asked_for():
+    """``route``: None takes mma.sync where it runs (bf16 up to 256), else
+    block_gemm; "block_gemm" is taken at any width; no other is."""
+    def route(h, cdt, asked):
+        return launch_plan(48, 118, 12, h, cdt, 132, asked)["route"]
+
+    assert route(256, torch.bfloat16, None) == "mma"
+    assert route(256, torch.bfloat16, "block_gemm") == route(64, torch.float32, "block_gemm")
+    assert route(256, torch.bfloat16, "block_gemm") == "block_gemm"
+    assert route(288, torch.bfloat16, None) == route(256, torch.float32, None) == "block_gemm"
+    plan = launch_plan(48, 118, 12, 256, torch.bfloat16, 132, "block_gemm")
+    assert plan["rows"] % 16 == 0 and plan["smem_bytes"] <= kernel_limits()["max_smem"]
+    with pytest.raises(ValueError, match="route 'mma': None or 'block_gemm'"):
+        launch_plan(48, 118, 12, 256, torch.bfloat16, 132, "mma")
+
+
+@pytest.mark.parametrize("hidden,dtype", [
+    (192, torch.float32),
+    (48, torch.bfloat16),
+    (256, torch.bfloat16),   # the flagship width
+    (128, torch.float32),    # qrun_aa's width
+    (100, torch.float32),
+    (640, torch.bfloat16),
+], ids=["f32_H192", "bf16_H48", "flagship_bf16_H256", "qrun_aa_f32_H128", "f32_H100",
+        "bf16_H640"])
+def test_gcl_routing_rule(monkeypatch, hidden, dtype):
+    """A neighbor-list GCL goes to K1's wrapper at every width (here its
+    plain version runs: the tensors lie on the CPU), one call per layer."""
     from cmdgen_tpu_torch.models import egnn as egnn_module
     from cmdgen_tpu_torch.models.egnn import EGNNConfig as TEGNNConfig
-    from cmdgen_tpu_torch.ops.egnn_msgpass import kernel_takes
 
     calls = []
     real = egnn_module.gcl_message_agg
@@ -253,6 +327,5 @@ def test_gcl_routing_rule(monkeypatch, hidden, dtype, to_kernel):
     _, _, inputs = _setup(b=2, n_p=4, n_q=9)
     with torch.no_grad():
         out_p, out_q = dyn(*_t(*inputs))
-    assert kernel_takes(hidden, dtype) == to_kernel
-    assert len(calls) == (2 if to_kernel else 0)
+    assert len(calls) == 2
     assert torch.isfinite(out_p).all() and torch.isfinite(out_q).all()

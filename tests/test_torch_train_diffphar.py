@@ -406,9 +406,9 @@ def test_kernel_wrappers_refuse_autograd():
         refuse_autograd("k", x)
     with torch.no_grad():
         refuse_autograd("k", x)
-        assert kernel_route(256, torch.bfloat16)
+        assert kernel_route()
     refuse_autograd("k", x.detach())
-    assert not kernel_route(256, torch.bfloat16)
+    assert not kernel_route()
 
 
 def test_gamma_net_trains_under_grad(dyn_params):
