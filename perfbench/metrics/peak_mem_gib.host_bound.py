@@ -1,0 +1,5 @@
+"""``peak_mem_gib`` of the host-bound cell, where it moves
+``clouds_per_s.host_bound``: the same reader."""
+from perfbench.harness.spec import reader_of
+
+read = reader_of("peak_mem_gib")
