@@ -32,6 +32,7 @@ from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
 from cmdgen_tpu_torch.ops import schedules as sch
 from cmdgen_tpu_torch.ops.masked import masked_mean, remove_mean_conditional, sum_except_batch
+from cmdgen_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -451,11 +452,13 @@ class ConditionalDDPM:
         z_phar, xh_pocket = self._initial_z(pocket, phar_mask, draw(None, 0))
         scalars = self._reverse_scalars(respaced_st_pairs(cfg.timesteps, T))
         for i in range(scalars.shape[0]):
-            z_phar, xh_pocket = self.reverse_step(
-                z_phar, xh_pocket, scalars[i], draw(i, 1), phar_mask, pocket.mask)
+            with span("sampler.step"):
+                z_phar, xh_pocket = self.reverse_step(
+                    z_phar, xh_pocket, scalars[i], draw(i, 1), phar_mask, pocket.mask)
 
-        x_phar, h_phar, x_pocket, h_pocket = self._final_decode(
-            z_phar, xh_pocket, phar_mask, pocket.mask, draw(None, 2))
+        with span("sampler.step"):
+            x_phar, h_phar, x_pocket, h_pocket = self._final_decode(
+                z_phar, xh_pocket, phar_mask, pocket.mask, draw(None, 2))
         if cfg.com_free:
             x_phar, x_pocket = remove_mean_conditional(
                 x_phar, x_pocket, phar_mask, pocket.mask)

@@ -38,6 +38,7 @@ from cmdgen_tpu_torch.diffusion.size_prior import SizePrior
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
 from cmdgen_tpu_torch.ops import schedules as sch
 from cmdgen_tpu_torch.ops.masked import sum_except_batch
+from cmdgen_tpu_torch.utils.profiling import span
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -489,11 +490,14 @@ class JointDDPM:
                     zk_q * fixed_q + z_q_un * (1 - fixed_q))
 
         for i, kind in enumerate(kinds):
-            if kind == 0:
-                z_p_un, z_q_un = self._denoise(z_p, z_q, step_sc[i], mask_p, mask_q,
-                                               draw(1, i, 0))
-                z_p, z_q = combine_known(z_p_un, z_q_un, step_sc[i], draw(1, i, 1))
-            else:
-                z_p, z_q = self._renoise(z_p, z_q, jump_sc[i], mask_p, mask_q, draw(1, i, 0))
-        return self._finalize(z_p, z_q, mask_p, mask_q, draw(2))
+            with span("sampler.step"):
+                if kind == 0:
+                    z_p_un, z_q_un = self._denoise(z_p, z_q, step_sc[i], mask_p, mask_q,
+                                                   draw(1, i, 0))
+                    z_p, z_q = combine_known(z_p_un, z_q_un, step_sc[i], draw(1, i, 1))
+                else:
+                    z_p, z_q = self._renoise(z_p, z_q, jump_sc[i], mask_p, mask_q,
+                                             draw(1, i, 0))
+        with span("sampler.step"):
+            return self._finalize(z_p, z_q, mask_p, mask_q, draw(2))
 

@@ -25,6 +25,7 @@ from torch import nn
 from cmdgen_tpu_torch.models.egnn import EGNN, GNN, EGNNConfig, linear
 from cmdgen_tpu_torch.ops.egnn_fused import check_fused_shape, egnn_forward_fused, fused_params
 from cmdgen_tpu_torch.ops.masked import pair_mask, remove_mean
+from cmdgen_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,24 +120,25 @@ class EGNNDynamics(nn.Module):
         return eps_phar * mask_phar[..., None], eps_pocket * mask_pocket[..., None]
 
     def forward(self, xh_phar, xh_pocket, t, mask_phar, mask_pocket):
-        dt = self.cfg.egnn.compute_dtype
+        with span("denoiser"):
+            dt = self.cfg.egnn.compute_dtype
 
-        def typed(mlp, v):
-            return mlp(v, dt)
+            def typed(mlp, v):
+                return mlp(v, dt)
 
-        h, x, mask, edge_mask, ucm = self._inputs(
-            xh_phar, xh_pocket, t, mask_phar, mask_pocket, typed)
-        nd = self.cfg.n_dims
-        if self.cfg.mode == "gnn_dynamics":
-            # [x ‖ h] in, [vel ‖ h] out; no update-coords mask, as the
-            # reference (the conditional DDPM never reads pocket eps)
-            out = self.gnn(torch.cat([x.to(h.dtype), h], dim=-1), edge_mask, mask)
-            vel, h_final = out[..., :nd] * mask[..., None], out[..., nd:]
-        else:
-            update_rows = None if self.cfg.update_pocket_coords else xh_phar.shape[-2]
-            h_final, x_final = self.egnn(h, x, edge_mask, mask, ucm, update_rows)
-            vel = (x_final - x) * mask[..., None]
-        return self._outputs(h_final, vel, mask, mask_phar, mask_pocket, typed)
+            h, x, mask, edge_mask, ucm = self._inputs(
+                xh_phar, xh_pocket, t, mask_phar, mask_pocket, typed)
+            nd = self.cfg.n_dims
+            if self.cfg.mode == "gnn_dynamics":
+                # [x ‖ h] in, [vel ‖ h] out; no update-coords mask, as the
+                # reference (the conditional DDPM never reads pocket eps)
+                out = self.gnn(torch.cat([x.to(h.dtype), h], dim=-1), edge_mask, mask)
+                vel, h_final = out[..., :nd] * mask[..., None], out[..., nd:]
+            else:
+                update_rows = None if self.cfg.update_pocket_coords else xh_phar.shape[-2]
+                h_final, x_final = self.egnn(h, x, edge_mask, mask, ucm, update_rows)
+                vel = (x_final - x) * mask[..., None]
+            return self._outputs(h_final, vel, mask, mask_phar, mask_pocket, typed)
 
 
 def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
@@ -167,17 +169,18 @@ def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
         return mlp.forward_f32(v)
 
     def apply_fn(xh_phar, xh_pocket, t, mask_phar, mask_pocket):
-        h, x, mask, edge_mask, ucm = dynamics._inputs(
-            xh_phar, xh_pocket, t, mask_phar, mask_pocket, f32)
-        h_final, x_final = egnn_forward_fused(
-            params, h, x, edge_mask, mask, ucm,
-            n_layers=ecfg.n_layers, neighbor_k=ecfg.neighbor_k,
-            norm_constant=ecfg.norm_constant, coords_range=ecfg.coords_range,
-            normalization_factor=ecfg.normalization_factor, tanh=ecfg.tanh,
-            update_rows=None if cfg.update_pocket_coords else xh_phar.shape[-2],
-            compute_dtype=ecfg.compute_dtype,
-        )
-        return dynamics._outputs(h_final, (x_final - x) * mask[..., None], mask,
-                                 mask_phar, mask_pocket, f32)
+        with span("denoiser"):
+            h, x, mask, edge_mask, ucm = dynamics._inputs(
+                xh_phar, xh_pocket, t, mask_phar, mask_pocket, f32)
+            h_final, x_final = egnn_forward_fused(
+                params, h, x, edge_mask, mask, ucm,
+                n_layers=ecfg.n_layers, neighbor_k=ecfg.neighbor_k,
+                norm_constant=ecfg.norm_constant, coords_range=ecfg.coords_range,
+                normalization_factor=ecfg.normalization_factor, tanh=ecfg.tanh,
+                update_rows=None if cfg.update_pocket_coords else xh_phar.shape[-2],
+                compute_dtype=ecfg.compute_dtype,
+            )
+            return dynamics._outputs(h_final, (x_final - x) * mask[..., None], mask,
+                                     mask_phar, mask_pocket, f32)
 
     return apply_fn

@@ -38,6 +38,7 @@ from cmdgen_tpu_torch.ops.egnn_msgpass import (
     refuse_autograd,
     silu_cdt,
 )
+from cmdgen_tpu_torch.utils.profiling import span
 
 # kernel argument order (csrc/egnn_fused.cu: FusedWeights)
 WEIGHT_NAMES = (
@@ -243,71 +244,72 @@ def _layers_kernel(p, h0, x, idx, kmask, dist0, nmask, r_true, n_layers,
     int64 CUDA tensor of 1 + len(PHASES) * n_layers elements, or None; the
     kernel then writes one block's SM clock at its start and after each
     phase (:func:`phase_shares`). ``route``: :func:`launch_plan`'s."""
-    b, n, hdim = h0.shape
-    k = idx.shape[-1]
-    check_fused_shape(hdim, cdt)
-    plan = launch_plan(b, n, k, hdim, int(r_true), cdt, route)
-    hp = plan["hp"]
-    dev = h0.device
-    h0 = h0.to(cdt)
-    if hp > hdim:
-        h0 = F.pad(h0, (0, hp - hdim))
-    h0 = h0.contiguous()
-    x = x.to(torch.float32).contiguous()
-    idx = idx.to(torch.int32).contiguous()
-    kmask = kmask.to(torch.float32).contiguous()
-    dist0 = dist0.to(torch.float32).contiguous()
-    nmask = nmask.to(torch.float32).contiguous()
-    L = n_layers
-    shapes = {"wjb": (L, hp), "w2b": (L, hp), "attb": (L,),
-              "nib": (L, hp), "nob": (L, hp), "cwjb": (L, hp),
-              "cmb": (L, hp), "we": (L, 2, hp), "cwe": (L, 2, hp),
-              "att": (L, hp), "cg": (L, hp)}
-    for t, name, shape, dt in (
-        (h0, "h0", (b, n, hp), cdt), (x, "x", (b, n, 3), torch.float32),
-        (idx, "idx", (b, n, k), torch.int32),
-        (kmask, "kmask", (b, n, k), torch.float32),
-        (dist0, "dist0", (b, n, k), torch.float32),
-        (nmask, "nmask", (b, n), torch.float32),
-    ):
-        _check(t, name, shape, dt)
-    for name in WEIGHT_NAMES:
-        dt = torch.float32 if name in _F32_NAMES else cdt
-        _check(p[name], name, shapes.get(name, (L, hp, hp)), dt)
-    work = torch.empty(plan["work"], dtype=cdt, device=dev)
-    coords = torch.empty(plan["coords"], dtype=torch.float32, device=dev)
-    hout = torch.empty((b, n, hp), dtype=torch.float32, device=dev)
-    xout = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
-    wptrs = (ctypes.c_void_p * len(WEIGHT_NAMES))(
-        *[p[name].data_ptr() for name in WEIGHT_NAMES]
-    )
-    if stamps is not None:
-        _check(stamps, "stamps", (1 + len(PHASES) * L,), torch.int64)
-    grid = (ctypes.c_int * 3)()
-    lib = _build.load("egnn_fused", plan["variant"])
-    fn = lib.egnn_fused_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(
-        _DTYPE_CODE[cdt], int(plan["route"] == "mma"), h0.data_ptr(), x.data_ptr(),
-        idx.data_ptr(), kmask.data_ptr(), dist0.data_ptr(), nmask.data_ptr(),
-        ctypes.cast(wptrs, ctypes.c_void_p), work.data_ptr(), coords.data_ptr(),
-        hout.data_ptr(), xout.data_ptr(), b, n, k, hp, L, int(r_true),
-        plan["receivers"], plan["rows"], plan["chunk"], plan["chunks"], plan["max_items"],
-        float(norm_constant), float(coords_range), float(norm_factor),
-        int(bool(tanh)), None if stamps is None else stamps.data_ptr(), stream,
-        ctypes.cast(grid, ctypes.c_void_p),
-    )
-    if rc != 0:
-        raise RuntimeError(f"egnn_fused cooperative launch failed: cudaError {rc}")
-    egnn_forward_fused.launches += 1
-    egnn_forward_fused.last_grid = {"blocks": grid[0], "blocks_per_sm": grid[1],
-                                    "smem_bytes": grid[2]}
-    return hout[..., :hdim], xout
+    with span("kernel.k2"):
+        b, n, hdim = h0.shape
+        k = idx.shape[-1]
+        check_fused_shape(hdim, cdt)
+        plan = launch_plan(b, n, k, hdim, int(r_true), cdt, route)
+        hp = plan["hp"]
+        dev = h0.device
+        h0 = h0.to(cdt)
+        if hp > hdim:
+            h0 = F.pad(h0, (0, hp - hdim))
+        h0 = h0.contiguous()
+        x = x.to(torch.float32).contiguous()
+        idx = idx.to(torch.int32).contiguous()
+        kmask = kmask.to(torch.float32).contiguous()
+        dist0 = dist0.to(torch.float32).contiguous()
+        nmask = nmask.to(torch.float32).contiguous()
+        L = n_layers
+        shapes = {"wjb": (L, hp), "w2b": (L, hp), "attb": (L,),
+                  "nib": (L, hp), "nob": (L, hp), "cwjb": (L, hp),
+                  "cmb": (L, hp), "we": (L, 2, hp), "cwe": (L, 2, hp),
+                  "att": (L, hp), "cg": (L, hp)}
+        for t, name, shape, dt in (
+            (h0, "h0", (b, n, hp), cdt), (x, "x", (b, n, 3), torch.float32),
+            (idx, "idx", (b, n, k), torch.int32),
+            (kmask, "kmask", (b, n, k), torch.float32),
+            (dist0, "dist0", (b, n, k), torch.float32),
+            (nmask, "nmask", (b, n), torch.float32),
+        ):
+            _check(t, name, shape, dt)
+        for name in WEIGHT_NAMES:
+            dt = torch.float32 if name in _F32_NAMES else cdt
+            _check(p[name], name, shapes.get(name, (L, hp, hp)), dt)
+        work = torch.empty(plan["work"], dtype=cdt, device=dev)
+        coords = torch.empty(plan["coords"], dtype=torch.float32, device=dev)
+        hout = torch.empty((b, n, hp), dtype=torch.float32, device=dev)
+        xout = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
+        wptrs = (ctypes.c_void_p * len(WEIGHT_NAMES))(
+            *[p[name].data_ptr() for name in WEIGHT_NAMES]
+        )
+        if stamps is not None:
+            _check(stamps, "stamps", (1 + len(PHASES) * L,), torch.int64)
+        grid = (ctypes.c_int * 3)()
+        lib = _build.load("egnn_fused", plan["variant"])
+        fn = lib.egnn_fused_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            _DTYPE_CODE[cdt], int(plan["route"] == "mma"), h0.data_ptr(), x.data_ptr(),
+            idx.data_ptr(), kmask.data_ptr(), dist0.data_ptr(), nmask.data_ptr(),
+            ctypes.cast(wptrs, ctypes.c_void_p), work.data_ptr(), coords.data_ptr(),
+            hout.data_ptr(), xout.data_ptr(), b, n, k, hp, L, int(r_true),
+            plan["receivers"], plan["rows"], plan["chunk"], plan["chunks"], plan["max_items"],
+            float(norm_constant), float(coords_range), float(norm_factor),
+            int(bool(tanh)), None if stamps is None else stamps.data_ptr(), stream,
+            ctypes.cast(grid, ctypes.c_void_p),
+        )
+        if rc != 0:
+            raise RuntimeError(f"egnn_fused cooperative launch failed: cudaError {rc}")
+        egnn_forward_fused.launches += 1
+        egnn_forward_fused.last_grid = {"blocks": grid[0], "blocks_per_sm": grid[1],
+                                        "smem_bytes": grid[2]}
+        return hout[..., :hdim], xout
 
 
 def layer_args(params, h, x, edge_mask, node_mask, n_layers, neighbor_k,

@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from cmdgen_tpu_torch.ops import _build
+from cmdgen_tpu_torch.utils.profiling import span
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -364,10 +365,11 @@ def gcl_message_agg(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
     if wi.device.type == "cpu":
         return gcl_message_agg_plain(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
                                      norm_factor, compute_dtype)
-    refuse_autograd("gcl_message_agg", wi, wj, radial, dist0, kmask, we, w2, w2b,
-                    *(att or ()))
-    return prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
-                          norm_factor, compute_dtype)()
+    with span("kernel.k1"):
+        refuse_autograd("gcl_message_agg", wi, wj, radial, dist0, kmask, we, w2, w2b,
+                        *(att or ()))
+        return prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
+                              norm_factor, compute_dtype)()
 
 
 gcl_message_agg.launches = 0

@@ -23,6 +23,7 @@ from cmdgen_tpu_torch.containers import PointCloud, mask_from_sizes
 from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
 from cmdgen_tpu_torch.diffusion.joint import JointDDPM
 from cmdgen_tpu_torch.ops.masked import masked_mean
+from cmdgen_tpu_torch.utils.profiling import span
 
 
 def pocket_point_cloud(pdb_file, dataset: str, representation: str,
@@ -90,46 +91,47 @@ def sample_pharmacophores(
     done = 0
     batch_i = 0
     while done < n_samples:
-        b = min(batch_size, n_samples - done)
-        pocket = PointCloud(x=coords_t.expand(b, nq, 3), h=onehot_t.expand(b, nq, nf),
-                            mask=mask_row.expand(b, nq))
-        if num_nodes is None:
-            if model.size_prior is None:
-                nn_ = torch.full((b,), 5, device=dev)
+        with span("sampler.batch", request=True):
+            b = min(batch_size, n_samples - done)
+            pocket = PointCloud(x=coords_t.expand(b, nq, 3), h=onehot_t.expand(b, nq, nf),
+                                mask=mask_row.expand(b, nq))
+            if num_nodes is None:
+                if model.size_prior is None:
+                    nn_ = torch.full((b,), 5, device=dev)
+                else:
+                    nn_ = model.size_prior.sample_conditional_n1(
+                        torch.full((b,), nq_real, device=dev), generator)
+                nn_ = nn_.clamp(1, n_phar_max)
             else:
-                nn_ = model.size_prior.sample_conditional_n1(
-                    torch.full((b,), nq_real, device=dev), generator)
-            nn_ = nn_.clamp(1, n_phar_max)
-        else:
-            nn_ = torch.as_tensor(np.asarray(num_nodes[done:done + b]), device=dev)
-        draws = None if noise is None else noise[batch_i]
-        if isinstance(model, JointDDPM):
-            phar_mask = mask_from_sizes(nn_, n_phar_max)
-            phar_init = PointCloud(x=torch.zeros(b, n_phar_max, 3, device=dev),
-                                   h=torch.zeros(b, n_phar_max, model.phar_nf, device=dev),
-                                   mask=phar_mask)
-            phar, pocket_out = model.inpaint(
-                phar_init, pocket, torch.zeros_like(phar_mask), torch.ones_like(pocket.mask),
-                resamplings=1, jump_length=1, timesteps=timesteps, generator=generator,
-                noise=draws)
-        else:
-            phar, pocket_out = model.sample_given_pocket(
-                pocket, nn_, n_phar_max, timesteps=timesteps, generator=generator,
-                noise=draws)
-        # translate back into the original pocket frame
-        pocket_com_after = masked_mean(pocket_out.x, pocket_out.mask).cpu().numpy()
-        shift = pocket_com_before[None, :] - pocket_com_after
-        x = phar.x.cpu().numpy() + shift[:, None, :]
-        h = phar.h.cpu().numpy()
-        mask = phar.mask.cpu().numpy()
-        for i in range(b):
-            mol: Dict[str, List[List[float]]] = {}
-            for j in range(x.shape[1]):
-                if mask[i, j] < 0.5:
-                    continue
-                fam = PHAR_DECODER[int(np.argmax(h[i, j]))]
-                mol.setdefault(fam, []).append([round(float(v), 4) for v in x[i, j]])
-            out[f"Molecule_{done + i}"] = mol
+                nn_ = torch.as_tensor(np.asarray(num_nodes[done:done + b]), device=dev)
+            draws = None if noise is None else noise[batch_i]
+            if isinstance(model, JointDDPM):
+                phar_mask = mask_from_sizes(nn_, n_phar_max)
+                phar_init = PointCloud(x=torch.zeros(b, n_phar_max, 3, device=dev),
+                                       h=torch.zeros(b, n_phar_max, model.phar_nf, device=dev),
+                                       mask=phar_mask)
+                phar, pocket_out = model.inpaint(
+                    phar_init, pocket, torch.zeros_like(phar_mask), torch.ones_like(pocket.mask),
+                    resamplings=1, jump_length=1, timesteps=timesteps, generator=generator,
+                    noise=draws)
+            else:
+                phar, pocket_out = model.sample_given_pocket(
+                    pocket, nn_, n_phar_max, timesteps=timesteps, generator=generator,
+                    noise=draws)
+            # translate back into the original pocket frame
+            pocket_com_after = masked_mean(pocket_out.x, pocket_out.mask).cpu().numpy()
+            shift = pocket_com_before[None, :] - pocket_com_after
+            x = phar.x.cpu().numpy() + shift[:, None, :]
+            h = phar.h.cpu().numpy()
+            mask = phar.mask.cpu().numpy()
+            for i in range(b):
+                mol: Dict[str, List[List[float]]] = {}
+                for j in range(x.shape[1]):
+                    if mask[i, j] < 0.5:
+                        continue
+                    fam = PHAR_DECODER[int(np.argmax(h[i, j]))]
+                    mol.setdefault(fam, []).append([round(float(v), 4) for v in x[i, j]])
+                out[f"Molecule_{done + i}"] = mol
         done += b
         batch_i += 1
     return out

@@ -1,0 +1,5 @@
+"""``kernel_call_idle_share`` of the host-bound cell, where it moves
+``clouds_per_s.host_bound``: the same reader."""
+from perfbench.harness.spec import reader_of
+
+read = reader_of("kernel_call_idle_share")

@@ -427,6 +427,58 @@ def test_sinusoids_embedding_card_matches_cpu(dev):
     assert (out - sinusoids_embedding(d2)).abs().max().item() <= bound
 
 
+@pytest.mark.parametrize("engine", ["msgpass", "fused"])
+def test_kernel_launches_start_inside_their_spans(dev, engine):
+    """A chain of 10 steps traced at the flagship shape (``_flagship_model``,
+    float32; 16 clouds of 5 points in a 110-residue pocket): each host call
+    that launched K1 or K2 (tied to the kernel by the profiler's
+    correlation id) starts inside a ``kernel.k1`` or ``kernel.k2`` span, one
+    span a launch. The spans' clock is the device trace's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM, DDPMConfig
+    from cmdgen_tpu_torch.models.dynamics import make_fused_apply
+    from cmdgen_tpu_torch.pipeline.sample_phars import sample_pharmacophores
+    from cmdgen_tpu_torch.utils import profiling
+
+    fused = engine == "fused"
+    kernel, name, counter = (("egnn_fused_kernel", "kernel.k2", ef.egnn_forward_fused) if fused
+                             else ("gcl_message_agg_kernel", "kernel.k1", mp.gcl_message_agg))
+    dyn, ecfg, _ = _flagship_model(dev, torch.float32, 1, 0)
+    model = ConditionalDDPM(DDPMConfig(timesteps=10), dyn,
+                            apply_fn=make_fused_apply(dyn) if fused else None)
+    rng = np.random.RandomState(0)
+    pocket = realistic_ca_pocket(rng, 110).astype(np.float32)
+    onehot = np.eye(20, dtype=np.float32)[rng.randint(0, 20, 110)]
+
+    def chain():
+        sample_pharmacophores(model, pocket, onehot, 16, n_phar_max=8, batch_size=16,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+
+    chain()  # builds the kernels
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    before = counter.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chain()
+        torch.cuda.synchronize()
+    launched = counter.launches - before
+    events = [e for e in prof.profiler.kineto_results.events() if not e.is_hidden_event()]
+    ours = {e.correlation_id() for e in events
+            if e.device_type() == DeviceType.CUDA and kernel in e.name()}
+    calls = sorted(e.start_ns() for e in events if e.device_type() != DeviceType.CUDA
+                   and "Launch" in e.name() and e.correlation_id() in ours)
+    windows = [(s.start_ns, s.end_ns) for s in profiling.spans() if s.name == name]
+    profiling.clear_spans()
+    per_call = ecfg.n_layers if not fused else 1
+    assert len(calls) == launched == len(windows) == 11 * per_call
+    missed = [min(abs(c - a) if c < a else c - b for a, b in windows) for c in calls
+              if not any(a <= c <= b for a, b in windows)]
+    assert not missed, f"{len(missed)} of {len(calls)} launches outside their spans, by " \
+                       f"{min(missed)}-{max(missed)} ns"
+
+
 # ------------------------------------------------------------------------
 # K1 and K2 at widths that are not a multiple of their tiles, or past 256
 # (bf16) and 512, and at K past one 128-row tile (chunked receivers: K=160
