@@ -164,6 +164,13 @@ Without CUDA it exits with code 1 before printing any result.
 line (no ``ok`` line): the quick way to compare two trees' kernels. Such
 a run drives no main path and counts no launches, so it never stands for
 the full run.
+
+K1's launches are counted as kernels run: the module replays its forward
+pass as a CUDA graph on the msgpass engine (``models.dynamics``), and a
+sampling run expects each GCL once a denoiser call and once more for each
+graph captured in it (``k1_want``: its op-by-op pass before the capture).
+Where the calls into K1 are kept for their checks (``kernel_calls_kept``)
+the module runs op by op, so that each call passes through the wrapper.
 """
 from __future__ import annotations
 
@@ -708,6 +715,7 @@ def flagship_sampling(dev, timesteps):
         torch.cuda.synchronize()
         gcl_message_agg.launches = 0
         egnn_forward_fused.launches = 0
+        captures = graph_captures()
         t0 = time.perf_counter()
         phar, pocket_out = model.sample_given_pocket(pocket, num_nodes, N_P,
                                                      timesteps=timesteps, generator=gen)
@@ -720,8 +728,8 @@ def flagship_sampling(dev, timesteps):
         if tuple(phar.x.shape) != (B, N_P, 3):
             raise AssertionError(f"{engine}: samples of shape {tuple(phar.x.shape)}")
         calls = timesteps + 1  # reverse steps + the final decode
-        want = ({"gcl_message_agg": calls * L, "egnn_forward_fused": 0} if engine == "msgpass"
-                else {"gcl_message_agg": 0, "egnn_forward_fused": calls})
+        want = ({"gcl_message_agg": k1_want(L, calls, captures), "egnn_forward_fused": 0}
+                if engine == "msgpass" else {"gcl_message_agg": 0, "egnn_forward_fused": calls})
         if launches != want:
             raise AssertionError(f"{engine}: launches {launches}, expected {want}")
         sps = B * timesteps / dt
@@ -759,6 +767,7 @@ def trained_run(dev, repo):
             out_json = Path(tmp) / f"{engine}.json"
             gcl_message_agg.launches = 0
             egnn_forward_fused.launches = 0
+            captures = graph_captures()
             t0 = time.perf_counter()
             cli.main(["sample-phars", str(ckpt), str(pdb), str(out_json),
                       "--ref-ligand", "L:1", "--n-samples", "24", "--timesteps", "100",
@@ -784,7 +793,7 @@ def trained_run(dev, repo):
                 raise AssertionError(f"{engine}: a point {rmax:.1f} Å from the pocket centroid")
             used = "gcl_message_agg" if engine == "msgpass" else "egnn_forward_fused"
             # 24 samples in one batch, T=100: 101 denoiser calls of 3 GCLs
-            want = 101 * 3 if engine == "msgpass" else 101
+            want = k1_want(3, 101, captures) if engine == "msgpass" else 101
             if launches[engine][used] != want:
                 raise AssertionError(f"{engine}: {used} launched {launches[engine][used]} "
                                      f"times, expected {want}")
@@ -936,7 +945,9 @@ def kernel_calls_kept(k1_keep, k2_keep):
     without this), and copies of the arguments of the calls whose order is
     in ``k1_keep`` / ``k2_keep`` (every call where None) are kept in the
     two lists yielded, for ``check_kernel_calls``: K1's positional
-    arguments and its compute dtype, K2's (arguments, keywords)."""
+    arguments and its compute dtype, K2's (arguments, keywords). Inside,
+    the module runs its forward pass op by op (no CUDA graph replayed or
+    captured), so that every denoiser call reaches the wrapper."""
     import torch
 
     from cmdgen_tpu_torch.models import dynamics as dyn_mod
@@ -961,11 +972,14 @@ def kernel_calls_kept(k1_keep, k2_keep):
         seen[1] += 1
         return fu.egnn_forward_fused(*a, **kw)
 
+    refusal = dyn_mod.graph_refusal
     egnn_mod.gcl_message_agg, dyn_mod.egnn_forward_fused = k1_keeper, k2_keeper
+    dyn_mod.graph_refusal = lambda dynamics, xh: "kernel calls kept"
     try:
         yield k1_calls, k2_calls
     finally:
         egnn_mod.gcl_message_agg, dyn_mod.egnn_forward_fused = mp.gcl_message_agg, fu.egnn_forward_fused
+        dyn_mod.graph_refusal = refusal
 
 
 def k1_calls_of_steps(n_layers, n_calls):
@@ -1084,6 +1098,21 @@ def check_posp(path, centroid, n_lines=None):
     return len(rows)
 
 
+def graph_captures() -> int:
+    """CUDA graphs of the denoiser captured so far in the process
+    (``models.dynamics.graphed_forward``)."""
+    from cmdgen_tpu_torch.models.dynamics import graphed_forward
+
+    return graphed_forward.captures
+
+
+def k1_want(n_layers: int, calls: int, captures_before: int) -> int:
+    """K1's launches in ``calls`` denoiser calls of ``n_layers`` GCLs on the
+    msgpass engine: one a GCL a call, and one a GCL for each graph captured
+    since ``captures_before`` (the pass run op by op before its capture)."""
+    return n_layers * (calls + graph_captures() - captures_before)
+
+
 def synced_ms(fn):
     """(result, ms) of one call between two synchronizes."""
     import torch
@@ -1136,13 +1165,15 @@ def consensus_phase(dev, repo, keep_posp):
         cloud = tmp / "cloud.json"
         gcl_message_agg.launches = 0
         egnn_forward_fused.launches = 0
+        captures = graph_captures()
         mols, ms = synced_ms(lambda: sample_phars_to_json(
             model, pdb, cloud, dataset=cfg.data.dataset,
             representation=cfg.data.pocket_representation, ref_ligand="L:1",
             n_samples=N_CLOUDS, timesteps=CONS_T, batch_size=N_CLOUDS,
             generator=make_generator(dev, 0)))
         launches = gcl_message_agg.launches
-        want = (CONS_T + 1) * cfg.dynamics.egnn.n_layers * cfg.dynamics.egnn.inv_sublayers
+        want = k1_want(cfg.dynamics.egnn.n_layers * cfg.dynamics.egnn.inv_sublayers, CONS_T + 1,
+                       captures)
         if launches != want or egnn_forward_fused.launches:
             raise AssertionError(f"consensus sampling: K1 launched {launches} times "
                                  f"(expected {want}), K2 {egnn_forward_fused.launches}")
@@ -1359,17 +1390,19 @@ def options_phase(dev, repo):
                 outs += [o.cpu().reshape(-1) for o in model.reverse_step(*args)]
         return torch.cat(outs)
 
-    errs, launches = {}, {}
+    errs, launches, want = {}, {}, {}
     for name, (m_cpu, m_dev) in option_models(dev).items():
         ref = steps(m_cpu, "cpu")
         gcl_message_agg.launches = 0
+        captures = graph_captures()
         errs[name] = (steps(m_dev, dev) - ref).abs().max().item()
         launches[name] = gcl_message_agg.launches
+        want[name] = k1_want(5, st.shape[0], captures)
         log(f"option {name}: card vs CPU over 3 reverse steps (flagship widths, float32): "
             f"max_abs_err={errs[name]:.3e} tol={OPTION_TOL}; K1 launches {launches[name]}")
     if not all(e <= OPTION_TOL for e in errs.values()):
         raise AssertionError(f"stage-1 options disagree with the CPU: {errs}")
-    if launches["learned"] != 5 * st.shape[0] or launches["sin_embedding"]:
+    if launches["learned"] != want["learned"] or launches["sin_embedding"]:
         raise AssertionError(f"K1 launches per option {launches}: the learned schedule's "
                              "GCLs go to K1, sin_embedding's 24-wide ones do not")
 
@@ -1526,6 +1559,7 @@ def widths_phase(dev, k1_flagship, k2_flagship):
             gen = torch.Generator(device=dev).manual_seed(7)
             mp.gcl_message_agg.launches = 0
             egnn_forward_fused.launches = 0
+            captures = graph_captures()
             run = (lambda: model.sample_given_pocket(pocket, num_nodes, N_P,
                                                      timesteps=WIDTH_T, generator=gen))
             if engine == "msgpass":
@@ -1537,7 +1571,7 @@ def widths_phase(dev, k1_flagship, k2_flagship):
             launches = {"gcl_message_agg": mp.gcl_message_agg.launches,
                         "egnn_forward_fused": egnn_forward_fused.launches}
             calls = WIDTH_T + 1
-            want = ({"gcl_message_agg": calls * L, "egnn_forward_fused": 0}
+            want = ({"gcl_message_agg": k1_want(L, calls, captures), "egnn_forward_fused": 0}
                     if engine == "msgpass" else {"gcl_message_agg": 0, "egnn_forward_fused": calls})
             if launches != want or not torch.isfinite(phar.x).all():
                 raise AssertionError(f"widths sampling {dtype_name} H={hidden} {engine}: launches "
@@ -2489,13 +2523,16 @@ def run_all_phase(dev, repo):
             out_dir = tmp / name
             gcl_message_agg.launches = 0
             egnn_forward_fused.launches = 0
+            captures = graph_captures()
             (results, stats), ms = synced_ms(lambda: cli.main([
                 "run-all", str(assets / "qrun_aa"), str(assets / "grun_r5cn"), str(out_dir),
                 *map(str, pdbs), "--ref-ligand", "L:1", *RUN_ALL_ARGS, "--seed", "0",
                 "--device", "cuda", *extra]))
             launches = {"gcl_message_agg": gcl_message_agg.launches,
                         "egnn_forward_fused": egnn_forward_fused.launches}
-            expect = want["fused" if name == "fused" else "msgpass"]
+            expect = dict(want["fused" if name == "fused" else "msgpass"])
+            if name != "fused":
+                expect["gcl_message_agg"] += k1_want(3, 0, captures)
             if launches != expect:
                 raise AssertionError(f"run-all {name}: launches {launches}, expected {expect}")
             validity = stats["valid_smiles"] / max(stats["raw_smiles"], 1)
@@ -2564,10 +2601,13 @@ def joint_phase(dev, repo, timesteps):
         torch.cuda.synchronize()
         gcl_message_agg.launches = 0
         egnn_forward_fused.launches = 0
+        captures = graph_captures()
         clouds, ms = synced_ms(lambda: sample_pharmacophores(
             model, coords, onehot, B, timesteps=timesteps, generator=gen, **kw))
         launches = {"gcl_message_agg": gcl_message_agg.launches,
                     "egnn_forward_fused": egnn_forward_fused.launches}
+        if engine == "msgpass":
+            want[engine]["gcl_message_agg"] = k1_want(L, calls, captures)
         if launches != want[engine]:
             raise AssertionError(f"joint {engine}: launches {launches}, expected {want[engine]}")
         pts = np.array([p for mol in clouds.values() for fam in mol.values() for p in fam])
@@ -2955,7 +2995,7 @@ def train_eval_sampling_run(cfg, data, out_dir, dev):
         return counted
 
     def counted_sample(model, *a, **kw):
-        before = gcl_message_agg.launches
+        before, captures = gcl_message_agg.launches, graph_captures()
         t0 = time.perf_counter()
         if len(sample_launches) == cfg.train.n_epochs - 1:
             res = {}
@@ -2966,7 +3006,9 @@ def train_eval_sampling_run(cfg, data, out_dir, dev):
             res = real_sample(model, *a, **kw)
         torch.cuda.synchronize()
         seen.setdefault("ms", []).append((time.perf_counter() - t0) * 1e3)
-        sample_launches.append(gcl_message_agg.launches - before)
+        # each call's launches less those of the pass before a capture
+        sample_launches.append(gcl_message_agg.launches - before
+                               - k1_want(n_layers, 0, captures))
         return res
 
     logs = []
@@ -3018,6 +3060,7 @@ def trained_sample_phars(ckpt, dev, cfg):
         pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(3)))
         for engine in ("msgpass", "fused"):
             gcl_message_agg.launches = egnn_forward_fused.launches = 0
+            captures = graph_captures()
             with contextlib.redirect_stdout(io.StringIO()):
                 _, ms = synced_ms(lambda: cli.main([
                     "sample-phars", str(ckpt), str(pdb), str(Path(tmp) / "o.json"),
@@ -3029,7 +3072,7 @@ def trained_sample_phars(ckpt, dev, cfg):
             mols = json.loads((Path(tmp) / "o.json").read_text())
             pts = np.array([p for m in mols.values() for f in m.values() for p in f])
             calls = min(100, cfg.ddpm.timesteps) + 1
-            want = ({"gcl_message_agg": calls * cfg.dynamics.egnn.n_layers,
+            want = ({"gcl_message_agg": k1_want(cfg.dynamics.egnn.n_layers, calls, captures),
                      "egnn_forward_fused": 0} if engine == "msgpass"
                     else {"gcl_message_agg": 0, "egnn_forward_fused": calls})
             if launches != want or len(mols) != 16 or not np.isfinite(pts).all():

@@ -12,11 +12,21 @@ counterpart of ``make_pallas_apply``: the same function with the EGNN
 stack in the K2 kernel. The ``gnn_dynamics`` mode replaces the EGNN with
 the plain ``GNN``: coordinates go in as node features and the velocities
 are read from the first 3 output channels (not E(3)-equivariant).
+
+**CUDA graphs.** On the neighbor-list engine with K1 in every GCL (CUDA
+inputs, outside autograd), the module's call replays its whole forward
+pass as one CUDA graph (``graphed_forward``): captured at the first call
+of each input shape (``graph_key``), replayed on that call and every later
+one. The graph holds the same kernels on the same data as the op-by-op
+pass (``EGNNDynamics.eager_forward``): the host launches it once, with
+the inputs' copies in and the outputs' copies out, in place of each of
+its kernels. Every other call runs op by op (``graph_refusal``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +34,7 @@ from torch import nn
 
 from cmdgen_tpu_torch.models.egnn import EGNN, GNN, EGNNConfig, linear
 from cmdgen_tpu_torch.ops.egnn_fused import check_fused_shape, egnn_forward_fused, fused_params
+from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg, kernel_route
 from cmdgen_tpu_torch.ops.masked import pair_mask, remove_mean
 from cmdgen_tpu_torch.utils.profiling import span
 
@@ -80,6 +91,7 @@ class EGNNDynamics(nn.Module):
             raise ValueError(f"unknown dynamics mode {cfg.mode!r}")
         self.phar_decoder = TypeMLP(cfg.joint_nf, 2 * cfg.phar_nf, cfg.phar_nf)
         self.residue_decoder = TypeMLP(cfg.joint_nf, 2 * cfg.residue_nf, cfg.residue_nf)
+        self.graphs = DenoiserGraphs()
 
     def _inputs(self, xh_phar, xh_pocket, t, mask_phar, mask_pocket, encode):
         """Encoded joint cloud: (h, x, mask, edge_mask, update_coords_mask)."""
@@ -121,24 +133,184 @@ class EGNNDynamics(nn.Module):
 
     def forward(self, xh_phar, xh_pocket, t, mask_phar, mask_pocket):
         with span("denoiser"):
-            dt = self.cfg.egnn.compute_dtype
+            return graphed_forward(self, xh_phar, xh_pocket, t, mask_phar, mask_pocket)
 
-            def typed(mlp, v):
-                return mlp(v, dt)
+    def update_rows(self, xh_phar) -> Optional[int]:
+        """The rows whose coordinates move: the pharmacophore rows of the
+        conditional model, every row (None) of the joint one."""
+        return None if self.cfg.update_pocket_coords else xh_phar.shape[-2]
 
-            h, x, mask, edge_mask, ucm = self._inputs(
-                xh_phar, xh_pocket, t, mask_phar, mask_pocket, typed)
-            nd = self.cfg.n_dims
-            if self.cfg.mode == "gnn_dynamics":
-                # [x ‖ h] in, [vel ‖ h] out; no update-coords mask, as the
-                # reference (the conditional DDPM never reads pocket eps)
-                out = self.gnn(torch.cat([x.to(h.dtype), h], dim=-1), edge_mask, mask)
-                vel, h_final = out[..., :nd] * mask[..., None], out[..., nd:]
-            else:
-                update_rows = None if self.cfg.update_pocket_coords else xh_phar.shape[-2]
-                h_final, x_final = self.egnn(h, x, edge_mask, mask, ucm, update_rows)
-                vel = (x_final - x) * mask[..., None]
-            return self._outputs(h_final, vel, mask, mask_phar, mask_pocket, typed)
+    def eager_forward(self, xh_phar, xh_pocket, t, mask_phar, mask_pocket):
+        """The forward pass op by op: what ``forward`` replays as a CUDA
+        graph where it can, and runs where it cannot."""
+        dt = self.cfg.egnn.compute_dtype
+
+        def typed(mlp, v):
+            return mlp(v, dt)
+
+        h, x, mask, edge_mask, ucm = self._inputs(
+            xh_phar, xh_pocket, t, mask_phar, mask_pocket, typed)
+        nd = self.cfg.n_dims
+        if self.cfg.mode == "gnn_dynamics":
+            # [x ‖ h] in, [vel ‖ h] out; no update-coords mask, as the
+            # reference (the conditional DDPM never reads pocket eps)
+            out = self.gnn(torch.cat([x.to(h.dtype), h], dim=-1), edge_mask, mask)
+            vel, h_final = out[..., :nd] * mask[..., None], out[..., nd:]
+        else:
+            h_final, x_final = self.egnn(h, x, edge_mask, mask, ucm, self.update_rows(xh_phar))
+            vel = (x_final - x) * mask[..., None]
+        return self._outputs(h_final, vel, mask, mask_phar, mask_pocket, typed)
+
+
+# ---------------------------------------------------------------- CUDA graphs
+
+# graphs a module keeps, the least recently used dropped first; a sampler
+# calls with one shape, and pockets padded by pocket_pad_bucket give few
+GRAPH_CAPACITY = 8
+
+
+def graph_refusal(dyn: EGNNDynamics, xh_phar: torch.Tensor) -> Optional[str]:
+    """Why a call of ``dyn`` runs op by op, or None where it replays a CUDA
+    graph: only on the neighbor-list engine whose GCLs all take K1 (sum
+    aggregation, the two raw edge scalars, outside autograd:
+    ``models.egnn.GCL``), on CUDA inputs. The dense engine stays op by op:
+    its pair tensors are the memory's largest, and a graph's pool beside
+    them would double them."""
+    cfg = dyn.cfg
+    ecfg = cfg.egnn
+    if not kernel_route():
+        return "autograd"
+    if cfg.mode != "egnn_dynamics":
+        return "gnn_dynamics"
+    if ecfg.neighbor_k is None:
+        return "dense engine"
+    if ecfg.aggregation_method != "sum" or ecfg.sin_embedding:
+        return "torch message path"
+    if xh_phar.device.type != "cuda":
+        return "not on CUDA"
+    return None
+
+
+def graph_key(dyn: EGNNDynamics, inputs: Tuple[torch.Tensor, ...]) -> tuple:
+    """What a captured graph is valid for: the inputs' shapes and dtypes,
+    the device, the moving rows, the float32 matmul precision and the
+    parameters' storage (a parameter replaced, by ``.to()`` or a
+    ``load_state_dict`` into new tensors, moves it; an in-place update does
+    not, and the graph reads the updated values)."""
+    return (tuple((v.shape, v.dtype) for v in inputs), inputs[0].device,
+            dyn.update_rows(inputs[0]), torch.get_float32_matmul_precision(),
+            tuple(p.data_ptr() for p in dyn.parameters()))
+
+
+class _Graph:
+    """One captured forward pass: the graph, its static inputs and outputs,
+    and the K1 launches it holds."""
+
+    def __init__(self, graph, inputs, outputs, k1_launches: int):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.k1_launches = k1_launches
+
+    def replay(self, inputs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The forward pass on ``inputs``; the outputs are the caller's."""
+        for static, v in zip(self.inputs, inputs):
+            static.copy_(v)
+        self.graph.replay()
+        gcl_message_agg.launches += self.k1_launches
+        return tuple(o.clone() for o in self.outputs)
+
+
+class DenoiserGraphs:
+    """A module's CUDA graphs by ``graph_key``, at most ``GRAPH_CAPACITY``,
+    sharing one memory pool and one capture stream; and the keys whose
+    capture failed, with the error (``refused``), which stay op by op. A
+    deep copy of the module (the training loop's evaluation copies) starts
+    with none."""
+
+    def __init__(self):
+        self.graphs: "collections.OrderedDict[tuple, _Graph]" = collections.OrderedDict()
+        self.refused: Dict[tuple, str] = {}
+        self.pool = self.stream = None
+
+    def __deepcopy__(self, memo):
+        return DenoiserGraphs()
+
+    def run(self, dyn: EGNNDynamics, inputs) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The replayed forward pass, captured first at a new key; None
+        where the key's capture failed."""
+        key = graph_key(dyn, inputs)
+        entry = self.graphs.get(key)
+        if entry is not None:
+            self.graphs.move_to_end(key)
+            return entry.replay(inputs)
+        if key in self.refused:
+            return None
+        # graphs of other parameters wait for storage that is gone; with
+        # none left, the next capture starts a pool of its own
+        for old in [k for k in self.graphs if k[-1] != key[-1]]:
+            del self.graphs[old]
+        if not self.graphs:
+            self.pool = self.stream = None
+        while len(self.graphs) >= GRAPH_CAPACITY:
+            self.graphs.popitem(last=False)
+        try:
+            entry = self._capture(dyn, inputs)
+        except RuntimeError as e:
+            self.refused[key] = f"{type(e).__name__}: {e}"
+            return None
+        graphed_forward.captures += 1
+        self.graphs[key] = entry
+        return entry.replay(inputs)
+
+    def _capture(self, dyn: EGNNDynamics, inputs) -> _Graph:
+        """Capture ``dyn.eager_forward`` on static copies of ``inputs``: one
+        call on the capture stream first (the kernels' libraries, cuBLAS's
+        handle and workspace for that stream and the allocator's blocks are
+        set up outside the capture), then the capture on it into the shared
+        pool. K1's counter keeps only the first call's launches: the
+        captured ones have not run."""
+        dev = inputs[0].device
+        static = tuple(torch.empty(v.shape, dtype=v.dtype, device=dev).copy_(v) for v in inputs)
+        if self.pool is None:
+            self.pool, self.stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            dyn.eager_forward(*static)
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
+        ran = gcl_message_agg.launches
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                outputs = dyn.eager_forward(*static)
+            return _Graph(graph, static, outputs, gcl_message_agg.launches - ran)
+        finally:
+            gcl_message_agg.launches = ran
+
+
+def graphed_forward(dyn: EGNNDynamics, xh_phar, xh_pocket, t, mask_phar, mask_pocket):
+    """``EGNNDynamics.forward``: the forward pass replayed as a CUDA graph
+    where ``graph_refusal`` allows and the capture worked, else op by op.
+    Counts, as K1 counts its launches: ``captures`` (graphs captured),
+    ``replays``, ``eager_calls`` and, for each, why (``eager_reasons``: a
+    ``graph_refusal``, or "capture failed" for a key whose capture raised:
+    ``DenoiserGraphs.refused`` keeps its error)."""
+    inputs = (xh_phar, xh_pocket, t, mask_phar, mask_pocket)
+    why = graph_refusal(dyn, xh_phar)
+    if why is None:
+        out = dyn.graphs.run(dyn, inputs)
+        if out is not None:
+            graphed_forward.replays += 1
+            return out
+        why = "capture failed"
+    graphed_forward.eager_calls += 1
+    graphed_forward.eager_reasons[why] += 1
+    return dyn.eager_forward(*inputs)
+
+
+graphed_forward.captures = 0
+graphed_forward.replays = 0
+graphed_forward.eager_calls = 0
+graphed_forward.eager_reasons = collections.Counter()
 
 
 def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
@@ -177,7 +349,7 @@ def make_fused_apply(dynamics: EGNNDynamics) -> Callable:
                 n_layers=ecfg.n_layers, neighbor_k=ecfg.neighbor_k,
                 norm_constant=ecfg.norm_constant, coords_range=ecfg.coords_range,
                 normalization_factor=ecfg.normalization_factor, tanh=ecfg.tanh,
-                update_rows=None if cfg.update_pocket_coords else xh_phar.shape[-2],
+                update_rows=dynamics.update_rows(xh_phar),
                 compute_dtype=ecfg.compute_dtype,
             )
             return dynamics._outputs(h_final, (x_final - x) * mask[..., None], mask,

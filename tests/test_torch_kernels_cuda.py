@@ -29,9 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from cmdgen_tpu_torch.config import ca_config
+from cmdgen_tpu_torch.config import ca_config, full_atom_config
 from cmdgen_tpu_torch.models import egnn as egnn_module
-from cmdgen_tpu_torch.models.dynamics import EGNNDynamics
+from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, graphed_forward
 from cmdgen_tpu_torch.ops import egnn_fused as ef
 from cmdgen_tpu_torch.ops import egnn_msgpass as mp
 from cmdgen_tpu_torch.utils.synthetic import realistic_ca_pocket
@@ -311,7 +311,7 @@ def test_msgpass_kernel_matches_plain_on_engine_inputs(dev, monkeypatch, cdt, b)
 
     monkeypatch.setattr(egnn_module, "gcl_message_agg", record)
     with torch.no_grad():
-        dyn(*inputs)
+        dyn.eager_forward(*inputs)
         assert len(calls) == 5
         for args in calls:
             before = mp.gcl_message_agg.launches
@@ -430,10 +430,18 @@ def test_sinusoids_embedding_card_matches_cpu(dev):
 @pytest.mark.parametrize("engine", ["msgpass", "fused"])
 def test_kernel_launches_start_inside_their_spans(dev, engine):
     """A chain of 10 steps traced at the flagship shape (``_flagship_model``,
-    float32; 16 clouds of 5 points in a 110-residue pocket): each host call
-    that launched K1 or K2 (tied to the kernel by the profiler's
-    correlation id) starts inside a ``kernel.k1`` or ``kernel.k2`` span, one
-    span a launch. The spans' clock is the device trace's."""
+    float32; a 110-residue pocket, 5 points a cloud): each host call that
+    launched K1 or K2 (tied to the kernel by the profiler's correlation id)
+    starts inside a ``kernel.k1`` or ``kernel.k2`` span, one span a launch;
+    the trace's K1 or K2 kernels are as many as the launch counter counted.
+    The spans' clock is the device trace's.
+
+    On the msgpass engine the module replays its forward pass as a CUDA
+    graph (``graphed_forward``), and the traced chain is of a batch size
+    not called before: its first call runs the pass once op by op (the
+    host's K1 launches, each in its span), captures it (K1's calls in their
+    spans, none run) and replays it; each of the 11 calls launches one
+    graph holding 5 K1 kernels, which starts inside a ``denoiser`` span."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -452,31 +460,178 @@ def test_kernel_launches_start_inside_their_spans(dev, engine):
     pocket = realistic_ca_pocket(rng, 110).astype(np.float32)
     onehot = np.eye(20, dtype=np.float32)[rng.randint(0, 20, 110)]
 
-    def chain():
-        sample_pharmacophores(model, pocket, onehot, 16, n_phar_max=8, batch_size=16,
+    def chain(b):
+        sample_pharmacophores(model, pocket, onehot, b, n_phar_max=8, batch_size=b,
                               generator=torch.Generator(device=dev).manual_seed(0))
 
-    chain()  # builds the kernels
+    chain(16)  # builds the kernels (and the module's graph at 16 clouds)
     torch.cuda.synchronize()
     profiling.clear_spans()
-    before = counter.launches
+    before, captures = counter.launches, graphed_forward.captures
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        chain()
+        chain(16 if fused else 12)
         torch.cuda.synchronize()
     launched = counter.launches - before
     events = [e for e in prof.profiler.kineto_results.events() if not e.is_hidden_event()]
-    ours = {e.correlation_id() for e in events
-            if e.device_type() == DeviceType.CUDA and kernel in e.name()}
-    calls = sorted(e.start_ns() for e in events if e.device_type() != DeviceType.CUDA
-                   and "Launch" in e.name() and e.correlation_id() in ours)
-    windows = [(s.start_ns, s.end_ns) for s in profiling.spans() if s.name == name]
+    kernels = [e.correlation_id() for e in events
+               if e.device_type() == DeviceType.CUDA and kernel in e.name()]
+    ours = set(kernels)
+    calls = [(e.name(), e.start_ns()) for e in events if e.device_type() != DeviceType.CUDA
+             and "Launch" in e.name() and e.correlation_id() in ours]
+    direct = sorted(t for n, t in calls if "Graph" not in n)
+    graphs = sorted(t for n, t in calls if "Graph" in n)
+    recorded = profiling.spans()
     profiling.clear_spans()
-    per_call = ecfg.n_layers if not fused else 1
-    assert len(calls) == launched == len(windows) == 11 * per_call
-    missed = [min(abs(c - a) if c < a else c - b for a, b in windows) for c in calls
+    windows = [(s.start_ns, s.end_ns) for s in recorded if s.name == name]
+    assert len(kernels) == launched
+    if fused:
+        assert len(direct) == launched == len(windows) == 11 and not graphs
+    else:
+        n = ecfg.n_layers
+        assert graphed_forward.captures - captures == 1
+        assert launched == 12 * n and len(direct) == n and len(windows) == 2 * n
+        denoiser = [(s.start_ns, s.end_ns) for s in recorded if s.name == "denoiser"]
+        assert len(graphs) == len(denoiser) == 11
+        assert all(any(a <= c <= b for a, b in denoiser) for c in graphs)
+    missed = [min(abs(c - a) if c < a else c - b for a, b in windows) for c in direct
               if not any(a <= c <= b for a, b in windows)]
-    assert not missed, f"{len(missed)} of {len(calls)} launches outside their spans, by " \
+    assert not missed, f"{len(missed)} of {len(direct)} launches outside their spans, by " \
                        f"{min(missed)}-{max(missed)} ns"
+
+
+def _full_atom_model(dev, b, seed, n_q=300):
+    """``full_atom_config`` widths (H=256, 3 layers, 11 atom classes) with
+    K=160, weights drawn as ``_flagship_model`` draws them; a pocket of
+    ``n_q`` points at least 1.5 Å apart in a shell of 4-12 Å (26 in-cutoff
+    neighbours on average, 44 at most) and 8 pharmacophore points near its
+    centre. Returns (dynamics, its five inputs)."""
+    cfg = full_atom_config()
+    ecfg = dataclasses.replace(cfg.dynamics.egnn, neighbor_k=160)
+    dyn = EGNNDynamics(dataclasses.replace(cfg.dynamics, egnn=ecfg))
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in dyn.modules():
+            if isinstance(mod, torch.nn.Linear):
+                w = torch.randn(mod.weight.shape, generator=g).clamp_(-2.0, 2.0)
+                mod.weight.copy_(w / mod.weight.shape[1] ** 0.5)
+    rng = np.random.RandomState(seed)
+    n_p = 8
+    pocket = np.stack([realistic_ca_pocket(np.random.RandomState(seed + i), n_q, r_lo=4.0,
+                                           r_hi=12.0, min_sep=1.5) for i in range(b)])
+    xh_p = np.concatenate([pocket.mean(1, keepdims=True) + rng.randn(b, n_p, 3) * 2.0,
+                           np.eye(8)[rng.randint(0, 8, (b, n_p))]], -1)
+    xh_q = np.concatenate([pocket, np.eye(11)[rng.randint(0, 11, (b, n_q))]], -1)
+    inputs = [torch.tensor(v, dtype=torch.float32, device=dev) for v in
+              (xh_p, xh_q, rng.rand(b, 1), np.ones((b, n_p)), np.ones((b, n_q)))]
+    return dyn.to(dev).eval(), inputs
+
+
+def _graph_case(dev, case, b, seed):
+    """The CA case (``_flagship_model``, K=12) or the full-atom one
+    (``_full_atom_model``, K=160), float32: (dynamics, inputs, GCLs)."""
+    if case == "ca_k12":
+        dyn, ecfg, inputs = _flagship_model(dev, torch.float32, b, seed)
+        return dyn, inputs, ecfg.n_layers
+    dyn, inputs = _full_atom_model(dev, b, seed)
+    return dyn, inputs, dyn.cfg.egnn.n_layers
+
+
+def _counters():
+    return (graphed_forward.captures, graphed_forward.replays, graphed_forward.eager_calls,
+            mp.gcl_message_agg.launches)
+
+
+def _grown(before):
+    return tuple(a - b for a, b in zip(_counters(), before))
+
+
+@pytest.mark.parametrize("case", ["ca_k12", "fa_k160"])
+def test_graphed_denoiser_equals_the_op_by_op_pass(dev, case):
+    """The module's call on the card replays its forward pass as a CUDA
+    graph: bit for bit the op-by-op pass (``eager_forward``) on the same
+    inputs, at the first call of a shape and at later ones on other values;
+    an output held across calls is not overwritten; a new shape and
+    replaced parameters capture again, an in-place update does not. The
+    counters: one capture a key, one replay a call, no eager call; K1's
+    counter gains a pass's launches at each replay and at each capture's
+    op-by-op pass before it, none for the captured launches."""
+    dyn, inputs, n = _graph_case(dev, case, 4, seed=8)
+    other = [inputs[0] + 0.25, inputs[1], torch.rand_like(inputs[2])] + inputs[3:]
+
+    def same(out, ref):
+        for o, r in zip(out, ref):
+            assert o.shape == r.shape and torch.equal(o, r)
+
+    with torch.no_grad():
+        before = _counters()
+        first = dyn(*inputs)
+        assert not dyn.graphs.refused, dyn.graphs.refused
+        assert _grown(before) == (1, 1, 0, 2 * n)
+        held = [o.clone() for o in first]
+        before = _counters()
+        ref = dyn.eager_forward(*inputs)
+        assert _grown(before) == (0, 0, 0, n)
+        same(first, ref)
+        assert all(torch.isfinite(o).all() for o in first)
+        before = _counters()
+        second = dyn(*other)
+        assert _grown(before) == (0, 1, 0, n)
+        same(first, held)  # the first call's outputs are the caller's
+        same(second, dyn.eager_forward(*other))
+        assert not torch.equal(second[0], first[0])
+        # a new shape: one sample fewer
+        before = _counters()
+        fewer = dyn(*[v[1:] for v in inputs])
+        assert _grown(before) == (1, 1, 0, 2 * n)
+        same(fewer, dyn.eager_forward(*[v[1:] for v in inputs]))
+        # in place: the graph reads the updated weights
+        for p in dyn.parameters():
+            p.mul_(0.9)
+        before = _counters()
+        scaled = dyn(*inputs)
+        assert _grown(before) == (0, 1, 0, n)
+        same(scaled, dyn.eager_forward(*inputs))
+        # replaced: new tensors at new addresses
+        dyn.load_state_dict({k: v * 1.1 for k, v in dyn.state_dict().items()}, assign=True)
+        before = _counters()
+        replaced = dyn(*inputs)
+        assert not dyn.graphs.refused, dyn.graphs.refused
+        assert _grown(before) == (1, 1, 0, 2 * n)
+        same(replaced, dyn.eager_forward(*inputs))
+        assert len(dyn.graphs.graphs) == 1 and not dyn.graphs.refused
+
+
+def test_graphed_denoiser_capture_failure_runs_op_by_op(dev, monkeypatch):
+    """A forward pass that cannot be captured (here, one that reads a value
+    back to the host) is counted, never raised: that call and every later
+    one of its shape run op by op with the right result, no capture tried
+    again; the device stays usable and another module still captures."""
+    dyn, inputs, n = _graph_case(dev, "ca_k12", 2, seed=9)
+    egnn = dyn.egnn.forward
+
+    def reads_back(*args, **kw):
+        out = egnn(*args, **kw)
+        float(out[1].sum())  # a device-to-host copy: not allowed in a capture
+        return out
+
+    monkeypatch.setattr(dyn.egnn, "forward", reads_back)
+    reasons = graphed_forward.eager_reasons["capture failed"]
+    with torch.no_grad():
+        before = _counters()
+        out = dyn(*inputs)
+        again = dyn(*inputs)
+        assert _grown(before)[:3] == (0, 0, 2)
+        ref = dyn.eager_forward(*inputs)
+    assert graphed_forward.eager_reasons["capture failed"] - reasons == 2
+    assert len(dyn.graphs.refused) == 1 and not dyn.graphs.graphs
+    for o, a, r in zip(out, again, ref):
+        assert torch.equal(o, r) and torch.equal(a, r)
+    fresh, inputs, n = _graph_case(dev, "ca_k12", 2, seed=9)
+    with torch.no_grad():
+        before = _counters()
+        for o, r in zip(fresh(*inputs), ref):
+            assert torch.equal(o, r)
+    assert _grown(before) == (1, 1, 0, 2 * n)
 
 
 # ------------------------------------------------------------------------
@@ -609,7 +764,9 @@ def test_gcl_widths_outside_k1_card_matches_cpu(dev, hidden, cdt, tol):
         ref = dyn(*inputs)
         before = mp.gcl_message_agg.launches
         out = dyn.to(dev)(*[v.to(dev) for v in inputs])
-    assert mp.gcl_message_agg.launches == before + 2  # one K1 launch per layer
+    # one K1 launch per layer, twice: the first call of a shape runs the
+    # pass once before its graph's capture, then replays the graph
+    assert mp.gcl_message_agg.launches == before + 2 * 2
     for o, r in zip(out, ref):
         assert torch.isfinite(o).all()
         assert (o.cpu() - r).abs().max().item() <= tol * r.abs().max().item()
@@ -746,10 +903,16 @@ def test_run_pipeline_on_card(dev, engine, monkeypatch):
         n_conformers=3, contact_filter=None)
     mp.gcl_message_agg.launches = 0
     ef.egnn_forward_fused.launches = 0
+    captures, replays = graphed_forward.captures, graphed_forward.replays
     results, stats = run_all.run_pipeline(model, gcpg, tok, pockets, 0, cfg)
     calls = 11 * 2  # T + 1 denoiser calls per pocket, one batch each
     if engine == "msgpass":
-        assert (mp.gcl_message_agg.launches, ef.egnn_forward_fused.launches) == (2 * calls, 0)
+        # both pockets of one shape: one capture (its pass before it runs
+        # K1 too), every call a replay
+        assert (graphed_forward.captures - captures, graphed_forward.replays - replays) == \
+            (1, calls)
+        assert (mp.gcl_message_agg.launches, ef.egnn_forward_fused.launches) == \
+            (2 * (calls + 1), 0)
     else:
         assert (mp.gcl_message_agg.launches, ef.egnn_forward_fused.launches) == (0, calls)
     assert stats["hypotheses"] == 2 and stats["raw_smiles"] == 128
