@@ -5,8 +5,10 @@ The window drives ``pipeline.sample_phars.sample_pharmacophores``, the
 entry of ``sample-phars``, one batch of clouds at a time on the cell's
 pocket in a closed loop, on the model that ``convert.build_model``
 builds, until the chain running when ``seconds`` are up has ended. A thin
-wrapper keeps what ``sample_given_pocket`` returned (the clouds before the
-entry rounds them); nothing else of the program is touched. After the
+wrapper keeps what the sampler returned (``sample_given_pocket``'s or
+``inpaint``'s clouds, before the entry rounds them); nothing else of the
+program is touched. What depends on the sampler that the configuration's
+``train.mode`` picks is ``harness/samplers``'s. After the
 window one chain drawn from the seed runs again with a tap on its
 denoiser (``check``), the reference follows it step by step, and the run
 is ``correct`` when every number compared is within its limit. A traced
@@ -25,7 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from perfbench.harness import check, inputs, spec, trace, work
+from perfbench.harness import check, inputs, samplers, spec, trace, work
 from perfbench.harness.pockets import make_pocket
 
 # top-level module names that may not be loaded in a run of the port
@@ -41,6 +43,7 @@ class Run:
     window_s: float = 0.0
     clouds: int = 0
     window_peak_bytes: int = 0
+    program_peak_bytes: int = 0
     peak_bytes: int = 0
     trace: Optional[trace.ChainTrace] = None
     graphs: List[work.Graph] = dataclasses.field(default_factory=list)
@@ -60,13 +63,13 @@ class Run:
 
 
 class Recorder:
-    """Keeps each (phar, pocket_out) that the model's
-    ``sample_given_pocket`` returns."""
+    """Keeps each (phar, pocket_out) that the model's sampling ``method``
+    (``samplers.Sampler.method``) returns."""
 
-    def __init__(self, model):
+    def __init__(self, model, method: str):
         self.outputs: list = []
-        self._sample = model.sample_given_pocket
-        model.sample_given_pocket = self
+        self._sample = getattr(model, method)
+        setattr(model, method, self)
 
     def __call__(self, *args, **kwargs):
         out = self._sample(*args, **kwargs)
@@ -107,17 +110,16 @@ class Session:
     ``convert.build_model`` builds from the seed's weights, the pocket, and
     ``call(chain)``, one batch of clouds through ``sample_pharmacophores``
     with that chain's node counts and noise. ``recorder.outputs`` holds
-    what each call's ``sample_given_pocket`` returned."""
+    what each call's sampler (``sampler.method``) returned."""
 
     def __init__(self, cell: spec.Cell, seed: int, device: torch.device, log=print):
+        self.sampler = samplers.of(cell.config)
         from cmdgen_tpu_torch.convert import build_model
 
         traffic = cell.traffic
         self.cell, self.seed, self.device = cell, seed, device
         cfg = model_config(cell)
         self.timesteps = cfg.ddpm.timesteps
-        self.shape = (traffic["batch"], traffic["n_phar_max"],
-                      cfg.dynamics.n_dims + cfg.dynamics.phar_nf)
         self.weights = inputs.make_weights(cell.config, seed, device)
         self.model = build_model(cfg, {k: v.cpu().numpy() for k, v in self.weights.items()},
                                  device, traffic["engine"])
@@ -127,11 +129,11 @@ class Session:
         degree = check_cutoff_exact(cell, self.pocket_x)
         log(f"pocket: {self.pocket_x.shape[0]} atoms, largest in-cutoff neighbour count "
             f"{degree} (+{traffic['n_phar_max']} pharmacophore slots)")
-        self.recorder = Recorder(self.model)
+        self.recorder = Recorder(self.model, self.sampler.method)
         self.steps = check.steps_to_check(self.timesteps, seed)
 
     def noise(self, chain: int, steps: Optional[int] = None):
-        return inputs.chain_noise(self.shape, steps or self.timesteps, self.seed, chain,
+        return self.sampler.draws(self.cell, self.seed, chain, steps or self.timesteps,
                                   self.device)
 
     def call(self, chain: int, noise=None, timesteps: Optional[int] = None,
@@ -152,20 +154,20 @@ class Session:
         self.recorder.outputs.clear()
 
     def rerun(self, chain: int, calls=(), on_call=None):
-        """Run ``chain`` again through the entry on a sampler built by
-        ``ConditionalDDPM``'s documented constructor around the model's
-        dynamics and engine (``convert.build_model``'s: the module, or
+        """Run ``chain`` again through the entry on a sampler built by the
+        documented constructor of the model's class (``ConditionalDDPM`` or
+        ``JointDDPM``: ``sampler.rerun``) around the model's dynamics and
+        engine (``convert.build_model``'s: the module, or
         ``make_fused_apply`` for K2), with a ``check.Tap`` on its
-        ``apply_fn``: (the tap, what ``sample_given_pocket`` returned)."""
-        from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
+        ``apply_fn``: (the tap, what the sampler returned)."""
         from cmdgen_tpu_torch.models.dynamics import make_fused_apply
 
         dynamics = self.model.dynamics
         fused = self.cell.traffic["engine"] == "fused"
         engine = make_fused_apply(dynamics) if fused else dynamics
         tap = check.Tap(engine, calls, on_call)
-        model = ConditionalDDPM(self.model.cfg, dynamics, apply_fn=tap)
-        recorder = Recorder(model)
+        model = self.sampler.rerun(self.model.cfg, dynamics, tap)
+        recorder = Recorder(model, self.sampler.method)
         self.call(chain, model=model)
         return tap, recorder.outputs[0]
 
@@ -232,20 +234,28 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, t0: float,
     before = host_state() if device.type == "cuda" else ""
 
     start = time.perf_counter()
-    chain, ends = 0, []
+    chain, ends, window_peak = 0, [], 0
     while True:
+        noise = first if chain == 0 else session.noise(chain)
+        first = None
+        held = held_bytes(device, session.weights, noise, session.recorder.outputs)
+        window_peak = max(window_peak, memory_peak(device, reset=True, sync=False))
         if result.trace is not None and chain == 0:
             result.trace.start()
-        session.call(chain, first if chain == 0 else None)
+        session.call(chain, noise)
         if result.trace is not None and chain == 0:
             result.trace.stop()
+        noise = None
+        peak = memory_peak(device, reset=True, sync=False)
+        window_peak = max(window_peak, peak)
+        result.program_peak_bytes = max(result.program_peak_bytes, peak - held)
         chain += 1
         ends.append(time.perf_counter() - start)
         if ends[-1] >= seconds:
             break
     result.window_s = time.perf_counter() - start
     result.clouds = chain * cell.traffic["batch"]
-    result.window_peak_bytes = memory_peak(device)
+    result.window_peak_bytes = max(window_peak, memory_peak(device))
     result.peak_bytes = max(setup_peak, result.window_peak_bytes)
     log(f"window: {chain} chains of {cell.traffic['batch']} clouds in "
         f"{result.window_s:.3f} s; chains ended at {[round(e, 3) for e in ends]} s")
@@ -257,34 +267,62 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, t0: float,
         names = collections.Counter(name for name, *_ in result.trace.events.api)
         log(f"traced chain 0: {lengths[0]:.3f} s, the others' median "
             f"{float(np.median(lengths[1:])) if chain > 1 else float('nan'):.3f} s; host API "
-            f"calls {dict(names)}; launch counters {result.trace.counters}")
-        d = cell.config["dynamics"]
+            f"calls {dict(names)}; launch counters {result.trace.counters}; denoiser calls "
+            f"{result.trace.calls}")
+        warning = result.trace.off_graph()
+        if warning:
+            log(warning)
 
         def count(z, xh_pocket, mask_phar, mask_pocket):
             result.graphs.append(work.graph(z[..., :3], xh_pocket[..., :3], mask_phar,
-                                            mask_pocket, d["edge_cutoff"], result.neighbor_k))
+                                            mask_pocket, cell.config["dynamics"],
+                                            result.neighbor_k))
 
         session.rerun(0, on_call=count)
         g = result.graphs
-        log("traced chain's in-cutoff edges (pharmacophore rows / all) at its first, middle "
-            "and last call: " + ", ".join(f"{g[i].moving_edges} / {g[i].edges}"
-                                          for i in (0, len(g) // 2, len(g) - 1)))
-    del first
+        log("traced chain's in-cutoff edges (moving rows' / all) at its first, middle and "
+            "last call: " + ", ".join(f"{g[i].moving_edges} / {g[i].edges}"
+                                      for i in (0, len(g) // 2, len(g) - 1)))
     t_check = time.perf_counter()
     checks, failed = check_run(session, chain, log)
     log(f"run again, reference and comparison: {time.perf_counter() - t_check:.1f} s")
     return finish(result, checks, failed, device, traced)
 
 
-def memory_peak(device: torch.device, reset: bool = False) -> int:
-    """The device's peak allocation since the last reset (0 off CUDA)."""
+def memory_peak(device: torch.device, reset: bool = False, sync: bool = True) -> int:
+    """The device's peak allocation since the last reset (0 off CUDA). The
+    allocator counts on the host as the ops are queued, so ``sync=False``
+    reads the same number without waiting for the device."""
     if device.type != "cuda":
         return 0
-    torch.cuda.synchronize(device)
+    if sync:
+        torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device)
     if reset:
         torch.cuda.reset_peak_memory_stats(device)
     return peak
+
+
+def held_bytes(device: torch.device, *objs) -> int:
+    """Bytes of the distinct storages on ``device``'s type of the tensors
+    in ``objs`` (nested in tuples, lists and dicts): what the harness holds
+    on the device beside the program."""
+    storages: Dict[int, int] = {}
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            if o.device.type == device.type:
+                storage = o.untyped_storage()
+                storages[storage.data_ptr()] = storage.nbytes()
+        elif isinstance(o, dict):
+            for v in o.values():
+                walk(v)
+        elif isinstance(o, (tuple, list)):
+            for v in o:
+                walk(v)
+
+    walk(objs)
+    return sum(storages.values())
 
 
 def forbidden_modules() -> List[str]:

@@ -8,17 +8,20 @@ rounding moves a pair across it now and then, and the chain amplifies
 that one edge's difference (up to alpha_0 / alpha_T over the chain). So
 the timed window runs the program untouched, and once it has closed the
 drawn chain runs again through the same entry with the same inputs, on a
-sampler that ``ConditionalDDPM``'s documented ``apply_fn`` argument builds
-around the model's own dynamics and engine, with a ``Tap`` on that
+sampler that the documented ``apply_fn`` argument of the configuration's
+sampler class (``ConditionalDDPM`` or ``JointDDPM``, ``harness/samplers``)
+builds around the model's own dynamics and engine, with a ``Tap`` on that
 argument: it keeps the state handed to the denoiser and the denoiser's eps
-at the calls checked. The clouds of that run have to be the timed chain's
-clouds, bit for bit; the reference then computes each checked stage again
-from the program's state before it, on every cloud of the chain:
+of both clouds at the calls checked. The clouds of that run have to be the
+timed chain's clouds, bit for bit; the reference then computes each
+checked stage again from the program's state before it, on every cloud of
+the chain:
 
 - the start: z_T and the pocket from the chain's first draw;
-- ``CHECK_STEPS`` reverse steps drawn from the seed (the first among
-  them): state i to state i + 1, which is the input of the next call, so
-  the handing on of the state is checked with the step;
+- ``CHECK_STEPS`` reverse steps (in the joint model, inpainting ops: a
+  denoise step and the known pocket spliced in) drawn from the seed (the
+  first among them): state i to state i + 1, which is the input of the
+  next call, so the handing on of the state is checked with the step;
 - the final decode: the last state to the clouds returned.
 
 The numbers compared, each against its limit in ``perfbench/limits/<cell>``:
@@ -28,11 +31,12 @@ The numbers compared, each against its limit in ``perfbench/limits/<cell>``:
 - ``eps_gap``: over the checked steps and the decode, the largest
   difference between the program's and the reference's eps on the same
   state, coordinates and features each over their own largest reference
-  entry;
+  entry; the pharmacophore's eps, and in the joint model the pocket's too,
+  each over its own entries;
 - ``step_gap``: over the start and the steps, the largest difference
   between the program's and the reference's next state, coordinates (the
   pharmacophore nodes' and the pocket's) over their largest entry (at
-  least 1) and features over theirs (at least 1);
+  least 1) and features over theirs (at least 1; the pocket's apart);
 - ``x_gap``: the final clouds' largest coordinate difference in the
   pocket's frame (the entry adds the pocket's centre back), over the
   cloud's largest reference coordinate (at least 1 A);
@@ -42,7 +46,8 @@ The numbers compared, each against its limit in ``perfbench/limits/<cell>``:
 - ``mask_mismatch``: slots whose validity differs from the node counts
   (exact: limit 0);
 - ``calls_mismatch``: how far the checked run's denoiser calls are from its
-  T reverse steps and one final decode (exact: limit 0); where they differ
+  T reverse steps (in the joint model T denoise ops: one resampling, no
+  jump) and one final decode (exact: limit 0); where they differ
   the states are not the ones checked, and every other number reads
   infinite.
 
@@ -55,19 +60,19 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from perfbench.harness import inputs
+from perfbench.harness import inputs, samplers
 from perfbench.reference import sampler as ref
 
-# (z, pocket, eps): a call's input state and the denoiser's eps on it
-Record = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# (z, pocket, eps, pocket eps): a call's input state and the denoiser's eps
+# of both clouds on it
+Record = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 State = Tuple[torch.Tensor, torch.Tensor]
+# (eps, pocket eps): the pocket's is None where the pocket does not move
+Eps = Tuple[torch.Tensor, Optional[torch.Tensor]]
 # reverse steps checked a chain (all of them where T is smaller)
 CHECK_STEPS = 32
 # eps_gap's least scale: a part of eps this small is compared absolutely
 EPS_FLOOR = 1e-3
-# the reference's working set per row of a block, in units of
-# (receivers x sources x hidden) float32 values
-REFERENCE_LIVE = 8
 
 
 def steps_to_check(steps: int, seed: int) -> List[int]:
@@ -85,9 +90,9 @@ def chain_to_check(chains: int, seed: int) -> int:
 
 
 class Tap:
-    """A denoiser with the signature of ``ConditionalDDPM``'s ``apply_fn``
-    that calls ``apply_fn``, counts the calls, keeps (state, pocket, eps)
-    copies of calls ``calls``, and hands every call's inputs to
+    """A denoiser with the signature of the samplers' ``apply_fn`` that
+    calls ``apply_fn``, counts the calls, keeps (state, pocket, eps, pocket
+    eps) copies of calls ``calls``, and hands every call's inputs to
     ``on_call`` (when given)."""
 
     def __init__(self, apply_fn, calls: Sequence[int] = (),
@@ -101,7 +106,8 @@ class Tap:
     def __call__(self, z, xh_pocket, t, mask_phar, mask_pocket):
         out = self.apply_fn(z, xh_pocket, t, mask_phar, mask_pocket)
         if self.n in self.calls:
-            self.records[self.n] = (z.clone(), xh_pocket.clone(), out[0].clone())
+            self.records[self.n] = (z.clone(), xh_pocket.clone(), out[0].clone(),
+                                    out[1].clone())
         if self.on_call is not None:
             self.on_call(z, xh_pocket, mask_phar, mask_pocket)
         self.n += 1
@@ -114,70 +120,24 @@ def recorded_calls(steps: Sequence[int], total: int) -> List[int]:
     return sorted({0, total} | {i for s in steps for i in (s, s + 1)})
 
 
-def reference_block(cell, rows: int) -> int:
-    """Rows of a reference block: what fits in half the device's free
-    memory (a quarter of 4 GiB off CUDA) at the cell's edges a row."""
-    cfg, traffic = cell.config, cell.traffic
-    n = traffic["n_phar_max"] + traffic["pocket"]["atoms"]
-    sources = traffic.get("neighbor_k") or n
-    per_row = REFERENCE_LIVE * 4 * n * min(sources, n) * cfg["dynamics"]["egnn"]["hidden_nf"]
-    free = torch.cuda.mem_get_info()[0] if torch.cuda.is_available() else 2 ** 32
-    return max(1, min(rows, int(0.5 * free // per_row)))
-
-
 def reference_outputs(cell, weights, pocket_x: np.ndarray, pocket_h: np.ndarray,
                       noise, nodes: torch.Tensor, records: Dict[int, Record],
                       steps: Sequence[int], tf32: bool = False):
     """The reference's start, its (next state, eps) at each checked step
     from the program's state, and its final clouds from the program's last
-    state: ({"start": State, step: (State, eps), ...}, final dict). With
-    ``tf32`` its products run in TF32, a precision below the
-    configuration's (the control)."""
-    cfg, traffic = cell.config, cell.traffic
-    ref.check_chain(cfg)
-    k = traffic.get("neighbor_k")
-    T = cfg["ddpm"]["timesteps"]
-    init, chain, last = noise
-    dev = init.device
-    gamma = ref.gamma_table(cfg["ddpm"]["noise_schedule"], T,
-                            cfg["ddpm"]["noise_precision"]).to(dev)
-    b = init.shape[0]
-    mask = ref.phar_mask(nodes.to(dev), traffic["n_phar_max"])
-    px = torch.from_numpy(pocket_x).to(dev).expand(b, *pocket_x.shape)
-    ph = torch.from_numpy(pocket_h).to(dev).expand(b, *pocket_h.shape)
-    pmask = torch.ones(b, pocket_x.shape[0], device=dev)
+    state, by the configuration's sampler (``samplers.Sampler.reference``):
+    ({"start": State, step: (State, Eps), ...}, final dict). With ``tf32``
+    its products run in TF32, a precision below the configuration's (the
+    control)."""
+    ref.check_chain(cell.config)
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
     try:
         with torch.no_grad():
-            out: Dict[object, object] = {"start": ref.initial(cfg, px, ph, pmask, mask, init)}
-            rows = [s for s in steps if s < T]
-            if rows:
-                z = torch.cat([records[s][0] for s in rows])
-                pocket = torch.cat([records[s][1] for s in rows])
-                step = torch.tensor(rows, device=dev).repeat_interleave(b)
-                eps = torch.cat([chain[s] for s in rows])
-                mr, pr = mask.repeat(len(rows), 1), pmask.repeat(len(rows), 1)
-                block = reference_block(cell, z.shape[0])
-                parts = [ref.reverse(weights, cfg, gamma, z[i:i + block], pocket[i:i + block],
-                                     step[i:i + block], eps[i:i + block], mr[i:i + block],
-                                     pr[i:i + block], k)
-                         for i in range(0, z.shape[0], block)]
-                nz = torch.cat([p[0][0] for p in parts])
-                npk = torch.cat([p[0][1] for p in parts])
-                neps = torch.cat([p[1] for p in parts])
-                for j, s in enumerate(rows):
-                    sl = slice(j * b, (j + 1) * b)
-                    out[s] = ((nz[sl], npk[sl]), neps[sl])
-            z, pocket, _ = records[T]
-            block = reference_block(cell, b)
-            parts = [ref.final(weights, cfg, gamma, z[i:i + block], pocket[i:i + block],
-                               last[i:i + block], mask[i:i + block], pmask[i:i + block], k)
-                     for i in range(0, b, block)]
-            final = {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+            return samplers.of(cell.config).reference(cell, weights, pocket_x, pocket_h, noise,
+                                                      nodes, records, steps)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-    return out, final
 
 
 def _part_gap(got, want, mask, floor):
@@ -190,23 +150,38 @@ def _part_gap(got, want, mask, floor):
 
 def state_gap(got: State, want: State, mask_phar: torch.Tensor, nd: int) -> torch.Tensor:
     """Per cloud: the largest difference of the coordinates (pharmacophore
-    nodes and pocket) over their largest entry, and of the pharmacophore
-    features over theirs (each at least 1); the larger of the two."""
+    nodes and pocket) over their largest entry, of the pharmacophore
+    features over theirs and of the pocket's features over theirs (each at
+    least 1); the largest of the three. (The conditional sampler hands the
+    pocket's features on unchanged: that part reads 0 there.)"""
     x_scale = torch.maximum((want[0][..., :nd].abs() * mask_phar[..., None]).amax((1, 2)),
                             want[1][..., :nd].abs().amax((1, 2))).clamp_min(1.0)
     dx = torch.maximum(((got[0][..., :nd] - want[0][..., :nd]).abs()
                         * mask_phar[..., None]).amax((1, 2)),
                        (got[1][..., :nd] - want[1][..., :nd]).abs().amax((1, 2)))
     dh = _part_gap(got[0][..., nd:], want[0][..., nd:], mask_phar, 1.0)
-    return torch.maximum(dx / x_scale, dh)
+    dq = _part_gap(got[1][..., nd:], want[1][..., nd:], _every_row(got[1]), 1.0)
+    return torch.maximum(torch.maximum(dx / x_scale, dh), dq)
 
 
-def eps_gap(got: torch.Tensor, want: torch.Tensor, mask_phar: torch.Tensor,
-            nd: int) -> torch.Tensor:
+def _every_row(v: torch.Tensor) -> torch.Tensor:
+    """A mask of every row of the pocket ([R, Nq]): its padded rows are 0
+    on both sides."""
+    return torch.ones(v.shape[:2], device=v.device)
+
+
+def eps_gap(got: Eps, want: Eps, mask_phar: torch.Tensor, nd: int) -> torch.Tensor:
     """Per cloud: the eps difference of coordinates and of features, each
-    over its largest reference entry (at least ``EPS_FLOOR``)."""
-    return torch.maximum(_part_gap(got[..., :nd], want[..., :nd], mask_phar, EPS_FLOOR),
-                         _part_gap(got[..., nd:], want[..., nd:], mask_phar, EPS_FLOOR))
+    over its largest reference entry (at least ``EPS_FLOOR``); the
+    pharmacophore's, and the pocket's where the reference has one."""
+    gap = torch.maximum(_part_gap(got[0][..., :nd], want[0][..., :nd], mask_phar, EPS_FLOOR),
+                        _part_gap(got[0][..., nd:], want[0][..., nd:], mask_phar, EPS_FLOOR))
+    if want[1] is None:
+        return gap
+    rows = _every_row(want[1])
+    return torch.maximum(gap, torch.maximum(
+        _part_gap(got[1][..., :nd], want[1][..., :nd], rows, EPS_FLOOR),
+        _part_gap(got[1][..., nd:], want[1][..., nd:], rows, EPS_FLOOR)))
 
 
 def _in_pocket_frame(x, pocket_x):
@@ -244,9 +219,9 @@ def rerun_gap(timed, checked) -> torch.Tensor:
 def program_states(records: Dict[int, Record], steps: Sequence[int], T: int):
     """The program's state after the start and after each checked step (the
     inputs of the calls that follow them), and its eps at each checked step
-    and at the decode: ({"start" or step: State}, {step or T: eps})."""
+    and at the decode: ({"start" or step: State}, {step or T: Eps})."""
     states = {"start": records[0][:2], **{s: records[s + 1][:2] for s in steps if s < T}}
-    eps = {s: records[s][2] for s in [*steps, T] if s <= T}
+    eps = {s: records[s][2:] for s in [*steps, T] if s <= T}
     return states, eps
 
 
@@ -261,7 +236,7 @@ def gaps(states, eps, final, ref_states, ref_final, nodes: torch.Tensor,
                        + [state_gap(states[s], ref_states[s][0], mask, nd)
                           for s in ref_states if s != "start"]).amax(0)
     want_eps = {**{s: v[1] for s, v in ref_states.items() if s != "start"},
-                max(eps): ref_final["eps"]}
+                max(eps): (ref_final["eps"], ref_final.get("eps_pocket"))}
     e = torch.stack([eps_gap(eps[s], want_eps[s], mask, nd) for s in want_eps]).amax(0)
     return {"eps_gap": e, "step_gap": step, **final_gaps(*final, ref_final, nodes)}
 
@@ -292,8 +267,7 @@ def chain_gaps(cell, seed: int, chain: int, tap: Tap, checked, timed, steps, wei
         return {"rerun_gap": again, "eps_gap": inf, "step_gap": inf, "x_gap": inf,
                 "type_gap": inf, "mask_mismatch": inf, "calls_mismatch": mismatch}
     phar, pocket = checked
-    shape = (b, cell.traffic["n_phar_max"], phar.h.shape[-1] + cell.config["dynamics"]["n_dims"])
-    noise = inputs.chain_noise(shape, T, seed, chain, device)
+    noise = samplers.of(cell.config).draws(cell, seed, chain, T, device)
     nodes = torch.from_numpy(inputs.node_counts(cell.traffic, seed, chain))
     ref_states, ref_final = reference_outputs(cell, weights, pocket_x, pocket_h, noise, nodes,
                                               tap.records, steps, tf32)

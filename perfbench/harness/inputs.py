@@ -4,12 +4,14 @@ Sub-seeds come from a hash of (seed, what, index), so any whole number is
 a seed and each input has a stream of its own: the weights, the pocket, the
 node counts and each chain's noise. Weights and noise are drawn on the
 device in one call each; the pocket and the node counts on the host (the
-sampler's entry takes them as arrays).
+sampler's entry takes them as arrays). A chain's noise is laid out for its
+sampler: ``chain_noise`` for the conditional model's
+``sample_given_pocket``, ``joint_noise`` for the joint model's ``inpaint``.
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -114,3 +116,40 @@ def chain_noise(shape: Tuple[int, int, int], steps: int, seed: int, chain: int,
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "noise", chain))
     draws = torch.randn((steps + 2, *shape), generator=gen, device=device)
     return draws[0], draws[1:-1], draws[-1]
+
+
+def project_joint(phar: torch.Tensor, pocket: torch.Tensor, mask_phar: torch.Tensor,
+                  mask_pocket: torch.Tensor, nd: int) -> None:
+    """In place, on draws [..., B, N, F]: padded rows zeroed, and the
+    coordinates of both clouds moved by their combined centre of mass, so
+    that each pair lies in the joint model's CoM-free subspace."""
+    phar.mul_(mask_phar[..., None])
+    pocket.mul_(mask_pocket[..., None])
+    count = (mask_phar.sum(-1) + mask_pocket.sum(-1)).clamp_min(1.0)[..., None]
+    mean = (phar[..., :nd].sum(-2) + pocket[..., :nd].sum(-2)) / count
+    phar[..., :nd] -= mean[..., None, :] * mask_phar[..., None]
+    pocket[..., :nd] -= mean[..., None, :] * mask_pocket[..., None]
+
+
+def joint_noise(phar_shape: Sequence[int], pocket_shape: Sequence[int], nodes: np.ndarray,
+                steps: int, seed: int, chain: int, device: torch.device, nd: int = 3):
+    """(init pair, ops, final pair): one chain's draws for
+    ``JointDDPM.inpaint``'s ``noise`` with one resampling and a jump
+    length of one (``steps`` denoise ops, ``ops[i]`` op i's (denoise pair,
+    splice pair)), every pair (pharmacophore [B, Np, Fp], pocket [B, Nq,
+    Fq]) standard normal from one draw on the device and projected with
+    ``project_joint``; the pharmacophore rows past each cloud's node count
+    (``nodes``) are padding, the pocket's rows all real."""
+    n = 2 * steps + 2
+    sizes = [n * int(np.prod(phar_shape)), n * int(np.prod(pocket_shape))]
+    gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "noise", chain))
+    flat = torch.randn(sum(sizes), generator=gen, device=device)
+    phar, pocket = (v.view(n, *shape) for v, shape in
+                    zip(flat.split(sizes), (phar_shape, pocket_shape)))
+    counts = torch.as_tensor(nodes, device=device)
+    mask_phar = (torch.arange(phar_shape[1], device=device)[None, :]
+                 < counts[:, None]).float()
+    project_joint(phar, pocket, mask_phar, torch.ones(pocket_shape[:2], device=device), nd)
+    ops = [((phar[2 * i + 1], pocket[2 * i + 1]), (phar[2 * i + 2], pocket[2 * i + 2]))
+           for i in range(steps)]
+    return (phar[0], pocket[0]), ops, (phar[-1], pocket[-1])

@@ -43,11 +43,17 @@ class ChainTrace:
     """Profiles one whole chain of the entry: ``torch.profiler`` with device
     activity (kernels, copies and the CUDA API calls of the host) between
     two synchronisations of the device, whose host times bound the span;
-    and the port's K1 and K2 launch counters over the same span."""
+    the port's K1 and K2 launch counters over the same span (``counters``);
+    and how its denoiser calls ran there (``calls``: the module's CUDA graph
+    ``captures``, ``replays`` and ``eager_calls``, ``graphed_forward``'s
+    counters; ``eager_reasons``, why the calls that ran op by op did).
+    ``off_graph`` names the calls that ran op by op, for the run's log."""
 
     def __init__(self):
         self.events: Optional[Events] = None
         self.counters: Dict[str, int] = {}
+        self.calls: Dict[str, int] = {}
+        self.eager_reasons: Dict[str, int] = {}
         self._prof = None
         self._start = 0
 
@@ -64,12 +70,16 @@ class ChainTrace:
     def start(self) -> None:
         from torch.profiler import ProfilerActivity, profile
 
+        from cmdgen_tpu_torch.models.dynamics import graphed_forward
         from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
         from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
 
         torch.cuda.synchronize()
         self._launch_counters = (gcl_message_agg, egnn_forward_fused)
         self._before = [f.launches for f in self._launch_counters]
+        self._graphed = graphed_forward
+        self._calls_before = self._call_counts()
+        self._reasons_before = collections.Counter(graphed_forward.eager_reasons)
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self._prof.start()
         self._start = time.time_ns()
@@ -80,8 +90,25 @@ class ChainTrace:
         self._prof.stop()
         self.counters = {f.__name__: f.launches - b
                          for f, b in zip(self._launch_counters, self._before)}
+        self.calls = {k: v - self._calls_before[k] for k, v in self._call_counts().items()}
+        self.eager_reasons = dict(collections.Counter(self._graphed.eager_reasons)
+                                  - self._reasons_before)
         self.events = collect(self._prof, self._start, end)
         self._prof = None
+
+    def _call_counts(self) -> Dict[str, int]:
+        return {k: getattr(self._graphed, k) for k in ("captures", "replays", "eager_calls")}
+
+    def off_graph(self) -> Optional[str]:
+        """A warning where some of the traced chain's denoiser calls ran op
+        by op or captured a graph inside the window (a cell whose engine the
+        program replays should read ``replays`` only), else None."""
+        eager, captures = self.calls.get("eager_calls", 0), self.calls.get("captures", 0)
+        if not eager and not captures:
+            return None
+        return (f"warning: of the traced chain's denoiser calls {eager} ran op by op "
+                f"(the program's reasons: {self.eager_reasons}) and {captures} captured a "
+                f"CUDA graph; {self.calls.get('replays', 0)} replayed one")
 
 
 def collect(prof, start: int, end: int) -> Events:

@@ -5,9 +5,12 @@ Edges are the directed in-cutoff pairs of real nodes (self-edges
 included), capped at the K nearest of each receiver where the cell sets
 K: what the inputs need, not the B x N x K slots a kernel may compute.
 The count is the same whichever engine runs (dense, K1 or K2): it takes
-no engine. Operations are the multiply-adds of the model's dense layers
-(2 flops each) and the attention dot and coordinate gate of each edge;
-the elementwise work is left out. Bytes count each input read once and
+no engine. The coordinate update's rows and edges are those of the rows
+that move: the pharmacophore rows of the conditional model, every row of
+the joint one (``update_pocket_coords``). Operations are the
+multiply-adds of the model's dense layers (2 flops each) and the
+attention dot and coordinate gate of each edge; the elementwise work is
+left out. Bytes count each input read once and
 each output written once.
 """
 from __future__ import annotations
@@ -29,17 +32,20 @@ class Graph:
     """One denoiser call's counts, summed over its batch."""
 
     nodes: int        # real nodes (pharmacophore and pocket)
-    moving: int       # real pharmacophore nodes (the rows that move)
+    moving: int       # real nodes whose coordinates move
     pocket: int       # real pocket nodes
     edges: int        # in-cutoff edges of real receivers
     moving_edges: int  # of those, the edges of moving receivers
+    phar: int         # real pharmacophore nodes
 
 
 def graph(x_phar: torch.Tensor, x_pocket: torch.Tensor, mask_phar: torch.Tensor,
-          mask_pocket: torch.Tensor, cutoff: Optional[float],
-          neighbor_k: Optional[int]) -> Graph:
+          mask_pocket: torch.Tensor, dynamics: dict, neighbor_k: Optional[int]) -> Graph:
     """Counts of one call from its coordinates [B, Np, 3], [B, Nq, 3] and
-    masks [B, Np], [B, Nq]."""
+    masks [B, Np], [B, Nq], under a configuration file's ``dynamics``
+    group: its ``edge_cutoff``, and its ``update_pocket_coords``, which
+    makes the pocket's rows move beside the pharmacophore's."""
+    cutoff, all_rows_move = dynamics["edge_cutoff"], dynamics["update_pocket_coords"]
     x = torch.cat([x_phar, x_pocket], dim=1).float()
     mask = torch.cat([mask_phar, mask_pocket], dim=1).float()
     d2 = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
@@ -50,9 +56,11 @@ def graph(x_phar: torch.Tensor, x_pocket: torch.Tensor, mask_phar: torch.Tensor,
     if neighbor_k is not None:
         degree = degree.clamp(max=neighbor_k)
     n_phar = x_phar.shape[1]
-    return Graph(nodes=int(mask.sum()), moving=int(mask_phar.sum()),
-                 pocket=int(mask_pocket.sum()), edges=int(degree.sum()),
-                 moving_edges=int(degree[:, :n_phar].sum()))
+    phar, edges = int(mask_phar.sum()), int(degree.sum())
+    return Graph(nodes=int(mask.sum()), moving=int(mask.sum()) if all_rows_move else phar,
+                 pocket=int(mask_pocket.sum()), edges=edges,
+                 moving_edges=edges if all_rows_move else int(degree[:, :n_phar].sum()),
+                 phar=phar)
 
 
 def k1(g: Graph, hidden: int, dtype: str):
@@ -95,7 +103,7 @@ def denoiser_flops(g: Graph, cfg: dict) -> int:
     hidden, j = e["hidden_nf"], d["joint_nf"]
     p, r = d["phar_nf"], d["residue_nf"]
     in_nf = j + int(d["condition_time"])
-    typed = (g.moving * 2 * (p * 2 * p + 2 * p * j + j * 2 * p + 2 * p * p)
+    typed = (g.phar * 2 * (p * 2 * p + 2 * p * j + j * 2 * p + 2 * p * p)
              + g.pocket * 2 * (r * 2 * r + 2 * r * j + j * 2 * r + 2 * r * r))
     return (typed + 2 * g.nodes * in_nf * hidden * 2
             + e["n_layers"] * layer_flops(g, hidden))

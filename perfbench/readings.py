@@ -45,7 +45,8 @@ def as_program(ref_states, ref_final, T):
     the program's: (states, eps)."""
     states = {"start": ref_states["start"],
               **{s: v[0] for s, v in ref_states.items() if s != "start"}}
-    eps = {**{s: v[1] for s, v in ref_states.items() if s != "start"}, T: ref_final["eps"]}
+    eps = {**{s: v[1] for s, v in ref_states.items() if s != "start"},
+           T: (ref_final["eps"], ref_final.get("eps_pocket"))}
     return states, eps
 
 
@@ -62,8 +63,7 @@ def readings(cell, seed, device, log, bf16=True):
     session, per_cloud, tap = program_chain(cell, seed, device, log)
     T = cell.config["ddpm"]["timesteps"]
     b = cell.traffic["batch"]
-    noise = inputs.chain_noise((b, cell.traffic["n_phar_max"], session.shape[-1]), T, seed, 0,
-                               device)
+    noise = session.noise(0)
     nodes = torch.from_numpy(inputs.node_counts(cell.traffic, seed, 0))
     args = (cell, session.weights, session.pocket_x, session.pocket_h, noise, nodes,
             tap.records, session.steps)

@@ -2,9 +2,11 @@
 
 ``denoise(w, cfg, xh_phar, xh_pocket, t, mask_phar, mask_pocket, neighbor_k)``
 returns the pharmacophore rows' eps prediction [B, Np, 3 + phar_nf] of the
-conditional model (the pocket is context and does not move). ``w`` maps
-flax paths to tensors (kernels [in, out]); ``cfg`` is the ``dynamics``
-group of a configuration file.
+conditional model (the pocket is context and does not move);
+``denoise_joint`` with the same arguments returns both clouds' eps of the
+joint model, in which every row moves. ``w`` maps flax paths to tensors
+(kernels [in, out]); ``cfg`` is the ``dynamics`` group of a configuration
+file.
 
 Edges: valid pairs within ``edge_cutoff`` (self-edges kept); with
 ``neighbor_k`` the K nearest of them for each receiver, else every pair
@@ -100,26 +102,56 @@ def egnn(w: Weights, ecfg: dict, h: torch.Tensor, x: torch.Tensor, node_mask: to
     return h, x
 
 
-def denoise(w: Weights, cfg: dict, xh_phar: torch.Tensor, xh_pocket: torch.Tensor,
+def network(w: Weights, cfg: dict, xh_phar: torch.Tensor, xh_pocket: torch.Tensor,
             t: torch.Tensor, mask_phar: torch.Tensor, mask_pocket: torch.Tensor,
-            neighbor_k: Optional[int]) -> torch.Tensor:
-    """eps prediction of the pharmacophore rows [B, Np, 3 + phar_nf]."""
+            neighbor_k: Optional[int], joint: bool):
+    """The encoders and the EGNN stack over both clouds: (h_out, velocity
+    [B, N, 3], mask [B, N]); the pharmacophore rows move, and with
+    ``joint`` the pocket's too."""
     ecfg = cfg["egnn"]
-    if (cfg["mode"] != "egnn_dynamics" or cfg["update_pocket_coords"]
+    if (cfg["mode"] != "egnn_dynamics" or cfg["update_pocket_coords"] != joint
             or ecfg["inv_sublayers"] != 1 or ecfg["sin_embedding"]
             or not ecfg["attention"] or ecfg["aggregation_method"] != "sum"
             or not cfg["condition_time"]):
-        raise ValueError("the reference covers the conditional EGNN dynamics with one "
-                         "attention GCL a block, sum aggregation, raw edge features "
-                         "and time conditioning")
-    nd, npr = cfg["n_dims"], xh_phar.shape[1]
+        raise ValueError("the reference covers the EGNN dynamics with one attention GCL a "
+                         "block, sum aggregation, raw edge features and time conditioning, "
+                         "the pocket moving in the joint model alone")
+    nd = cfg["n_dims"]
     h = torch.cat([type_mlp(w, "phar_encoder", xh_phar[..., nd:]),
                    type_mlp(w, "residue_encoder", xh_pocket[..., nd:])], dim=1)
     x = torch.cat([xh_phar[..., :nd], xh_pocket[..., :nd]], dim=1)
     mask = torch.cat([mask_phar, mask_pocket], dim=1)
     h = torch.cat([h, t[:, None, :].expand(*h.shape[:2], 1)], dim=-1)
-    h_out, x_out = egnn(w, ecfg, h, x, mask, mask_phar, cfg["edge_cutoff"], neighbor_k)
-    vel = (x_out - x)[:, :npr] * mask_phar[..., None]
-    vel = torch.where(torch.isnan(vel), torch.zeros_like(vel), vel)
+    h_out, x_out = egnn(w, ecfg, h, x, mask, mask if joint else mask_phar,
+                        cfg["edge_cutoff"], neighbor_k)
+    vel = (x_out - x) * mask[..., None]
+    return h_out, torch.where(torch.isnan(vel), torch.zeros_like(vel), vel), mask
+
+
+def denoise(w: Weights, cfg: dict, xh_phar: torch.Tensor, xh_pocket: torch.Tensor,
+            t: torch.Tensor, mask_phar: torch.Tensor, mask_pocket: torch.Tensor,
+            neighbor_k: Optional[int]) -> torch.Tensor:
+    """eps prediction of the pharmacophore rows [B, Np, 3 + phar_nf]."""
+    npr = xh_phar.shape[1]
+    h_out, vel, _ = network(w, cfg, xh_phar, xh_pocket, t, mask_phar, mask_pocket,
+                            neighbor_k, joint=False)
     h_phar = type_mlp(w, "phar_decoder", h_out[:, :npr, :-1])
-    return torch.cat([vel, h_phar], dim=-1) * mask_phar[..., None]
+    return torch.cat([vel[:, :npr], h_phar], dim=-1) * mask_phar[..., None]
+
+
+def denoise_joint(w: Weights, cfg: dict, xh_phar: torch.Tensor, xh_pocket: torch.Tensor,
+                  t: torch.Tensor, mask_phar: torch.Tensor, mask_pocket: torch.Tensor,
+                  neighbor_k: Optional[int]):
+    """eps prediction of the joint model, (pharmacophore [B, Np, 3 +
+    phar_nf], pocket [B, Nq, 3 + residue_nf]): every row moves, the
+    velocity is made free of the combined cloud's centre of mass, and the
+    pocket's types come from the residue decoder."""
+    npr = xh_phar.shape[1]
+    h_out, vel, mask = network(w, cfg, xh_phar, xh_pocket, t, mask_phar, mask_pocket,
+                               neighbor_k, joint=True)
+    mean = (vel * mask[..., None]).sum(1) / mask.sum(1, keepdim=True).clamp_min(1.0)
+    vel = (vel - mean[:, None, :]) * mask[..., None]
+    h_phar = type_mlp(w, "phar_decoder", h_out[:, :npr, :-1])
+    h_pocket = type_mlp(w, "residue_decoder", h_out[:, npr:, :-1])
+    return (torch.cat([vel[:, :npr], h_phar], dim=-1) * mask_phar[..., None],
+            torch.cat([vel[:, npr:], h_pocket], dim=-1) * mask_pocket[..., None])

@@ -148,11 +148,12 @@ def test_the_count_takes_no_engine():
     """Where K reaches every in-cutoff edge, K1's and K2's rule counts what
     the dense rule counts; the count has no engine to depend on."""
     xp, xq, mp, mq = state(3, atoms=60, full_atom=True)
-    dense = work.graph(xp, xq, mp, mq, 6.0, None)
-    assert work.graph(xp, xq, mp, mq, 6.0, 16 + 60) == dense
-    cut = work.graph(xp, xq, mp, mq, 6.0, 4)
-    assert cut.edges < dense.edges and cut.nodes == dense.nodes
     cfg = json.loads((ROOT / "perfbench/configs/diffphar-full-atom.json").read_text())
+    d = cfg["dynamics"]
+    dense = work.graph(xp, xq, mp, mq, d, None)
+    assert work.graph(xp, xq, mp, mq, d, 16 + 60) == dense
+    cut = work.graph(xp, xq, mp, mq, d, 4)
+    assert cut.edges < dense.edges and cut.nodes == dense.nodes
     assert work.denoiser_flops(dense, cfg) > work.denoiser_flops(cut, cfg) > 0
 
 
@@ -161,11 +162,43 @@ def test_the_count_is_below_every_slot_where_slots_are_masked():
 
     xp, xq, mp, mq = state(4)
     b, n, k, h = xp.shape[0], xp.shape[1] + xq.shape[1], 12, 256
-    g = work.graph(xp, xq, mp, mq, 6.0, k)
+    cfg = json.loads((ROOT / "perfbench/configs/diffphar-ca.json").read_text())
+    g = work.graph(xp, xq, mp, mq, cfg["dynamics"], k)
     slots_flops, _ = chip_smoke.k1_work(b, n, k, h, 4)
     flops, _ = work.k1(g, h, "float32")
     assert 0 < flops < slots_flops
     assert g.edges < b * n * k
     # with every slot real the two agree
-    full = work.Graph(nodes=b * n, moving=0, pocket=b * n, edges=b * n * k, moving_edges=0)
+    full = work.Graph(nodes=b * n, moving=0, pocket=b * n, edges=b * n * k, moving_edges=0,
+                      phar=0)
     assert work.k1(full, h, "float32")[0] == slots_flops
+
+
+def test_the_harness_held_bytes_count_each_storage_once():
+    """``peak_mem_gib`` takes off what the harness holds: each storage of
+    the draws, weights and recorded clouds once, views or not, and only on
+    the device whose peak it is."""
+    draws = torch.zeros(5, 4, 8)
+    weights = dict(zip("ab", torch.zeros(96).split([32, 64])))
+    held = cellmod.held_bytes(CPU, weights, (draws[0], [draws[1:-1], draws[-1]]), [])
+    assert held == (5 * 4 * 8 + 96) * 4
+    assert cellmod.held_bytes(torch.device("cuda"), weights, draws) == 0
+
+
+def test_peak_mem_reads_the_programs_peak():
+    c = spec.load_cell(ROOT, "ca-joint-b64")
+    run = cellmod.Run(c, window_peak_bytes=5 * 2 ** 30, program_peak_bytes=2 ** 29)
+    assert spec.reader_of("peak_mem_gib")(run) == 0.5
+
+
+def test_a_denoiser_call_off_the_graph_is_named():
+    from perfbench.harness import trace
+
+    t = trace.ChainTrace()
+    t.calls = {"captures": 0, "replays": 501, "eager_calls": 0}
+    assert t.off_graph() is None
+    t.calls = {"captures": 0, "replays": 480, "eager_calls": 21}
+    t.eager_reasons = {"autograd": 21}
+    assert "21 ran op by op" in t.off_graph() and "autograd" in t.off_graph()
+    t.calls, t.eager_reasons = {"captures": 1, "replays": 500, "eager_calls": 0}, {}
+    assert "1 captured" in t.off_graph()
