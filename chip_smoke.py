@@ -14,7 +14,15 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    wrapper's checks and casts, for K2 without its neighbor list and
    embeddings), the grid it launched, and a bf16 run at B=132; K1's
    stages' shares of block 0's clock over its tiles, K2's phases' shares of
-   one launch and the bf16 versions' distance from the float32 one;
+   one launch and the bf16 versions' distance from the float32 one; and
+   K3, the coordinate update on the neighbor list, against its plain
+   version in float32 at the joint cell's shape (B=64, N=16+110, every row
+   moving, K=12) and the full-atom one's (B=16, N=16+506, 16 rows moving,
+   K=160), and in bf16 at the flagship sampling's (B=48, N=8+110, 8 rows
+   moving) and the joint phase's (B=48, every one of the 118 rows moving)
+   on the mma.sync and the block_gemm routes, with seeded faults the
+   comparison must catch, the wrapper, the kernel alone and the plain
+   version timed;
 3. samples pharmacophores at the flagship CA configuration (hidden 256,
    5 layers, K=12, bf16, random weights from a seed) through
    ``ConditionalDDPM.sample_given_pocket`` with the msgpass engine (K1 in
@@ -145,7 +153,9 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
    (``--engine fused``) on the largest, their calls there against their
    plain versions and timed.
 
-Prints the card, a ``kernels`` JSON line (``launches``, ``ms``,
+Prints the card, a ``kernels`` JSON line (K3's entry: its checks and
+times at its four shapes, ``launches`` and ``launches_by_path`` as K1's;
+K1's and K2's: ``launches``, ``ms``,
 ``plain_ms``, ``bound_ms``: the train path's, K1 in its eval sampling and
 K2 in ``sample-phars --engine fused`` on its checkpoint, times at the eval
 sampling's shape, ``train_shape`` with ``kernel_ms`` there;
@@ -165,10 +175,12 @@ line (no ``ok`` line): the quick way to compare two trees' kernels. Such
 a run drives no main path and counts no launches, so it never stands for
 the full run.
 
-K1's launches are counted as kernels run: the module replays its forward
-pass as a CUDA graph on the msgpass engine (``models.dynamics``), and a
-sampling run expects each GCL once a denoiser call and once more for each
-graph captured in it (``k1_want``: its op-by-op pass before the capture).
+K1's and K3's launches are counted as kernels run (``launch_counts``):
+the module replays its forward pass as a CUDA graph on the msgpass engine
+(``models.dynamics``), and a sampling run expects each GCL (K1) and each
+block's coordinate update (K3) once a denoiser call and once more for each
+graph captured in it (``k1_want``: its op-by-op pass before the capture;
+``launches_want``); a training step launches neither.
 Where the calls into K1 are kept for their checks (``kernel_calls_kept``)
 the module runs op by op, so that each call passes through the wrapper.
 """
@@ -232,7 +244,8 @@ WARM_CALLS = 1
 # train phases take: its calls of B=512 rows (2,048 rows)
 T07_CALLS = 4
 # K1's launches in the flagship msgpass run at the default T=500: (T + 1)
-# denoiser calls of 5 GCLs each; the width rule must not send any away
+# denoiser calls of 5 GCLs each; the width rule must not send any away.
+# K3's as many: 5 blocks of one GCL each
 K1_FLAGSHIP_LAUNCHES = 2505
 # stage 3: run-all's decode batch; rows held card vs CPU; the validity below
 # which the constrained trained decode is garbage (the JAX package read
@@ -292,7 +305,8 @@ TRAIN_CLI_STEPS = 20  # train-diffphar through the CLI, dense, B=4
 PAR_TRAIN, PAR_VAL, PAR_B, PAR_STEPS = 64, 16, 32, 5
 PAR_W_ATOL, PAR_LOSS_RTOL = 1e-5, 1e-4
 PAR_CLI_STEPS, PAR_TRACE_T, PAR_PDBQT = 2, 4, 4
-K1_KERNEL = "gcl_message_agg_kernel"  # csrc/egnn_msgpass.cu's __global__ function
+K1_KERNEL = "gcl_message_agg_kernel"  # csrc/egnn_msgpass.cu's __global__ functions
+K3_KERNEL = "coord_update_agg_kernel"
 # full_atom phase: the CLI's defaults end to end at full_atom_config's width
 # (hidden 256, 3 layers, 11 element classes, T=100, dense, B=8, float32) on
 # synthetic full-atom complexes (the align phase's posed molecules in pockets
@@ -553,6 +567,148 @@ def check_k1(dev, dtype_name, b=B, h=H, route=None):
     return out
 
 
+# K3's shapes (H, K=12 on the CA pockets): float32, the joint cell's, 16
+# pharmacophore slots and a 110-residue CA pocket with every row moving,
+# and the full-atom one's, 16 pharmacophore rows moving over a 506-atom
+# pocket, K=160 (cutoff-exact); bf16, the flagship sampling's conditional
+# shape (B=48, its 8 pharmacophore rows moving over 110 residues) and the
+# joint phase's (B=48, every one of the 118 rows moving), each on the
+# mma.sync route and on block_gemm (the route of bf16 past H=256)
+K3_SHAPES = {
+    "joint": dict(b=64, n_p=16, n_q=110, k=12, moving=None, full_atom=False, dtype="float32"),
+    "full_atom": dict(b=16, n_p=16, n_q=506, k=160, moving=16, full_atom=True,
+                      dtype="float32"),
+    "flagship_bf16": dict(b=B, n_p=N_P, n_q=N_Q, k=K, moving=N_P, full_atom=False,
+                          dtype="bfloat16"),
+    "joint_bf16": dict(b=B, n_p=N_P, n_q=N_Q, k=K, moving=None, full_atom=False,
+                       dtype="bfloat16"),
+}
+
+
+def k3_work(b, n, r, k, h, es):
+    """K3's operations and bytes for b samples of n nodes, r of them moving
+    with k neighbours each, width h, es bytes an element (every slot of the
+    moving rows, masked ones too: the kernel computes them)."""
+    edges = b * r * k
+    flops = 2 * edges * h * h + 2 * edges * h
+    nbytes = ((b * r + b * n) * h * es + edges * (8 + 2 * es) + 2 * b * n * 3 * 4
+              + (h * h + 2 * h) * es + 2 * h * 4)
+    return flops, nbytes
+
+
+def check_k3(dev, shape_name):
+    """K3's wrapper (``ops/egnn_coord.py``) at one of ``K3_SHAPES``, on
+    block-0 weights of the flagship configuration in the shape's dtype (its
+    joint twin where every row moves), called as the msgpass engine calls it
+    (``models/egnn.py: EquivariantUpdate``): the coord_in projections, the
+    transposed ``nn.Linear`` weights as they lie, dist0 and kmask in the
+    compute dtype, int64 neighbour indices from the 6 A cutoff, the
+    conditional model's update-coordinates mask where only the pharmacophore
+    rows move. Kernel vs plain on the displacement (float32 1e-4, bf16
+    2**-7 of its largest value, K1's limits); in bf16 the block_gemm route
+    too. Seeded faults must fail the same comparison: coord_mid's last
+    column zeroed, and the gate's tanh left out, in the plain version.
+    Times the wrapper (``ms``), the kernel alone on prepared arguments
+    (``kernel_ms``) and the plain version (``plain_ms``, the same PyTorch
+    ops the sublayer ran before K3); ``launches``: the wrapper's counter
+    over the check."""
+    import torch
+
+    from cmdgen_tpu_torch.models.egnn import build_neighbor_list
+    from cmdgen_tpu_torch.ops.egnn_coord import (
+        coord_update_agg, coord_update_agg_plain, prepare_launch)
+    from cmdgen_tpu_torch.ops.egnn_msgpass import STAGES, gather_rows, stage_shares
+    from cmdgen_tpu_torch.utils.synthetic import realistic_ca_pocket
+
+    shape = K3_SHAPES[shape_name]
+    b, n_p, n_q, k, moving = (shape[key] for key in ("b", "n_p", "n_q", "k", "moving"))
+    dtype_name = shape["dtype"]
+    cdt = getattr(torch, dtype_name)
+    _, dyn = flagship_dynamics(dev, cdt, joint=moving is None)
+    upd = dyn.egnn.e_block_0.coord_update
+    rng = np.random.RandomState(3)
+    geo = dict(r_lo=4.0, r_hi=16.0, min_sep=1.5) if shape["full_atom"] else {}
+    pk = np.stack([realistic_ca_pocket(np.random.RandomState(i), n_q, **geo)
+                   for i in range(min(b, 8))])
+    pk = np.tile(pk, (b // len(pk) + 1, 1, 1))[:b]
+    xp = pk.mean(1, keepdims=True) + rng.randn(b, n_p, 3) * 2.0
+    x0 = torch.tensor(np.concatenate([xp, pk], 1), dtype=torch.float32, device=dev)
+    n = n_p + n_q
+    edge_mask = (((x0[:, :, None] - x0[:, None]) ** 2).sum(-1) <= 36.0).float()
+    if shape["full_atom"] and int(edge_mask.sum(-1).max()) > k:
+        raise AssertionError(f"K3 {shape_name}: a row has more than K={k} edges in the cutoff")
+    kmask, idx = build_neighbor_list(x0, edge_mask, k)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = x0 + 0.5 * torch.randn(x0.shape, generator=g, device=dev)
+    dist0 = ((x0[:, :, None] - gather_rows(x0, idx)) ** 2).sum(-1)
+    hin = torch.randn(b, n, H, generator=g, device=dev)
+    ucm = None
+    if moving is not None:
+        ucm = torch.cat([torch.ones(b, moving, device=dev), torch.zeros(b, n - moving, device=dev)],
+                        1)
+    wi, wj = upd.coord_in.project(hin, cdt, rows=moving)
+    args = (wi, wj, idx, dist0.to(cdt), kmask.to(cdt), x, ucm, upd.coord_in.w_e.weight.t(),
+            upd.coord_mid.weight.t(), upd.coord_mid.bias, upd.coord_gate.weight.reshape(H),
+            upd.coords_range_layer, 1.0, 100.0, True, cdt)
+    r = wi.shape[1]
+    tol = TOL_REL[dtype_name]
+    log(f"K3 {dtype_name} {shape_name} B={b} N={n} moving={r} K={k} H={H}:")
+    before = coord_update_agg.launches
+    with torch.no_grad():
+        out = coord_update_agg(*args)
+        ref = coord_update_agg_plain(*args)
+        torch.cuda.synchronize()
+        if coord_update_agg.launches != before + 1:
+            raise AssertionError(f"K3 {shape_name}: the wrapper launched "
+                                 f"{coord_update_agg.launches - before} kernels, expected 1")
+        if not torch.equal(out[:, r:], x[:, r:]):
+            raise AssertionError(f"K3 {shape_name}: a row that does not move moved")
+        checks = [compare("dx", out - x, ref - x, tol)]
+        if cdt == torch.bfloat16:
+            gemm = prepare_launch(*args, route="block_gemm")
+            if gemm.plan["route"] != "block_gemm":
+                raise AssertionError(f"K3 {shape_name}: block_gemm asked, {gemm.plan['route']} "
+                                     "planned")
+            by_gemm = gemm()
+            checks.append(compare("dx, block_gemm route", by_gemm - x, ref - x, tol))
+            log(f"  the two routes apart: max|mma - block_gemm| = "
+                f"{(out - by_gemm).abs().max().item():.3e}")
+        wm, bm = args[8].clone(), args[9].clone()
+        wm[:, H - 1] = 0
+        bm[H - 1] = 0
+        faults = {"coord_mid column zeroed": (*args[:8], wm, bm, *args[10:]),
+                  "tanh left out": (*args[:14], False, cdt)}
+        for name, fault_args in faults.items():
+            fault = coord_update_agg_plain(*fault_args)
+            try:
+                compare(f"dx, seeded fault ({name})", out - x, fault - x, tol)
+            except AssertionError:
+                log(f"  the seeded fault ({name}) fails the comparison, as it must")
+            else:
+                raise AssertionError(f"K3 {shape_name}: the seeded fault ({name}) passed the "
+                                     "comparison")
+        ms = cuda_ms(lambda: coord_update_agg(*args), 50)
+        run = prepare_launch(*args)
+        kernel_ms = cuda_ms(run, 100)
+        stamps = torch.zeros(len(STAGES) + 1, dtype=torch.int64, device=dev)
+        run(stamps)
+        stages = stage_shares(stamps)
+        plain_ms = cuda_ms(lambda: coord_update_agg_plain(*args), 10)
+    plan = run.plan
+    grid = {"blocks": plan["grid"], "threads": 512, "route": plan["route"],
+            "receivers_per_item": plan["receivers"], "items": plan["items"],
+            "units": plan["units"], "rows": plan["rows"], "chunks": plan["chunks"]}
+    log(f"  grid: {grid}")
+    flops, nbytes = k3_work(b, n, r, k, H, 4 if cdt == torch.float32 else 2)
+    res = timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)
+    log(f"  kernel alone: kernel_ms={kernel_ms:.4f} ({kernel_ms / res['bound_ms']:.1f}x its "
+        f"bound); stages, share of block 0's clock over its {stages['tiles']} tiles: " +
+        ", ".join(f"{name} {stages[name]:.1%}" for name in STAGES))
+    res.update(kernel_ms=kernel_ms, grid=grid, shape=dict(shape, n=n, hidden=H),
+               stage_shares=stages)
+    return res
+
+
 def check_k2(dev, dtype_name, b=B, hidden=H, bf16_limits=False, route=None):
     """K2's wrapper at the flagship shape (batch b, width hidden), on the inputs the fused
     engine gives it (``make_fused_apply``: float32 type encoders, the 6 Å
@@ -700,8 +856,6 @@ def flagship_sampling(dev, timesteps):
 
     from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
     from cmdgen_tpu_torch.models.dynamics import make_fused_apply
-    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
-    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
 
     cfg, dyn = flagship_dynamics(dev, torch.bfloat16)
     pocket, _, _ = flagship_geometry(5, B, dev)
@@ -713,23 +867,20 @@ def flagship_sampling(dev, timesteps):
         gen = torch.Generator(device=dev).manual_seed(7)
         model.sample_given_pocket(pocket, num_nodes, N_P, timesteps=2, generator=gen)  # warm-up
         torch.cuda.synchronize()
-        gcl_message_agg.launches = 0
-        egnn_forward_fused.launches = 0
+        launch_counts(reset=True)
         captures = graph_captures()
         t0 = time.perf_counter()
         phar, pocket_out = model.sample_given_pocket(pocket, num_nodes, N_P,
                                                      timesteps=timesteps, generator=gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = {"gcl_message_agg": gcl_message_agg.launches,
-                    "egnn_forward_fused": egnn_forward_fused.launches}
+        launches = launch_counts()
         if not (torch.isfinite(phar.x).all() and torch.isfinite(pocket_out.x).all()):
             raise AssertionError(f"{engine}: non-finite samples")
         if tuple(phar.x.shape) != (B, N_P, 3):
             raise AssertionError(f"{engine}: samples of shape {tuple(phar.x.shape)}")
         calls = timesteps + 1  # reverse steps + the final decode
-        want = ({"gcl_message_agg": k1_want(L, calls, captures), "egnn_forward_fused": 0}
-                if engine == "msgpass" else {"gcl_message_agg": 0, "egnn_forward_fused": calls})
+        want = launches_want(engine, L, calls, captures)
         if launches != want:
             raise AssertionError(f"{engine}: launches {launches}, expected {want}")
         sps = B * timesteps / dt
@@ -751,8 +902,6 @@ def trained_run(dev, repo):
     from cmdgen_tpu_torch.chem.constants import PHAR_DECODER
     from cmdgen_tpu_torch.convert import load_port_checkpoint
     from cmdgen_tpu_torch.models.dynamics import make_fused_apply
-    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
-    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.pipeline.sample_phars import pocket_point_cloud
     from cmdgen_tpu_torch.utils.synthetic import synthetic_pocket_pdb
 
@@ -765,8 +914,7 @@ def trained_run(dev, repo):
         centroid = coords.mean(0)
         for engine in ("msgpass", "fused"):
             out_json = Path(tmp) / f"{engine}.json"
-            gcl_message_agg.launches = 0
-            egnn_forward_fused.launches = 0
+            launch_counts(reset=True)
             captures = graph_captures()
             t0 = time.perf_counter()
             cli.main(["sample-phars", str(ckpt), str(pdb), str(out_json),
@@ -775,8 +923,7 @@ def trained_run(dev, repo):
                       "--engine", engine])
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            launches[engine] = {"gcl_message_agg": gcl_message_agg.launches,
-                                "egnn_forward_fused": egnn_forward_fused.launches}
+            launches[engine] = launch_counts()
             mols = json.loads(out_json.read_text())
             if len(mols) != 24:
                 raise AssertionError(f"{engine}: {len(mols)} molecules, expected 24")
@@ -791,12 +938,10 @@ def trained_run(dev, repo):
             rmax = float(np.linalg.norm(pts - centroid, axis=1).max())
             if rmax > RADIUS:
                 raise AssertionError(f"{engine}: a point {rmax:.1f} Å from the pocket centroid")
-            used = "gcl_message_agg" if engine == "msgpass" else "egnn_forward_fused"
-            # 24 samples in one batch, T=100: 101 denoiser calls of 3 GCLs
-            want = k1_want(3, 101, captures) if engine == "msgpass" else 101
-            if launches[engine][used] != want:
-                raise AssertionError(f"{engine}: {used} launched {launches[engine][used]} "
-                                     f"times, expected {want}")
+            # 24 samples in one batch, T=100: 101 denoiser calls of 3 blocks
+            want = launches_want(engine, 3, 101, captures)
+            if launches[engine] != want:
+                raise AssertionError(f"{engine}: launches {launches[engine]}, expected {want}")
             log(f"trained sample-phars {engine}: 24 molecules, {len(pts)} points, "
                 f"families {sorted(fams)}, max {rmax:.2f} Å from the pocket centroid "
                 f"(limit {RADIUS}), {dt:.2f} s, launches={launches[engine]}")
@@ -1113,6 +1258,32 @@ def k1_want(n_layers: int, calls: int, captures_before: int) -> int:
     return n_layers * (calls + graph_captures() - captures_before)
 
 
+def launch_counts(reset=False):
+    """The port's kernels' launch counters by name: K1's, K2's and K3's
+    (each wrapper's ``.launches``); ``reset``: each set to 0 first."""
+    from cmdgen_tpu_torch.ops.egnn_coord import coord_update_agg
+    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
+    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
+
+    fns = (gcl_message_agg, egnn_forward_fused, coord_update_agg)
+    if reset:
+        for fn in fns:
+            fn.launches = 0
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def launches_want(engine, n_layers, calls, captures_before=None):
+    """The launches of ``calls`` denoiser calls of ``n_layers`` blocks (one
+    GCL each) on one engine: on msgpass K1 a GCL a call and K3 a block a
+    call (with ``captures_before``, once more for each graph captured since:
+    ``k1_want``), no K2; on fused K2 once a call and neither of the others."""
+    if engine != "msgpass":
+        return {"gcl_message_agg": 0, "egnn_forward_fused": calls, "coord_update_agg": 0}
+    n = (n_layers * calls if captures_before is None
+         else k1_want(n_layers, calls, captures_before))
+    return {"gcl_message_agg": n, "egnn_forward_fused": 0, "coord_update_agg": n}
+
+
 def synced_ms(fn):
     """(result, ms) of one call between two synchronizes."""
     import torch
@@ -1145,8 +1316,6 @@ def consensus_phase(dev, repo, keep_posp):
     from cmdgen_tpu_torch.convert import build_model, read_port_checkpoint
     from cmdgen_tpu_torch.device import make_generator
     from cmdgen_tpu_torch.ops import clustering as cl
-    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
-    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.ops.kabsch import kabsch
     from cmdgen_tpu_torch.pipeline import get_phar as gp
     from cmdgen_tpu_torch.pipeline.sample_phars import pocket_point_cloud, sample_phars_to_json
@@ -1163,26 +1332,25 @@ def consensus_phase(dev, repo, keep_posp):
         coords_q, _ = pocket_point_cloud(pdb, "crossdock", "CA", ref_ligand="L:1")
         centroid = coords_q.mean(0)
         cloud = tmp / "cloud.json"
-        gcl_message_agg.launches = 0
-        egnn_forward_fused.launches = 0
+        launch_counts(reset=True)
         captures = graph_captures()
         mols, ms = synced_ms(lambda: sample_phars_to_json(
             model, pdb, cloud, dataset=cfg.data.dataset,
             representation=cfg.data.pocket_representation, ref_ligand="L:1",
             n_samples=N_CLOUDS, timesteps=CONS_T, batch_size=N_CLOUDS,
             generator=make_generator(dev, 0)))
-        launches = gcl_message_agg.launches
-        want = k1_want(cfg.dynamics.egnn.n_layers * cfg.dynamics.egnn.inv_sublayers, CONS_T + 1,
-                       captures)
-        if launches != want or egnn_forward_fused.launches:
-            raise AssertionError(f"consensus sampling: K1 launched {launches} times "
-                                 f"(expected {want}), K2 {egnn_forward_fused.launches}")
+        counts = launch_counts()
+        want = launches_want("msgpass", cfg.dynamics.egnn.n_layers, CONS_T + 1, captures)
+        if cfg.dynamics.egnn.inv_sublayers != 1 or counts != want:
+            raise AssertionError(f"consensus sampling: launches {counts}, expected {want}")
         if len(mols) != N_CLOUDS:
             raise AssertionError(f"{len(mols)} clouds, expected {N_CLOUDS}")
         coords, fams = gp.load_point_cloud_json(cloud)
-        out.update(points=len(coords), sample_ms=ms, k1_launches=launches)
+        launches = counts["gcl_message_agg"]
+        out.update(points=len(coords), sample_ms=ms, k1_launches=launches,
+                   k3_launches=counts["coord_update_agg"])
         log(f"consensus: {N_CLOUDS} clouds, {len(coords)} points sampled in {ms:.0f} ms "
-            f"(K1 launched {launches} times)")
+            f"(K1 launched {launches} times, K3 {counts['coord_update_agg']})")
 
         # the second target: the first moved by a known rigid motion, every
         # 10th molecule dropped, so the sizes differ and registration takes
@@ -1369,7 +1537,6 @@ def options_phase(dev, repo):
 
     from cmdgen_tpu_torch.containers import mask_from_sizes
     from cmdgen_tpu_torch.convert import build_model, read_port_checkpoint
-    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
 
     b = 4
     pocket, _, _ = flagship_geometry(11, b, "cpu")
@@ -1390,21 +1557,26 @@ def options_phase(dev, repo):
                 outs += [o.cpu().reshape(-1) for o in model.reverse_step(*args)]
         return torch.cat(outs)
 
-    errs, launches, want = {}, {}, {}
+    errs, launches, want, k3_launches = {}, {}, {}, {}
     for name, (m_cpu, m_dev) in option_models(dev).items():
         ref = steps(m_cpu, "cpu")
-        gcl_message_agg.launches = 0
+        launch_counts(reset=True)
         captures = graph_captures()
         errs[name] = (steps(m_dev, dev) - ref).abs().max().item()
-        launches[name] = gcl_message_agg.launches
+        counts = launch_counts()
+        launches[name] = counts["gcl_message_agg"]
+        k3_launches[name] = counts["coord_update_agg"]
         want[name] = k1_want(5, st.shape[0], captures)
         log(f"option {name}: card vs CPU over 3 reverse steps (flagship widths, float32): "
-            f"max_abs_err={errs[name]:.3e} tol={OPTION_TOL}; K1 launches {launches[name]}")
+            f"max_abs_err={errs[name]:.3e} tol={OPTION_TOL}; K1 launches {launches[name]}, "
+            f"K3 {k3_launches[name]}")
     if not all(e <= OPTION_TOL for e in errs.values()):
         raise AssertionError(f"stage-1 options disagree with the CPU: {errs}")
-    if launches["learned"] != want["learned"] or launches["sin_embedding"]:
-        raise AssertionError(f"K1 launches per option {launches}: the learned schedule's "
-                             "GCLs go to K1, sin_embedding's 24-wide ones do not")
+    if (launches["learned"] != want["learned"] or launches["sin_embedding"]
+            or k3_launches != launches):
+        raise AssertionError(f"K1 launches per option {launches}, K3 {k3_launches}: the "
+                             "learned schedule's GCLs and coordinate updates go to K1 and K3, "
+                             "sin_embedding's 24-wide ones to neither")
 
     # the chain sampler (the reference's): on the card against the CPU with
     # the same noise, and under ddim_eta the ancestral chain, bit for bit
@@ -1458,8 +1630,6 @@ def widths_phase(dev, k1_flagship, k2_flagship):
     from cmdgen_tpu_torch import config as cfgmod
     from cmdgen_tpu_torch.diffusion.cddpm import ConditionalDDPM
     from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, make_fused_apply
-    from cmdgen_tpu_torch.ops import egnn_msgpass as mp
-    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
     from cmdgen_tpu_torch.utils.synthetic import full_atom_pocket_pdb
 
     t0 = time.perf_counter()
@@ -1557,8 +1727,7 @@ def widths_phase(dev, k1_flagship, k2_flagship):
             model = ConditionalDDPM(cfg.ddpm, dyn,
                                     apply_fn=make_fused_apply(dyn) if engine == "fused" else None)
             gen = torch.Generator(device=dev).manual_seed(7)
-            mp.gcl_message_agg.launches = 0
-            egnn_forward_fused.launches = 0
+            launch_counts(reset=True)
             captures = graph_captures()
             run = (lambda: model.sample_given_pocket(pocket, num_nodes, N_P,
                                                      timesteps=WIDTH_T, generator=gen))
@@ -1568,11 +1737,8 @@ def widths_phase(dev, k1_flagship, k2_flagship):
                 res.append(run())
             torch.cuda.synchronize()
             phar, _ = res.pop()
-            launches = {"gcl_message_agg": mp.gcl_message_agg.launches,
-                        "egnn_forward_fused": egnn_forward_fused.launches}
-            calls = WIDTH_T + 1
-            want = ({"gcl_message_agg": k1_want(L, calls, captures), "egnn_forward_fused": 0}
-                    if engine == "msgpass" else {"gcl_message_agg": 0, "egnn_forward_fused": calls})
+            launches = launch_counts()
+            want = launches_want(engine, L, WIDTH_T + 1, captures)
             if launches != want or not torch.isfinite(phar.x).all():
                 raise AssertionError(f"widths sampling {dtype_name} H={hidden} {engine}: launches "
                                      f"{launches}, expected {want}, or non-finite samples")
@@ -2014,15 +2180,15 @@ def parallel_phase(dev, repo, poses):
         n_layers = cfg.dynamics.egnn.n_layers
 
         def counted_sample(*a, **kw):
-            before = gcl_message_agg.launches
+            before = launch_counts()
             with kernel_calls_kept(k1_calls_of_steps(n_layers, cfg.ddpm.timesteps + 1),
                                    ()) as (k1_calls, _):
                 res = real_sample(*a, **kw)
-            in_sampling.append(gcl_message_agg.launches - before)
+            in_sampling.append({k: v - before[k] for k, v in launch_counts().items()})
             k1_kept.extend(k1_calls)
             return res
 
-        gcl_message_agg.launches = egnn_forward_fused.launches = 0
+        launch_counts(reset=True)
         dt.sampling_metrics = counted_sample
         try:
             with contextlib.redirect_stderr(io.StringIO()):
@@ -2031,8 +2197,10 @@ def parallel_phase(dev, repo, poses):
         finally:
             dt.sampling_metrics = real_sample
         k1_total = gcl_message_agg.launches  # the validation's forward passes too
-        want = n_layers * (cfg.ddpm.timesteps + 1)
-        k1_train = sum(in_sampling)
+        # the calls kept run op by op: one launch a block a call, no capture
+        want = launches_want("msgpass", n_layers, cfg.ddpm.timesteps + 1)
+        k1_train = sum(c["gcl_message_agg"] for c in in_sampling)
+        k3_train = sum(c["coord_update_agg"] for c in in_sampling)
         sampled = [m for m in logs if "sampling/kl_types" in m]
         if not (st.step == PAR_TRAIN // PAR_B and in_sampling == [want]
                 and egnn_forward_fused.launches == 0 and len(sampled) == 1
@@ -2044,10 +2212,11 @@ def parallel_phase(dev, repo, poses):
             raise AssertionError(f"FSDP best/ holds {files}")
         vals = [m["loss/val"] for m in logs if "loss/val" in m]
         out["train_fsdp"] = {"steps": st.step, "ms": ms, "k1_launches_eval_sampling": k1_train,
+                             "k3_launches_eval_sampling": k3_train,
                              "k1_launches_total": k1_total, "val_loss": vals,
                              "sampling": sampled}
         log(f"train_diffphar FSDP (K=12, B={PAR_B}, EMA): {st.step} steps, validation and one "
-            f"eval sampling in {ms:.0f} ms; K1 {k1_train} launches; val {vals}")
+            f"eval sampling in {ms:.0f} ms; K1 {k1_train} launches, K3 {k3_train}; val {vals}")
         del st
         ck_cli = tmp / "run_fsdp_cli"
         with contextlib.redirect_stderr(io.StringIO()):
@@ -2083,20 +2252,25 @@ def parallel_phase(dev, repo, poses):
 
         # a few sampling steps traced
         trace_dir = tmp / "trace"
-        gcl_message_agg.launches = 0
+        launch_counts(reset=True)
         with device_trace(trace_dir):
             with contextlib.redirect_stdout(io.StringIO()):
                 cli.main(["sample-phars", str(ck), str(pdbs[0]), str(tmp / "traced.json"),
                           "--resi-list", *[f"A:{j}" for j in range(1, 31)], "--n-samples", "8",
                           "--timesteps", str(PAR_TRACE_T), "--device", "cuda"])
             torch.cuda.synchronize()
-        k1_traced = gcl_message_agg.launches
+        counts = launch_counts()
+        k1_traced, k3_traced = counts["gcl_message_agg"], counts["coord_update_agg"]
         trace = json.loads((trace_dir / TRACE_FILE).read_text())
-        named = sum(1 for e in trace["traceEvents"] if K1_KERNEL in str(e.get("name", "")))
-        if not (named and named == k1_traced):
-            raise AssertionError(f"trace: {named} events of K1's kernel, {k1_traced} launches")
+        named, k3_named = (sum(1 for e in trace["traceEvents"] if kernel in str(e.get("name", "")))
+                           for kernel in (K1_KERNEL, K3_KERNEL))
+        if not (named and named == k1_traced and k3_named == k3_traced == k1_traced):
+            raise AssertionError(f"trace: {named} events of K1's kernel, {k1_traced} launches; "
+                                 f"{k3_named} of K3's, {k3_traced} launches")
         out["trace"] = {"events": len(trace["traceEvents"]), "k1_kernel_events": named,
-                        "k1_launches": k1_traced, "bytes": (trace_dir / TRACE_FILE).stat().st_size}
+                        "k1_launches": k1_traced, "k3_kernel_events": k3_named,
+                        "k3_launches": k3_traced,
+                        "bytes": (trace_dir / TRACE_FILE).stat().st_size}
         log(f"device_trace of sample-phars at T={PAR_TRACE_T}: {out['trace']}")
 
         # docking preparation of posed molecules
@@ -2123,7 +2297,8 @@ def parallel_phase(dev, repo, poses):
     out["seconds"] = time.perf_counter() - t_phase
     launches = {"gcl_message_agg": k1_train,
                 "egnn_forward_fused":
-                    out["sample_phars"]["fused"]["launches"]["egnn_forward_fused"]}
+                    out["sample_phars"]["fused"]["launches"]["egnn_forward_fused"],
+                "coord_update_agg": k3_train}
     return out, launches, checks
 
 
@@ -2165,8 +2340,6 @@ def full_atom_phase(dev, repo, poses):
 
     from cmdgen_tpu_torch import cli, config as cfgmod
     from cmdgen_tpu_torch.data.dataset import DiffPharDataset
-    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
-    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.train import state as tstate
     from cmdgen_tpu_torch.train.diffphar_train import build_model, to_clouds
     from cmdgen_tpu_torch.utils.synthetic import full_atom_pocket_pdb
@@ -2212,7 +2385,7 @@ def full_atom_phase(dev, repo, poses):
             step = real_make(*a, **kw)
 
             def timed(*sa, **skw):
-                before = gcl_message_agg.launches + egnn_forward_fused.launches
+                before = sum(launch_counts().values())
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 if len(steps) == FA_STEPS - 1:
@@ -2222,8 +2395,7 @@ def full_atom_phase(dev, repo, poses):
                 else:
                     res, ms = synced_ms(lambda: step(*sa, **skw))
                 steps.append({"ms": ms, "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                              "kernel_launches": gcl_message_agg.launches
-                              + egnn_forward_fused.launches - before})
+                              "kernel_launches": sum(launch_counts().values()) - before})
                 return res
 
             return timed
@@ -2301,7 +2473,7 @@ def full_atom_phase(dev, repo, poses):
         sampling = {"batch": FA_SAMPLES, "timesteps": FA_T, "dense": {}}
 
         def sample(pdb, flags, name):
-            gcl_message_agg.launches = egnn_forward_fused.launches = 0
+            launch_counts(reset=True)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             with contextlib.redirect_stdout(io.StringIO()):
@@ -2310,8 +2482,7 @@ def full_atom_phase(dev, repo, poses):
                     "--ref-ligand", "L:1", "--n-samples", str(FA_SAMPLES), "--timesteps",
                     str(FA_T), "--device", "cuda", *flags]))
             rec = {"ms": ms, "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                   "launches": {"gcl_message_agg": gcl_message_agg.launches,
-                                "egnn_forward_fused": egnn_forward_fused.launches}}
+                   "launches": launch_counts()}
             mols = json.loads((tmp / f"{name}.json").read_text())
             pts = np.array([p for m in mols.values() for f in m.values() for p in f])
             if len(mols) != FA_SAMPLES or not (len(pts) and np.isfinite(pts).all()):
@@ -2332,8 +2503,7 @@ def full_atom_phase(dev, repo, poses):
         with kernel_calls_kept((), {0}) as (_, k2_kept):
             sampling["fused"] = sample(pdbs[largest], ["--neighbor-k", str(FA_K), "--engine",
                                                        "fused"], "fused")
-        want = {"msgpass": {"gcl_message_agg": n_layers * calls, "egnn_forward_fused": 0},
-                "fused": {"gcl_message_agg": 0, "egnn_forward_fused": calls}}
+        want = {e: launches_want(e, n_layers, calls) for e in ("msgpass", "fused")}
         got = {e: sampling[e]["launches"] for e in want}
         if got != want or not (len(k1_kept) == 3 * n_layers and len(k2_kept) == 1):
             raise AssertionError(f"sample-phars launches {got}, expected {want}; kept "
@@ -2354,7 +2524,8 @@ def full_atom_phase(dev, repo, poses):
         log(f"the full-atom path's kernel checks: {out['kernel_checks']}")
     out["seconds"] = time.perf_counter() - t_phase
     launches = {"gcl_message_agg": sampling["msgpass"]["launches"]["gcl_message_agg"],
-                "egnn_forward_fused": sampling["fused"]["launches"]["egnn_forward_fused"]}
+                "egnn_forward_fused": sampling["fused"]["launches"]["egnn_forward_fused"],
+                "coord_update_agg": sampling["msgpass"]["launches"]["coord_update_agg"]}
     return out, launches, {"k1": dict(k1, shape=shape), "k2": dict(k2, shape=shape)}
 
 
@@ -2495,8 +2666,6 @@ def run_all_phase(dev, repo):
     from cmdgen_tpu_torch import cli
     from cmdgen_tpu_torch.chem.mol import mol_from_smiles
     from cmdgen_tpu_torch.chem.sdf import read_sdf
-    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
-    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.utils.synthetic import synthetic_pocket_pdb
 
     assets = repo / "cmdgen_tpu_torch" / "assets"
@@ -2510,8 +2679,6 @@ def run_all_phase(dev, repo):
            "runs": {}}
     # per pocket: one sampling batch of T + 1 denoiser calls (qrun_aa: 3 GCLs)
     calls = (int(RUN_ALL_ARGS[RUN_ALL_ARGS.index("--timesteps") + 1]) + 1) * RUN_ALL_POCKETS
-    want = {"msgpass": {"gcl_message_agg": 3 * calls, "egnn_forward_fused": 0},
-            "fused": {"gcl_message_agg": 0, "egnn_forward_fused": calls}}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         pdbs = []
@@ -2521,18 +2688,14 @@ def run_all_phase(dev, repo):
         out["kernels"] = run_all_kernels(dev, repo, pdbs[0])
         for name, extra in runs.items():
             out_dir = tmp / name
-            gcl_message_agg.launches = 0
-            egnn_forward_fused.launches = 0
+            launch_counts(reset=True)
             captures = graph_captures()
             (results, stats), ms = synced_ms(lambda: cli.main([
                 "run-all", str(assets / "qrun_aa"), str(assets / "grun_r5cn"), str(out_dir),
                 *map(str, pdbs), "--ref-ligand", "L:1", *RUN_ALL_ARGS, "--seed", "0",
                 "--device", "cuda", *extra]))
-            launches = {"gcl_message_agg": gcl_message_agg.launches,
-                        "egnn_forward_fused": egnn_forward_fused.launches}
-            expect = dict(want["fused" if name == "fused" else "msgpass"])
-            if name != "fused":
-                expect["gcl_message_agg"] += k1_want(3, 0, captures)
+            launches = launch_counts()
+            expect = launches_want("fused" if name == "fused" else "msgpass", 3, calls, captures)
             if launches != expect:
                 raise AssertionError(f"run-all {name}: launches {launches}, expected {expect}")
             validity = stats["valid_smiles"] / max(stats["raw_smiles"], 1)
@@ -2576,8 +2739,6 @@ def joint_phase(dev, repo, timesteps):
     from cmdgen_tpu_torch.convert import write_port_checkpoint
     from cmdgen_tpu_torch.diffusion.joint import JointDDPM
     from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, make_fused_apply
-    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
-    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.pipeline.sample_phars import sample_pharmacophores
     from cmdgen_tpu_torch.utils.synthetic import realistic_ca_pocket, synthetic_pocket_pdb
 
@@ -2593,23 +2754,18 @@ def joint_phase(dev, repo, timesteps):
                       "dtype": "bfloat16", "T": timesteps, "batch": B, "phar_slots": N_P,
                       "pocket_atoms": N_Q, "update_rows": N_P + N_Q}, "engines": {}}
     calls = timesteps + 1  # RePaint denoise ops (no jumps at resamplings 1) + the final decode
-    want = {"msgpass": {"gcl_message_agg": calls * L, "egnn_forward_fused": 0},
-            "fused": {"gcl_message_agg": 0, "egnn_forward_fused": calls}}
     for engine, model in models.items():
         gen = torch.Generator(device=dev).manual_seed(11)
         sample_pharmacophores(model, coords, onehot, B, timesteps=2, generator=gen, **kw)  # warm-up
         torch.cuda.synchronize()
-        gcl_message_agg.launches = 0
-        egnn_forward_fused.launches = 0
+        launch_counts(reset=True)
         captures = graph_captures()
         clouds, ms = synced_ms(lambda: sample_pharmacophores(
             model, coords, onehot, B, timesteps=timesteps, generator=gen, **kw))
-        launches = {"gcl_message_agg": gcl_message_agg.launches,
-                    "egnn_forward_fused": egnn_forward_fused.launches}
-        if engine == "msgpass":
-            want[engine]["gcl_message_agg"] = k1_want(L, calls, captures)
-        if launches != want[engine]:
-            raise AssertionError(f"joint {engine}: launches {launches}, expected {want[engine]}")
+        launches = launch_counts()
+        want = launches_want(engine, L, calls, captures)
+        if launches != want:
+            raise AssertionError(f"joint {engine}: launches {launches}, expected {want}")
         pts = np.array([p for mol in clouds.values() for fam in mol.values() for p in fam])
         if len(clouds) != B or pts.shape != (B * N_P, 3) or not np.isfinite(pts).all():
             raise AssertionError(f"joint {engine}: {len(clouds)} clouds, points {pts.shape}")
@@ -2698,14 +2854,13 @@ def joint_phase(dev, repo, timesteps):
         write_port_checkpoint(tmp / "joint", cfg, models["fused"])
         pdb = tmp / "pocket.pdb"
         pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(0)))
-        gcl_message_agg.launches = 0
-        egnn_forward_fused.launches = 0
+        launch_counts(reset=True)
         with contextlib.redirect_stdout(io.StringIO()):
             mols, ms = synced_ms(lambda: cli.main([
                 "sample-phars", str(tmp / "joint"), str(pdb), str(tmp / "out.json"),
                 "--ref-ligand", "L:1", "--n-samples", str(B), "--timesteps", "100",
                 "--seed", "0", "--device", "cuda", "--engine", "fused"]))
-        launches = egnn_forward_fused.launches + gcl_message_agg.launches
+        launches = sum(launch_counts().values())
         pts = np.array([p for mol in mols.values() for fam in mol.values() for p in fam])
     if launches != 101 or len(mols) != B or not np.isfinite(pts).all():
         raise AssertionError(f"joint sample-phars CLI: {launches} launches, {len(mols)} clouds")
@@ -2861,11 +3016,10 @@ def diffphar_step_vs_cpu(cfg, ds, hist, dev, engine):
     from the same seeded weights, batch (B=2), times and noise: the loss
     terms, every leaf's gradient and the weights after it; every gradient
     finite and, in each GCL, edge_in's, edge_out's and att's non-zero;
-    K1 launched 0 times."""
+    no kernel (K1, K2, K3) launched."""
     import torch
 
     from cmdgen_tpu_torch import convert
-    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.train import state as tstate
     from cmdgen_tpu_torch.train.diffphar_train import build_model, to_clouds
 
@@ -2878,14 +3032,15 @@ def diffphar_step_vs_cpu(cfg, ds, hist, dev, engine):
         if noise is None:
             noise = model.draw_noise(phar, True, torch.Generator().manual_seed(1))
         st = tstate.init_state(model, tstate.reference_optimizer(model.parameters(), cfg.train.lr))
-        gcl_message_agg.launches = 0
+        launch_counts(reset=True)
         metrics = tstate.make_diffusion_train_step(clip_grad=True)(
             st, phar, pocket, noise=[n.to(d) for n in noise])
         if where == "card":
             torch.cuda.synchronize()
-            k1_launches = gcl_message_agg.launches
-            if k1_launches:
-                raise AssertionError(f"{engine}: K1 launched {k1_launches} times in a train step")
+            counts = launch_counts()
+            k1_launches = counts["gcl_message_agg"]
+            if any(counts.values()):
+                raise AssertionError(f"{engine}: launches {counts} in a train step")
         out[where] = ({k: float(v) for k, v in metrics.items()},
                       convert.model_leaves(model, {n: p.grad for n, p in model.named_parameters()}),
                       convert.model_leaves(model))
@@ -2971,7 +3126,6 @@ def train_eval_sampling_run(cfg, data, out_dir, dev):
 
     import torch
 
-    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
     from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.train import diffphar_train as dt
     from cmdgen_tpu_torch.train import state as tstate
@@ -2986,16 +3140,15 @@ def train_eval_sampling_run(cfg, data, out_dir, dev):
         step = real_make(*a, **kw)
 
         def counted(*sa, **skw):
-            before = gcl_message_agg.launches + egnn_forward_fused.launches
+            before = sum(launch_counts().values())
             out = step(*sa, **skw)
-            step_launches.append(gcl_message_agg.launches + egnn_forward_fused.launches
-                                 - before)
+            step_launches.append(sum(launch_counts().values()) - before)
             return out
 
         return counted
 
     def counted_sample(model, *a, **kw):
-        before, captures = gcl_message_agg.launches, graph_captures()
+        before, captures = launch_counts(), graph_captures()
         t0 = time.perf_counter()
         if len(sample_launches) == cfg.train.n_epochs - 1:
             res = {}
@@ -3007,24 +3160,28 @@ def train_eval_sampling_run(cfg, data, out_dir, dev):
         torch.cuda.synchronize()
         seen.setdefault("ms", []).append((time.perf_counter() - t0) * 1e3)
         # each call's launches less those of the pass before a capture
-        sample_launches.append(gcl_message_agg.launches - before
-                               - k1_want(n_layers, 0, captures))
+        again = k1_want(n_layers, 0, captures)
+        sample_launches.append({k: v - before[k] - (again if k != "egnn_forward_fused" else 0)
+                                for k, v in launch_counts().items()})
         return res
 
     logs = []
     tstate.make_diffusion_train_step, dt.sampling_metrics = counted_make, counted_sample
     try:
-        gcl_message_agg.launches = 0
+        launch_counts(reset=True)
         state, ms = synced_ms(lambda: dt.train_diffphar(
             cfg, data, out_dir, log_fn=lambda s, m: logs.append(m), device=dev))
         total = gcl_message_agg.launches
     finally:
         tstate.make_diffusion_train_step, dt.sampling_metrics = real_make, real_sample
     if any(step_launches) or len(step_launches) != 8 * cfg.train.n_epochs:
-        raise AssertionError(f"K1 in training steps: {step_launches}")
-    if sample_launches != [n_layers * calls] * cfg.train.n_epochs or seen["calls"] != calls:
-        raise AssertionError(f"K1 per eval sampling call: {sample_launches}, expected "
-                             f"{n_layers * calls} each")
+        raise AssertionError(f"kernels in training steps: {step_launches}")
+    want = launches_want("msgpass", n_layers, calls)
+    if sample_launches != [want] * cfg.train.n_epochs or seen["calls"] != calls:
+        raise AssertionError(f"launches per eval sampling call: {sample_launches}, expected "
+                             f"{want} each")
+    k1_sampling = [c["gcl_message_agg"] for c in sample_launches]
+    k3_sampling = [c["coord_update_agg"] for c in sample_launches]
     sampled = [m for m in logs if "sampling/kl_types" in m]
     vals = [m["loss/val"] for m in logs if "loss/val" in m]
     if len(sampled) != cfg.train.n_epochs \
@@ -3035,12 +3192,13 @@ def train_eval_sampling_run(cfg, data, out_dir, dev):
     if files != ["config.json", "ema_params.npz", "opt_state.npz", "params.npz"]:
         raise AssertionError(f"best/ holds {files}")
     rec = {"steps": state.step, "ms": ms, "kernel_launches_in_train_steps": sum(step_launches),
-           "k1_launches_per_eval_sampling": sample_launches, "k1_launches_total": total,
+           "k1_launches_per_eval_sampling": k1_sampling,
+           "k3_launches_per_eval_sampling": k3_sampling, "k1_launches_total": total,
            "eval_sampling_ms": seen["ms"], "eval_sampling_T": calls - 1,
            "val_loss": vals, "sampling": sampled}
     log(f"train_diffphar K=12 EMA: {state.step} steps in {ms:.0f} ms; K1 per eval sampling "
-        f"call {sample_launches} ({seen['ms'][-1]:.0f} ms each at T={calls - 1}), 0 in "
-        f"{len(step_launches)} train steps; val {vals}")
+        f"call {k1_sampling}, K3 {k3_sampling} ({seen['ms'][-1]:.0f} ms each at "
+        f"T={calls - 1}), 0 in {len(step_launches)} train steps; val {vals}")
     return rec, seen["recorded"], seen["model"]
 
 
@@ -3050,8 +3208,6 @@ def trained_sample_phars(ckpt, dev, cfg):
     import torch
 
     from cmdgen_tpu_torch import cli
-    from cmdgen_tpu_torch.ops.egnn_fused import egnn_forward_fused
-    from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg
     from cmdgen_tpu_torch.utils.synthetic import synthetic_pocket_pdb
 
     out = {}
@@ -3059,7 +3215,7 @@ def trained_sample_phars(ckpt, dev, cfg):
         pdb = Path(tmp) / "pocket.pdb"
         pdb.write_text(synthetic_pocket_pdb(np.random.RandomState(3)))
         for engine in ("msgpass", "fused"):
-            gcl_message_agg.launches = egnn_forward_fused.launches = 0
+            launch_counts(reset=True)
             captures = graph_captures()
             with contextlib.redirect_stdout(io.StringIO()):
                 _, ms = synced_ms(lambda: cli.main([
@@ -3067,14 +3223,11 @@ def trained_sample_phars(ckpt, dev, cfg):
                     "--ref-ligand", "L:1", "--n-samples", "16", "--timesteps", "100",
                     "--device", "cuda", "--engine", engine]))
             torch.cuda.synchronize()
-            launches = {"gcl_message_agg": gcl_message_agg.launches,
-                        "egnn_forward_fused": egnn_forward_fused.launches}
+            launches = launch_counts()
             mols = json.loads((Path(tmp) / "o.json").read_text())
             pts = np.array([p for m in mols.values() for f in m.values() for p in f])
             calls = min(100, cfg.ddpm.timesteps) + 1
-            want = ({"gcl_message_agg": k1_want(cfg.dynamics.egnn.n_layers, calls, captures),
-                     "egnn_forward_fused": 0} if engine == "msgpass"
-                    else {"gcl_message_agg": 0, "egnn_forward_fused": calls})
+            want = launches_want(engine, cfg.dynamics.egnn.n_layers, calls, captures)
             if launches != want or len(mols) != 16 or not np.isfinite(pts).all():
                 raise AssertionError(f"sample-phars {engine} on the trained checkpoint: "
                                      f"{launches}, {len(mols)} clouds")
@@ -3413,6 +3566,7 @@ def train_phase(dev, repo, smiles):
     out["seconds"] = time.perf_counter() - t_phase
     kernels = {"k1": dict(k1, shape=shape, denoiser_vs_cpu=errs,
                           launches=sum(dp["eval_sampling_run"]["k1_launches_per_eval_sampling"])),
+               "k3_launches": sum(dp["eval_sampling_run"]["k3_launches_per_eval_sampling"]),
                "k2": dict(k2, shape=shape,
                           launches=dp["sample_phars"]["fused"]["launches"]["egnn_forward_fused"])}
     return out, kernels
@@ -3477,18 +3631,21 @@ def main():
     k1_wide = check_k1(dev, "bfloat16", b=132)  # 12 rounds of whole items
     k2 = [check_k2(dev, d) for d in ("float32", "bfloat16")]
     k2_wide = check_k2(dev, "bfloat16", b=132)  # one sample per SM
+    k3 = {name: check_k3(dev, name) for name in K3_SHAPES}
     done("kernels")
     if args.kernels_only:
         log(json.dumps({"kernel_checks": {"k1": k1, "k1_b132": k1_wide, "k2": k2,
-                                          "k2_b132": k2_wide}, "card": card}))
+                                          "k2_b132": k2_wide, "k3": k3}, "card": card}))
         return 0
 
     sampling = flagship_sampling(dev, args.timesteps)
     done("flagship")
-    k1_flagship = sampling["msgpass"][2]["gcl_message_agg"]
-    if args.timesteps == 500 and k1_flagship != K1_FLAGSHIP_LAUNCHES:
-        raise AssertionError(f"K1 launched {k1_flagship} times in the flagship run, "
-                             f"expected {K1_FLAGSHIP_LAUNCHES}")
+    flagship_launches = sampling["msgpass"][2]
+    if args.timesteps == 500 and not (
+            flagship_launches["gcl_message_agg"] == flagship_launches["coord_update_agg"]
+            == K1_FLAGSHIP_LAUNCHES):
+        raise AssertionError(f"flagship run: launches {flagship_launches}, expected "
+                             f"{K1_FLAGSHIP_LAUNCHES} of K1 and of K3")
     trained = trained_run(dev, repo)
     done("trained")
     with tempfile.TemporaryDirectory() as keep:
@@ -3593,6 +3750,30 @@ def main():
         "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "stage_shares", "comparisons")}
     kernels[1]["batch_132"] = {key: k2_wide[key] for key in (
         "ms", "kernel_ms", "plain_ms", "bound_ms", "grid", "phases", "comparisons")}
+    # K3 has no JAX counterpart (the JAX package runs the coordinate update
+    # in XLA); its line holds the checks and times at its shapes and its
+    # launches: the main path's (the train path's eval sampling), each
+    # path's beside it, one a block wherever K1 runs one a GCL (one GCL a
+    # block in every configuration here)
+    k3_paths = {
+        "flagship_sampling": sampling["msgpass"][2]["coord_update_agg"],
+        "trained_sample_phars": trained["msgpass"]["coord_update_agg"],
+        "run_all": run_all["runs"]["msgpass"]["launches"]["coord_update_agg"],
+        "joint_sample_phars": joint["engines"]["msgpass"]["launches"]["coord_update_agg"],
+        "train": train_kernels["k3_launches"], "train_diffphar_steps":
+            train["diffphar"]["eval_sampling_run"]["kernel_launches_in_train_steps"],
+        "parallel": parallel_launches["coord_update_agg"],
+        "full_atom": full_atom_launches["coord_update_agg"]}
+    for path, n in k3_paths.items():
+        if path != "train_diffphar_steps" and not (
+                n and n == kernels[0]["launches_by_path"][path]):
+            raise AssertionError(f"K3 launched {n} times on the {path} path, K1 "
+                                 f"{kernels[0]['launches_by_path'][path]}")
+    kernels.append({"name": "coord_update_agg", "route": "cuda",
+                    "source": "cmdgen_tpu_torch/csrc/egnn_msgpass.cu",
+                    "replaces": "cmdgen_tpu_torch/models/egnn.py: EquivariantUpdate (PyTorch ops)",
+                    "launches": k3_paths["train"], "launches_by_path": k3_paths,
+                    "checks": k3})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "flagship": {e: {"denoise_steps_per_s": v[0], "seconds": v[1], "launches": v[2],

@@ -492,9 +492,7 @@ egnn_fused_kernel(const FusedArgs<T> a) {
         // translation ediff[e] (times kmask, over the normalised distance)
         auto translate = [&](int e, float g) {
           if (a.use_tanh) g = tanhf(g) * a.coords_range;
-          const float norm = sqrtf(erad[e] + 1e-8f);
-          for (int c = 0; c < 3; ++c)
-            ediff[e * 3 + c] = ediff[e * 3 + c] / (norm + a.norm_constant) * g * ekm[e];
+          coord_translate(ediff, e, erad[e], ekm[e], g, a.norm_constant);
         };
         if constexpr (kMma) {
           __pipeline_wait_prior(0);
@@ -532,18 +530,10 @@ egnn_fused_kernel(const FusedArgs<T> a) {
         __syncthreads();
         // each receiver's translations summed in k order, carried from one
         // chunk to the next (one receiver an item when chunked)
-        for (int p = threadIdx.x; p < rv * 3; p += kThreads) {
-          const int i = p / 3, c = p % 3;
-          const float* d = ediff + (size_t)i * kc * 3 + c;
-          float s = first ? d[0] : xcarry[c];
-          for (int k = first ? 1 : 0; k < kc; ++k) s += d[k * 3];
-          if (last) {
-            const size_t row = nb + i0 + i;
-            x_out[row * 3 + c] = (x_in[row * 3 + c] + s / a.norm_factor) * a.nmask[row];
-          } else {
-            xcarry[c] = s;
-          }
-        }
+        coord_ksum(ediff, xcarry, rv, kc, first, last, [&](int i, int c, float s) {
+          const size_t row = nb + i0 + i;
+          x_out[row * 3 + c] = (x_in[row * 3 + c] + s / a.norm_factor) * a.nmask[row];
+        });
       }
     }
     phase_end(1 + kPhases * l + 3);  // D

@@ -1,7 +1,10 @@
-// The GCL message tile shared by both EGNN kernels: K1 (egnn_msgpass.cu)
+// The GCL message tile shared by the EGNN kernels: K1 (egnn_msgpass.cu)
 // runs one per work item, K2 (egnn_fused.cu) one per item of its message
-// phase. A tile is rv receivers of one sample times kc of their edges
-// (edge e = r * kc + k, at most `rows` edges), and does
+// phase; K3 (egnn_msgpass.cu's coordinate update) runs its pair layer and
+// product (edge_messages) with a coordinate epilogue, the one K2's coordinate
+// phase shares (coord_translate, coord_ksum, at the end of this file). A
+// tile is rv receivers of one sample times kc of their edges (edge
+// e = r * kc + k, at most `rows` edges), and does
 //   pair layer  buf[e] = silu(wi_r + proj_j + radial * we0 + dist0 * we1)
 //   product     m = silu(buf @ W2 + b2), back into buf
 //   attention   escale[e] = sigmoid(m . att + att_b) * kmask (or kmask)
@@ -336,21 +339,21 @@ struct MsgSmem {
   float* carry;     // [Hp] the running K-sum between chunks (chunked tiles only)
 };
 
-// One message tile after its edge load (see the top of this file). The
-// caller has filled sm.et and sm.vec (Hp each, zero past H) and put a block
-// barrier after them; with kMma the W2 copies into sm.wsm (as [k, n], or
-// [n, k] with WT; Hp x Hp, zero past H) are the last cp.async groups in
-// flight, or complete. wi: the tile's receiver rows; proj: the sample's
-// rows (both [*, H]); W2 [H, H] in global memory ([in, out]; the
-// block_gemm route reads it from there); att_b: the attention bias.
-// first / last: this tile is its receivers' first / last chunk of edges.
-// out: agg row of the tile's first receiver (row stride H). Ends without a
-// barrier after the K-sum; the clock ticks at every stage but the K-sum,
-// whose end the caller marks at its next barrier.
-template <typename T, bool kMma, bool WT, bool kRagged>
-__device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, const T* W2,
-                             float att_b, bool attention, int E, int rv, int kc, int H, int Hp,
-                             bool first, bool last, float inv, T* out, StageClock& clk) {
+// The messages of one tile after its edge load, up to each edge's dot
+// product: the pair layer, m = silu(buf @ W2 + b2) and, with `dot`, m .
+// vec.att; then edge(e, d) for each edge e < E from one thread, d the dot
+// (0 without `dot`). The caller has filled sm.et and sm.vec (Hp each, zero
+// past H) and put a block barrier after them; with kMma the W2 copies into
+// sm.wsm (as [k, n], or [n, k] with WT; Hp x Hp, zero past H) are the last
+// cp.async groups in flight, or complete. wi: the tile's receiver rows;
+// proj: the sample's rows (both [*, H]); W2 [H, H] in global memory ([in,
+// out]; the block_gemm route reads it from there). kKeepM: m is left in
+// the tile's rows of buf for the caller (the block_gemm route leaves it
+// there always: its dot reads it back). Ends without a barrier after the
+// edge calls; the clock ticks the pair layer and the product.
+template <typename T, bool kMma, bool WT, bool kRagged, bool kKeepM, typename EdgeFn>
+__device__ void edge_messages(const MsgSmem<T>& sm, const T* wi, const T* proj, const T* W2,
+                              bool dot, int E, int H, int Hp, StageClock& clk, EdgeFn edge) {
   using C = Cvt<T>;
   T* const buf = sm.buf;
   const int ld = sm.ld;
@@ -366,20 +369,20 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     tiles::mma_tile<2, WT>(acc, buf, ld, sm.wsm, ld, Hp);
     __syncthreads();  // every warp has read the edge tile
     clk.tick(kProduct);
-    // m = silu(acc + b2) back into the edge tile, and its attention dot
+    // m = silu(acc + b2), back into the edge tile, and its dot
     const float* b2 = sm.vec.b2;
     const float* att = sm.vec.att;
-    if (attention) {
+    if (dot) {
       tiles::row_partials<2>(acc, Hp, sm.part, sm.rows, [&](int m, int n, float v0, float v1) {
         if (m >= E) return 0.0f;  // rows past the tile's edges
         v0 += b2[n];
         v1 += b2[n + 1];
         rnd2<T>(v0, v1);
         silu_m2<T>(v0, v1);
-        store2(buf + (size_t)m * ld + n, v0, v1);
+        if constexpr (kKeepM) store2(buf + (size_t)m * ld + n, v0, v1);
         return v0 * att[n] + v1 * att[n + 1];
       });
-    } else {
+    } else if constexpr (kKeepM) {
       tiles::for_each_pair<2>(acc, Hp, [&](int m, int n, float v0, float v1) {
         if (m >= E) return;
         v0 += b2[n];
@@ -391,13 +394,12 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     }
     __syncthreads();
     for (int e = threadIdx.x; e < E; e += kThreads) {
-      float s = et.ekm[e];
-      if (attention) {
-        float d = sm.part[e];
+      float d = 0.0f;
+      if (dot) {
+        d = sm.part[e];
         for (int w = 1; w < tiles::kWarpCols; ++w) d += sm.part[w * sm.rows + e];
-        s *= sigmoid_f(d + att_b);
       }
-      et.escale[e] = C::rnd(s);
+      edge(e, d);
     }
   } else {
     const float* b2 = sm.vec.b2;
@@ -409,16 +411,38 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
     clk.tick(kProduct);  // this route's SiLU epilogue runs inside block_gemm
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     for (int e = warp; e < E; e += kWarps) {
-      float s = et.ekm[e];
-      if (attention) {
-        float d = 0.0f;
+      float d = 0.0f;
+      if (dot) {
         for (int c = lane; c < H; c += 32)
           d = fmaf(C::to_f(buf[(size_t)e * ld + c]), sm.vec.att[c], d);
-        s *= sigmoid_f(warp_sum(d) + att_b);
+        d = warp_sum(d);
       }
-      if (lane == 0) et.escale[e] = C::rnd(s);
+      if (lane == 0) edge(e, d);
     }
   }
+}
+
+// One message tile after its edge load (see the top of this file):
+// edge_messages with m kept and the attention gate as each edge's weight in
+// the K-sum, then the K-sum. att_b: the attention bias. first / last: this
+// tile is its receivers' first / last chunk of edges. out: agg row of the
+// tile's first receiver (row stride H). Ends without a barrier after the
+// K-sum; the clock ticks at every stage but the K-sum, whose end the caller
+// marks at its next barrier.
+template <typename T, bool kMma, bool WT, bool kRagged>
+__device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, const T* W2,
+                             float att_b, bool attention, int E, int rv, int kc, int H, int Hp,
+                             bool first, bool last, float inv, T* out, StageClock& clk) {
+  using C = Cvt<T>;
+  T* const buf = sm.buf;
+  const int ld = sm.ld;
+  const EdgeTile& et = sm.et;
+  edge_messages<T, kMma, WT, kRagged, true>(sm, wi, proj, W2, attention, E, H, Hp, clk,
+                                            [&](int e, float d) {
+                                              float s = et.ekm[e];
+                                              if (attention) s *= sigmoid_f(d + att_b);
+                                              et.escale[e] = C::rnd(s);
+                                            });
   __syncthreads();
   clk.tick(kEpilogue);
 
@@ -462,6 +486,40 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
       sm.carry[c] = s0;
       sm.carry[c + 1] = s1;
     }
+  }
+}
+
+// ---- the coordinate update's epilogue (K2's phase D, K3): each edge's
+// translation from its difference vector, and their sum over a receiver's
+// edges in k order
+
+// Edge e's translation into ediff[e], which holds its difference x_i - x_j
+// on the way in: the difference over the normalised distance
+// sqrt(rad + 1e-8) + norm_constant (rad: the squared distance in float),
+// times the gate g (the caller's tanh and coords_range applied) and kmask.
+__device__ __forceinline__ void coord_translate(float* ediff, int e, float rad, float km,
+                                                float g, float norm_constant) {
+  const float norm = sqrtf(rad + 1e-8f);
+  for (int c = 0; c < 3; ++c)
+    ediff[e * 3 + c] = ediff[e * 3 + c] / (norm + norm_constant) * g * km;
+}
+
+// The translations of rv receivers' kc edges (ediff, edge i * kc + k)
+// summed in k order, each component by one thread, carried from one chunk
+// to the next in xcarry (one receiver a tile when chunked): on the last
+// chunk done(i, c, s) takes receiver i's sum s of component c.
+template <typename Done>
+__device__ __forceinline__ void coord_ksum(const float* ediff, float* xcarry, int rv, int kc,
+                                           bool first, bool last, Done done) {
+  for (int p = threadIdx.x; p < rv * 3; p += kThreads) {
+    const int i = p / 3, c = p % 3;
+    const float* d = ediff + (size_t)i * kc * 3 + c;
+    float s = first ? d[0] : xcarry[c];
+    for (int k = first ? 1 : 0; k < kc; ++k) s += d[k * 3];
+    if (last)
+      done(i, c, s);
+    else
+      xcarry[c] = s;
   }
 }
 

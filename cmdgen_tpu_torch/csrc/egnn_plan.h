@@ -1,8 +1,8 @@
-// The two EGNN kernels' launch plans and shared-memory layout, in plain
-// C++: the kernels (egnn_msgpass.cu, egnn_fused.cu) include this header
-// for their constants, layout and launch checks, and egnn_plan.cpp exports
-// it to the wrappers (ops/egnn_msgpass.py, ops/egnn_fused.py) through
-// ctypes, so that every decision here has one owner: the widths taken and
+// The EGNN kernels' launch plans and shared-memory layout, in plain C++:
+// the kernels (egnn_msgpass.cu, egnn_fused.cu) include this header for
+// their constants, layout and launch checks, and egnn_plan.cpp exports it
+// to the wrappers (ops/egnn_msgpass.py, ops/egnn_coord.py, ops/egnn_fused.py)
+// through ctypes, so that every decision here has one owner: the widths taken and
 // the width the tiles compute at, the route, the tile's rows, the split of
 // a receiver's edges into chunks, the work items and the library variant
 // that holds a launch's instantiation.
@@ -89,14 +89,14 @@ EGNN_HD inline size_t alloc_rows(size_t rows, bool bf16) {
   return bf16 ? (rows + 15) / 16 * 16 : rows;
 }
 
-// Shared memory of one block of either kernel at width H (the tile's, Hp)
+// Shared memory of one block of any of the kernels at width H (the tile's, Hp)
 // with tiles of `rows` rows: the tile (K2: also the row tile of phase A and
 // two node MLP tiles of rows / 2 rows in phase C), on the mma route the
 // weight matrix [H, H] and the per-row partial sums of the epilogues' dot
 // products, on the block_gemm route the products' buffers (GemmSmem), the
 // vectors of the pair MLP (GclVecs), the running K-sum of a chunked
 // receiver, the per-edge arrays of one tile and, with `coords` (K2's
-// coordinate pass), the edges' coordinate differences and running sum.
+// coordinate pass, K3), the edges' coordinate differences and running sum.
 struct TileSmem {
   size_t buf, wsm, part, gemm, vec, carry, eidx, ercv, ekm, erad, ed0, escale, ediff, xcarry,
       total;
@@ -152,34 +152,45 @@ inline Chunking chunking(int K, int rows) {
   return {1, cdiv(K, chunks), chunks};
 }
 
-// K1's plan (egnn_msgpass.cu). The grid, one block per SM, walks the units
-// of work in a strided loop: items [0, whole) whole, then the rest as two
-// half items each (a last round that would leave blocks idle, split when
-// twice as many still fit in one round and an item has two receivers to
-// split); the grid is capped at the number of units. rows: kEdgeRows on the
-// mma route, else the most rows, a multiple of 16, that fit. variant: the
-// library that holds the launch's instantiation (egnn_msgpass.cu:
-// EGNN_VARIANT).
+// The plan of a pass over the edges of `rcv` receivers of each sample, the
+// first rcv of its N rows (egnn_msgpass.cu): K1's message pass (every row)
+// or, with `coords`, K3's coordinate update (the rows that move; its tile
+// keeps each edge's coordinate difference). The grid, one block per SM,
+// walks the units of work in a strided loop: items [0, whole) whole, then
+// the rest as two half items each (a last round that would leave blocks
+// idle, split when twice as many still fit in one round and an item has
+// two receivers to split); the grid is capped at the number of units, one
+// block at least (K3 copies the rows that do not move even where none
+// moves). rows: kEdgeRows on the mma route, else the most rows, a multiple
+// of 16, that fit. variant: the library that holds the launch's
+// instantiation (edge_variant).
 struct K1Plan {
   int hp, mma, variant, rows, receivers, chunk, chunks, items, whole, units, grid, smem_bytes;
 };
 
-inline int k1_variant(int H, bool bf16) { return ragged_width(H, bf16) ? 1 : 0; }
+// egnn_msgpass.cu's EGNN_VARIANT: K1 at the regular widths (0) and the
+// ragged ones (1), K3 at the same (2, 3).
+EGNN_HD inline int edge_variant(int H, bool bf16, bool coords) {
+  return (ragged_width(H, bf16) ? 1 : 0) + (coords ? 2 : 0);
+}
 
-inline int k1_plan(int B, int N, int K, int H, bool bf16, int sms, bool block_gemm, K1Plan* p) {
+inline int edge_plan(int B, int N, int rcv, int K, int H, bool bf16, int sms, bool block_gemm,
+                     bool coords, K1Plan* p) {
   if (B < 1 || N < 1 || K < 1 || sms < 1) return kPlanEmpty;
+  if (rcv < 0 || rcv > N) return kPlanRows;
   const int hp = padded_width(H, bf16);
   if (!hp) return kPlanWidth;
   const bool mma = takes_mma(hp, bf16, block_gemm);
-  const int rows = mma ? kEdgeRows : fit_rows(hp, bf16, false, 16);
+  const int rows = mma ? kEdgeRows : fit_rows(hp, bf16, coords, 16);
   if (!rows) return kPlanNoTile;
   const Chunking c = chunking(K, rows);
-  const int items = B * cdiv(N, c.receivers);
+  const int items = B * cdiv(rcv, c.receivers);
   const int tail = items % sms;
   const int split = c.receivers >= 2 && 2 * tail <= sms ? tail : 0;
   const int units = items + split;
-  *p = {hp, mma, k1_variant(H, bf16), rows, c.receivers, c.chunk, c.chunks, items,
-        items - split, units, imin(sms, units), (int)TileSmem(hp, rows, mma, bf16, false).total};
+  *p = {hp, mma, edge_variant(H, bf16, coords), rows, c.receivers, c.chunk, c.chunks, items,
+        items - split, units, imin(sms, units > 0 ? units : 1),
+        (int)TileSmem(hp, rows, mma, bf16, coords).total};
   return kPlanOk;
 }
 

@@ -13,11 +13,11 @@ stack in the K2 kernel. The ``gnn_dynamics`` mode replaces the EGNN with
 the plain ``GNN``: coordinates go in as node features and the velocities
 are read from the first 3 output channels (not E(3)-equivariant).
 
-**CUDA graphs.** On the neighbor-list engine with K1 in every GCL (CUDA
-inputs, outside autograd), the module's call replays its whole forward
-pass as one CUDA graph (``graphed_forward``): captured at the first call
-of each input shape (``graph_key``), replayed on that call and every later
-one. The graph holds the same kernels on the same data as the op-by-op
+**CUDA graphs.** On the neighbor-list engine with K1 in every GCL and K3
+in every coordinate update (CUDA inputs, outside autograd), the module's
+call replays its whole forward pass as one CUDA graph
+(``graphed_forward``): captured at the first call of each input shape
+(``graph_key``), replayed on that call and every later one. The graph holds the same kernels on the same data as the op-by-op
 pass (``EGNNDynamics.eager_forward``): the host launches it once, with
 the inputs' copies in and the outputs' copies out, in place of each of
 its kernels. Every other call runs op by op (``graph_refusal``).
@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cmdgen_tpu_torch.models.egnn import EGNN, GNN, EGNNConfig, linear
+from cmdgen_tpu_torch.ops.egnn_coord import coord_update_agg
 from cmdgen_tpu_torch.ops.egnn_fused import check_fused_shape, egnn_forward_fused, fused_params
 from cmdgen_tpu_torch.ops.egnn_msgpass import gcl_message_agg, kernel_route
 from cmdgen_tpu_torch.ops.masked import pair_mask, remove_mean
@@ -171,11 +172,12 @@ GRAPH_CAPACITY = 8
 
 def graph_refusal(dyn: EGNNDynamics, xh_phar: torch.Tensor) -> Optional[str]:
     """Why a call of ``dyn`` runs op by op, or None where it replays a CUDA
-    graph: only on the neighbor-list engine whose GCLs all take K1 (sum
-    aggregation, the two raw edge scalars, outside autograd:
-    ``models.egnn.GCL``), on CUDA inputs. The dense engine stays op by op:
-    its pair tensors are the memory's largest, and a graph's pool beside
-    them would double them."""
+    graph: only on the neighbor-list engine whose GCLs all take K1 and whose
+    coordinate updates all take K3 (sum aggregation, the two raw edge
+    scalars, outside autograd: ``models.egnn.GCL``, ``EquivariantUpdate``),
+    on CUDA inputs. The dense engine stays op by op: its pair tensors are
+    the memory's largest, and a graph's pool beside them would double
+    them."""
     cfg = dyn.cfg
     ecfg = cfg.egnn
     if not kernel_route():
@@ -202,20 +204,26 @@ def graph_key(dyn: EGNNDynamics, inputs: Tuple[torch.Tensor, ...]) -> tuple:
             tuple(p.data_ptr() for p in dyn.parameters()))
 
 
+# the kernels whose wrappers count their launches (``.launches``): a replay
+# adds the launches its graph holds
+COUNTED_KERNELS = (gcl_message_agg, coord_update_agg)
+
+
 class _Graph:
     """One captured forward pass: the graph, its static inputs and outputs,
-    and the K1 launches it holds."""
+    and the launches of each of ``COUNTED_KERNELS`` it holds."""
 
-    def __init__(self, graph, inputs, outputs, k1_launches: int):
+    def __init__(self, graph, inputs, outputs, launches: Tuple[int, ...]):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
-        self.k1_launches = k1_launches
+        self.launches = launches
 
     def replay(self, inputs) -> Tuple[torch.Tensor, torch.Tensor]:
         """The forward pass on ``inputs``; the outputs are the caller's."""
         for static, v in zip(self.inputs, inputs):
             static.copy_(v)
         self.graph.replay()
-        gcl_message_agg.launches += self.k1_launches
+        for fn, n in zip(COUNTED_KERNELS, self.launches):
+            fn.launches += n
         return tuple(o.clone() for o in self.outputs)
 
 
@@ -266,7 +274,7 @@ class DenoiserGraphs:
         call on the capture stream first (the kernels' libraries, cuBLAS's
         handle and workspace for that stream and the allocator's blocks are
         set up outside the capture), then the capture on it into the shared
-        pool. K1's counter keeps only the first call's launches: the
+        pool. The kernels' counters keep only the first call's launches: the
         captured ones have not run."""
         dev = inputs[0].device
         static = tuple(torch.empty(v.shape, dtype=v.dtype, device=dev).copy_(v) for v in inputs)
@@ -276,15 +284,17 @@ class DenoiserGraphs:
         with torch.cuda.stream(self.stream):
             dyn.eager_forward(*static)
         torch.cuda.current_stream(dev).wait_stream(self.stream)
-        ran = gcl_message_agg.launches
+        ran = tuple(fn.launches for fn in COUNTED_KERNELS)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 outputs = dyn.eager_forward(*static)
-            return _Graph(graph, static, outputs, gcl_message_agg.launches - ran)
+            return _Graph(graph, static, outputs,
+                          tuple(fn.launches - n for fn, n in zip(COUNTED_KERNELS, ran)))
         finally:
-            gcl_message_agg.launches = ran
+            for fn, n in zip(COUNTED_KERNELS, ran):
+                fn.launches = n
 
 
 def graphed_forward(dyn: EGNNDynamics, xh_phar, xh_pocket, t, mask_phar, mask_pocket):

@@ -13,7 +13,9 @@ Two engines, as in the JAX package:
   forward pass (``ops.egnn_msgpass.kernel_route``: the kernel has no
   backward pass, as the JAX package's has none), it runs in PyTorch. Training therefore takes the torch message path, as the JAX
   package's training takes XLA's, and every sampler, under
-  ``torch.no_grad()``, takes the kernel.
+  ``torch.no_grad()``, takes the kernel. Under the same conditions the
+  coordinate update goes through ``ops.egnn_coord.coord_update_agg``
+  (K3: one kernel a block, the plain version on the CPU).
 
 Under autograd each ``EquivariantBlock`` is checkpointed (``remat``, the
 JAX package's ``nn.remat`` default): the backward pass recomputes a
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from cmdgen_tpu_torch.ops.egnn_coord import coord_update_agg
 from cmdgen_tpu_torch.ops.egnn_msgpass import gather_rows, gcl_message_agg, kernel_route
 from cmdgen_tpu_torch.parallel.mesh import column_parallel, full_weight
 
@@ -209,6 +212,14 @@ class GCL(nn.Module):
         return h + upd
 
 
+def nbr_coord_diff(x, nbr_idx, norm_constant):
+    """The normalised differences x_i - x_j [B, R, K, 3] of the first R
+    receivers (``nbr_idx`` [B, R, K]) to their neighbors."""
+    r = nbr_idx.shape[1]
+    diff = x[:, :r, None, :] - gather_rows(x, nbr_idx)
+    return diff / (torch.sqrt((diff ** 2).sum(-1, keepdim=True) + 1e-8) + norm_constant)
+
+
 class EquivariantUpdate(nn.Module):
     """Coordinate update sublayer."""
 
@@ -225,16 +236,31 @@ class EquivariantUpdate(nn.Module):
                 update_coords_mask, nbr_idx=None, update_rows=None):
         """update_rows: only the first ``update_rows`` receivers move (the
         conditional model's pharmacophore nodes); the frozen rows' pair
-        messages are never computed, which is exact."""
+        messages are never computed, which is exact. coord_diff: the dense
+        engine's [B, N, N, 3]; None on the neighbor list, where K3 takes the
+        differences from x and the torch path gathers them
+        (:func:`nbr_coord_diff`)."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         r = update_rows
+        # K3 takes the neighbor-list update under K1's conditions (models.egnn.GCL)
+        if (nbr_idx is not None and cfg.aggregation_method == "sum"
+                and edge_attr.shape[-1] == 2 and kernel_route()):
+            wi, wj = self.coord_in.project(h, dt, rows=r)
+            return coord_update_agg(
+                wi, wj, nbr_idx, edge_attr[..., 1], edge_mask, x, update_coords_mask,
+                self.coord_in.w_e.weight.t(), self.coord_mid.weight.t(), self.coord_mid.bias,
+                self.coord_gate.weight.reshape(cfg.hidden_nf), self.coords_range_layer,
+                cfg.norm_constant, cfg.normalization_factor, cfg.tanh, compute_dtype=dt)
         if r is not None:
             edge_attr = edge_attr[:, :r]
-            coord_diff = coord_diff[:, :r]
             edge_mask = edge_mask[:, :r]
             if nbr_idx is not None:
                 nbr_idx = nbr_idx[:, :r]
+            if coord_diff is not None:
+                coord_diff = coord_diff[:, :r]
+        if coord_diff is None:  # the neighbor list's, of the receivers that move
+            coord_diff = nbr_coord_diff(x, nbr_idx, cfg.norm_constant)
         out = F.silu(self.coord_in(h, edge_attr, dt, nbr_idx, rows=r))
         out = F.silu(linear(out, self.coord_mid, dt))
         gate = linear(out, self.coord_gate, dt)
@@ -266,9 +292,8 @@ class EquivariantBlock(nn.Module):
         if nbr_idx is None:
             radial, coord_diff = coord2diff(x, cfg.norm_constant)
         else:
-            diff = x[:, :, None, :] - gather_rows(x, nbr_idx)
-            radial = (diff ** 2).sum(-1, keepdim=True)
-            coord_diff = diff / (torch.sqrt(radial + 1e-8) + cfg.norm_constant)
+            radial = ((x[:, :, None, :] - gather_rows(x, nbr_idx)) ** 2).sum(-1, keepdim=True)
+            coord_diff = None  # the coordinate update's own (EquivariantUpdate)
         if cfg.sin_embedding:
             radial = sinusoids_embedding(radial)
         edge_attr = torch.cat([radial.to(cfg.compute_dtype), dist0], dim=-1)

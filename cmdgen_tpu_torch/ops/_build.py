@@ -27,9 +27,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("egnn_msgpass", "egnn_fused")
 # each source's variants (csrc/<name>.cu: EGNN_VARIANT): K1's regular and
-# ragged widths; K2's float, float ragged, bf16 mma, bf16 block_gemm, and
-# the float and bf16 mma ones chunked
-VARIANTS = {"egnn_msgpass": 2, "egnn_fused": 6}
+# ragged widths, then K3's; K2's float, float ragged, bf16 mma, bf16
+# block_gemm, and the float and bf16 mma ones chunked
+VARIANTS = {"egnn_msgpass": 4, "egnn_fused": 6}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

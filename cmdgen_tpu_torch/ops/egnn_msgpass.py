@@ -173,10 +173,30 @@ class _K1Plan(ctypes.Structure):
         "units", "grid", "smem_bytes")]
 
 
+def edge_plan(b: int, n: int, r: int, k: int, h: int, cdt: torch.dtype, sms: int,
+              route: Optional[str], coords: bool) -> Dict[str, object]:
+    """The plan of a pass over the edges of the first ``r`` rows of each
+    sample (csrc/egnn_plan.h: edge_plan): K1's message pass (``r == n``) or,
+    with ``coords``, K3's coordinate update (:mod:`.egnn_coord`), whose
+    tiles also hold each edge's coordinate difference. See
+    :func:`launch_plan`."""
+    p = _K1Plan()
+    st = _build.plan_library().egnn_edge_plan(b, n, r, k, h, int(cdt == torch.bfloat16), sms,
+                                              block_gemm_asked(route), int(coords),
+                                              ctypes.byref(p))
+    if st:
+        raise plan_error(st, h, f"coordinate update of {r} of {n} rows: B={b}, K={k}" if coords
+                         else f"empty message pass: B={b}, N={n}, K={k}")
+    return {"route": "mma" if p.mma else "block_gemm", "hp": p.hp, "rows": p.rows,
+            "variant": p.variant, "smem_bytes": p.smem_bytes, "receivers": p.receivers,
+            "chunk": p.chunk, "chunks": p.chunks, "items": p.items, "whole": p.whole,
+            "units": p.units, "grid": p.grid}
+
+
 def launch_plan(b: int, n: int, k: int, h: int, cdt: torch.dtype, sms: int,
                 route: Optional[str] = None) -> Dict[str, object]:
-    """The kernel's work decomposition (csrc/egnn_plan.h: k1_plan), passed
-    to it.
+    """The kernel's work decomposition (csrc/egnn_plan.h: edge_plan over
+    every row), passed to it.
 
     Width: the tile computes at ``hp`` (:func:`padded_width`), any h from 1
     to ``kernel_limits()["max_h"]``. Route: ``mma`` (mma.sync, W2 resident
@@ -196,15 +216,7 @@ def launch_plan(b: int, n: int, k: int, h: int, cdt: torch.dtype, sms: int,
     the number of units. ``variant``: the library of the launch's
     instantiation.
     """
-    p = _K1Plan()
-    st = _build.plan_library().egnn_k1_plan(b, n, k, h, int(cdt == torch.bfloat16), sms,
-                                            block_gemm_asked(route), ctypes.byref(p))
-    if st:
-        raise plan_error(st, h, f"empty message pass: B={b}, N={n}, K={k}")
-    return {"route": "mma" if p.mma else "block_gemm", "hp": p.hp, "rows": p.rows,
-            "variant": p.variant, "smem_bytes": p.smem_bytes, "receivers": p.receivers,
-            "chunk": p.chunk, "chunks": p.chunks, "items": p.items, "whole": p.whole,
-            "units": p.units, "grid": p.grid}
+    return edge_plan(b, n, n, k, h, cdt, sms, route, False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,23 +236,25 @@ def stage_shares(stamps: torch.Tensor) -> Dict[str, float]:
 
 
 class _Params(ctypes.Structure):
-    """csrc/egnn_msgpass.cu: K1Params, field for field."""
+    """csrc/egnn_msgpass.cu: K1Params, field for field (K1's and K3's)."""
 
     _fields_ = [
-        ("dtype", ctypes.c_int), ("mma", ctypes.c_int),
+        ("dtype", ctypes.c_int), ("mma", ctypes.c_int), ("coords", ctypes.c_int),
         ("wi", ctypes.c_void_p), ("wj", ctypes.c_void_p),
         ("idx", ctypes.c_void_p),
         ("radial", ctypes.c_void_p), ("dist0", ctypes.c_void_p), ("kmask", ctypes.c_void_p),
         ("s_rad", ctypes.c_int), ("s_d0", ctypes.c_int), ("s_km", ctypes.c_int),
         ("we", ctypes.c_void_p), ("we_s0", ctypes.c_int), ("we_s1", ctypes.c_int),
         ("w2", ctypes.c_void_p), ("b2", ctypes.c_void_p), ("att", ctypes.c_void_p),
-        ("att_b", ctypes.c_void_p), ("attention", ctypes.c_int),
+        ("att_b", ctypes.c_void_p), ("attention", ctypes.c_int), ("use_tanh", ctypes.c_int),
+        ("coords_range", ctypes.c_float), ("norm_constant", ctypes.c_float),
         ("norm_factor", ctypes.c_float),
+        ("x", ctypes.c_void_p), ("ucm", ctypes.c_void_p),
         ("out", ctypes.c_void_p), ("stamps", ctypes.c_void_p),
         ("B", ctypes.c_int), ("N", ctypes.c_int), ("K", ctypes.c_int), ("H", ctypes.c_int),
-        ("Hp", ctypes.c_int), ("R", ctypes.c_int), ("rows", ctypes.c_int), ("kc", ctypes.c_int),
-        ("chunks", ctypes.c_int), ("whole", ctypes.c_int), ("units", ctypes.c_int),
-        ("grid", ctypes.c_int),
+        ("Hp", ctypes.c_int), ("r", ctypes.c_int), ("R", ctypes.c_int), ("rows", ctypes.c_int),
+        ("kc", ctypes.c_int), ("chunks", ctypes.c_int), ("whole", ctypes.c_int),
+        ("units", ctypes.c_int), ("grid", ctypes.c_int),
     ]
 
 
@@ -269,33 +283,40 @@ def _edge_view(t: torch.Tensor, name: str, shape, cdt: torch.dtype) -> Tuple[tor
     return t, s
 
 
-def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_factor,
-                   compute_dtype=None, *, route: Optional[str] = None
-                   ) -> Callable[..., torch.Tensor]:
-    """Everything :func:`gcl_message_agg` does on CUDA tensors before the
+def prepare_edge_pass(counter: Callable, wi, wj, idx, radial, dist0, kmask, we, w2, w2b,
+                      dot, norm_factor, compute_dtype=None, *, route: Optional[str] = None,
+                      coords=None) -> Callable[..., torch.Tensor]:
+    """Everything K1's and K3's wrappers do on CUDA tensors before the
     launch: checks, the few casts the kernel cannot read through, the plan
-    and the output. Returns ``run(stamps=None)``, which launches the kernel
-    on those arguments (counted in ``gcl_message_agg.launches``) and
-    returns agg [B, N, H]; ``stamps``, an int64 CUDA tensor of
+    and the output. ``dot``: the per-edge dot's (kernel [H], bias [1] or
+    None), K1's attention or K3's gate, or None; ``radial``: K1's edge
+    scalar, None for K3; ``coords``: None for K1, K3's (x, update_coords_mask,
+    coords_range, norm_constant, use_tanh). Returns ``run(stamps=None)``,
+    which launches the kernel on those arguments (counted in
+    ``counter.launches``) and returns its output: K1's agg [B, N, H], K3's
+    x + agg [B, N, 3] float32; ``stamps``, an int64 CUDA tensor of
     ``len(STAGES) + 1`` elements, receives block 0's stage clock
-    (:func:`stage_shares`). ``route``: :func:`launch_plan`'s. Raises where
-    the kernel cannot run: a dtype other than float32 and bfloat16, H past
-    ``kernel_limits()["max_h"]``, a tensor that is not on the card or not
-    of the expected shape."""
+    (:func:`stage_shares`). Raises where the kernel cannot run: a dtype
+    other than float32 and bfloat16, H past ``kernel_limits()["max_h"]``, a
+    tensor that is not on the card or not of the expected shape."""
     cdt = compute_dtype or wi.dtype
     if cdt not in _DTYPE_CODE:
         raise ValueError(f"unsupported compute dtype {cdt}")
-    b, n, h = wi.shape
+    b, r, h = wi.shape
+    n = r if coords is None else idx.shape[1]
     k = idx.shape[-1]
     dev = wi.device
     if dev.type != "cuda":
         raise ValueError(f"wi must be a CUDA tensor, got {dev}")
-    plan = launch_plan(b, n, k, h, cdt, _sm_count(dev.index if dev.index is not None
-                                                  else torch.cuda.current_device()), route)
+    plan = edge_plan(b, n, r, k, h, cdt, _sm_count(dev.index if dev.index is not None
+                                                   else torch.cuda.current_device()),
+                     route, coords is not None)
     mma = plan["route"] == "mma"
     wi, wj = wi.to(cdt).contiguous(), wj.to(cdt).contiguous()
     idx = idx.to(torch.int64).contiguous()
-    radial, s_rad = _edge_view(radial, "radial", (b, n, k), cdt)
+    s_rad = 0
+    if radial is not None:
+        radial, s_rad = _edge_view(radial, "radial", (b, n, k), cdt)
     dist0, s_d0 = _edge_view(dist0, "dist0", (b, n, k), cdt)
     kmask, s_km = _edge_view(kmask, "kmask", (b, n, k), cdt)
     we = we.float()
@@ -307,38 +328,58 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
         # weight's layout, which the model's transposed view has already
         w2 = w2.t().contiguous().t()
     w2b = w2b.to(torch.float32).reshape(h).contiguous()
-    attention = att is not None
-    if attention:
-        atk = att[0].to(torch.float32).reshape(h).contiguous()
-        atb = att[1].to(torch.float32).reshape(1).contiguous()
-    for t, name, shape, dt in (
-        (wi, "wi", (b, n, h), cdt), (wj, "wj", (b, n, h), cdt),
-        (idx, "idx", (b, n, k), torch.int64),
-        (w2.t() if mma else w2, "w2", (h, h), cdt), (w2b, "w2b", (h,), torch.float32),
-    ) + (((atk, "att kernel", (h,), torch.float32), (atb, "att bias", (1,), torch.float32))
-         if attention else ()):
+    atk = atb = x = ucm = None
+    if dot is not None:
+        atk = dot[0].to(torch.float32).reshape(h).contiguous()
+        if dot[1] is not None:
+            atb = dot[1].to(torch.float32).reshape(1).contiguous()
+    names = ("w2", "w2b", "att kernel") if coords is None else ("wm", "bm", "wg")
+    checks = [(wi, "wi", (b, r, h), cdt), (wj, "wj", (b, n, h), cdt),
+              (idx, "idx", (b, n, k), torch.int64), (w2.t() if mma else w2, names[0], (h, h), cdt),
+              (w2b, names[1], (h,), torch.float32)]
+    if atk is not None:
+        checks.append((atk, names[2], (h,), torch.float32))
+    if atb is not None:
+        checks.append((atb, "att bias", (1,), torch.float32))
+    if coords is not None:
+        x = coords[0].to(torch.float32).contiguous()
+        checks.append((x, "x", (b, n, 3), torch.float32))
+        if coords[1] is not None:
+            ucm = coords[1].to(torch.float32).contiguous()
+            checks.append((ucm, "update_coords_mask", (b, n), torch.float32))
+    for t, name, shape, dt in checks:
         _check(t, name, shape, dt)
     if we.device.type != "cuda" or tuple(we.shape) != (2, h):
         raise ValueError(f"we: expected a CUDA tensor of shape (2, {h}), got "
                          f"{tuple(we.shape)} on {we.device}")
-    out = torch.empty((b, n, h), dtype=cdt, device=dev)
+    if coords is None:
+        out = torch.empty((b, n, h), dtype=cdt, device=dev)
+    else:
+        out = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
+
+    def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+        return None if t is None else t.data_ptr()
+
     p = _Params(
-        dtype=_DTYPE_CODE[cdt], mma=int(mma),
+        dtype=_DTYPE_CODE[cdt], mma=int(mma), coords=int(coords is not None),
         wi=wi.data_ptr(), wj=wj.data_ptr(), idx=idx.data_ptr(),
-        radial=radial.data_ptr(), dist0=dist0.data_ptr(), kmask=kmask.data_ptr(),
+        radial=ptr(radial), dist0=dist0.data_ptr(), kmask=kmask.data_ptr(),
         s_rad=s_rad, s_d0=s_d0, s_km=s_km,
         we=we.data_ptr(), we_s0=we.stride(0), we_s1=we.stride(1),
-        w2=w2.data_ptr(), b2=w2b.data_ptr(),
-        att=atk.data_ptr() if attention else None,
-        att_b=atb.data_ptr() if attention else None, attention=int(attention),
-        norm_factor=float(norm_factor), out=out.data_ptr(),
-        B=b, N=n, K=k, H=h, Hp=plan["hp"], R=plan["receivers"], rows=plan["rows"], kc=plan["chunk"],
-        chunks=plan["chunks"], whole=plan["whole"], units=plan["units"], grid=plan["grid"],
+        w2=w2.data_ptr(), b2=w2b.data_ptr(), att=ptr(atk), att_b=ptr(atb),
+        attention=int(coords is None and dot is not None),
+        use_tanh=int(coords is not None and bool(coords[4])),
+        coords_range=0.0 if coords is None else float(coords[2]),
+        norm_constant=0.0 if coords is None else float(coords[3]),
+        norm_factor=float(norm_factor), x=ptr(x), ucm=ptr(ucm), out=out.data_ptr(),
+        B=b, N=n, K=k, H=h, Hp=plan["hp"], r=r, R=plan["receivers"], rows=plan["rows"],
+        kc=plan["chunk"], chunks=plan["chunks"], whole=plan["whole"], units=plan["units"],
+        grid=plan["grid"],
     )
     fn = _kernel(plan["variant"])
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the tensors the kernel reads stay alive with the closure
-    keep = (wi, wj, idx, radial, dist0, kmask, we, w2, w2b) + ((atk, atb) if attention else ())
+    keep = (wi, wj, idx, radial, dist0, kmask, we, w2, w2b, atk, atb, x, ucm)
 
     def run(stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
         if stamps is not None:
@@ -346,13 +387,24 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
         p.stamps = None if stamps is None else stamps.data_ptr()
         rc = fn(ctypes.byref(p), stream)
         if rc != 0:
-            raise RuntimeError(f"egnn_msgpass kernel launch failed: cudaError {rc}")
-        gcl_message_agg.launches += 1
+            raise RuntimeError(f"{counter.__name__} kernel launch failed: cudaError {rc}")
+        counter.launches += 1
         return out
 
     run.plan = plan
     run.keep = keep
     return run
+
+
+def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_factor,
+                   compute_dtype=None, *, route: Optional[str] = None
+                   ) -> Callable[..., torch.Tensor]:
+    """Everything :func:`gcl_message_agg` does on CUDA tensors before the
+    launch (:func:`prepare_edge_pass`). Returns ``run(stamps=None)``, which
+    launches the kernel (counted in ``gcl_message_agg.launches``) and
+    returns agg [B, N, H]. ``route``: :func:`launch_plan`'s."""
+    return prepare_edge_pass(gcl_message_agg, wi, wj, idx, radial, dist0, kmask, we, w2, w2b,
+                             att, norm_factor, compute_dtype, route=route)
 
 
 def gcl_message_agg(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,

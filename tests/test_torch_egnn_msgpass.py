@@ -215,12 +215,13 @@ def test_launch_plan_splits_the_last_round():
     assert plan["units"] == plan["items"] == 1584
 
 
-def test_kernel_params_match_the_cuda_struct():
-    """The wrapper's ctypes structure lists K1Params's fields in the
-    source's order with the same C types."""
+def struct_fields(source: str, struct: str):
+    """The fields of a kernel's argument structure in csrc/<source>.cu, in
+    order, as (name, ctypes type name): the layout its wrapper's ctypes
+    structure must repeat."""
     src = (Path(egnn_msgpass.__file__).resolve().parent.parent / "csrc"
-           / "egnn_msgpass.cu").read_text()
-    body = re.search(r"struct K1Params \{(.*?)\n\};", src, re.S).group(1)
+           / f"{source}.cu").read_text()
+    body = re.search(rf"struct {struct} \{{(.*?)\n\}};", src, re.S).group(1)
     fields = []
     for line in body.splitlines():
         decl = line.split("//")[0].strip().rstrip(";")
@@ -232,8 +233,14 @@ def test_kernel_params_match_the_cuda_struct():
             ptr = "*" in ctype or name.startswith("*")
             fields.append((name.lstrip("*"), "void_p" if ptr else ctype))
     want = {"int": "c_int", "float": "c_float", "void_p": "c_void_p"}
+    return [(name, want[t]) for name, t in fields]
+
+
+def test_kernel_params_match_the_cuda_struct():
+    """The wrapper's ctypes structure lists K1Params's fields in the
+    source's order with the same C types."""
     got = [(name, t.__name__) for name, t in egnn_msgpass._Params._fields_]
-    assert got == [(name, want[t]) for name, t in fields]
+    assert got == struct_fields("egnn_msgpass", "K1Params")
 
 
 def test_plan_structs_match_the_header():

@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels against their plain versions on the card,
+"""The port's CUDA kernels against their plain versions on the card,
 over shapes and options that the flagship run of ``chip_smoke.py`` does
 not reach: other widths and K (any H up to 1024, widths that are not a
 multiple of the tile, K past one 128-row tile), ragged N, attention or
@@ -9,7 +9,8 @@ no CPU mode). On a machine with the card, from the repository root:
 
   python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 
-(``-k "gcl or msgpass"`` runs K1's cases alone, ``-k fused`` K2's. K2 is one
+(``-k "gcl or msgpass"`` runs K1's cases alone, ``-k fused`` K2's, ``-k
+coord`` K3's, the coordinate update on the neighbor list. K2 is one
 cooperative launch over every SM: it needs the whole card. K1 is an
 ordinary launch of at most one block per SM.)
 
@@ -32,6 +33,7 @@ import torch
 from cmdgen_tpu_torch.config import ca_config, full_atom_config
 from cmdgen_tpu_torch.models import egnn as egnn_module
 from cmdgen_tpu_torch.models.dynamics import EGNNDynamics, graphed_forward
+from cmdgen_tpu_torch.ops import egnn_coord as ec
 from cmdgen_tpu_torch.ops import egnn_fused as ef
 from cmdgen_tpu_torch.ops import egnn_msgpass as mp
 from cmdgen_tpu_torch.utils.synthetic import realistic_ca_pocket
@@ -956,3 +958,178 @@ def test_fsdp_and_dp_steps_on_one_card_match_plain(dev, tmp_path):
             for k, v in plain[key].items():
                 np.testing.assert_allclose(got[key][k], v, atol=1e-5, rtol=0, err_msg=k)
         np.testing.assert_allclose(got["losses"], plain["losses"], rtol=1e-4)
+
+
+# ------------------------------------------------------------------------
+# K3, the coordinate update on the neighbor list (ops/egnn_coord.py), against
+# its plain version: the displacement x_out - x_in of the rows that move,
+# relative to max|plain|, at K1's tolerances (float32 1e-4, summation order
+# only; bfloat16 2**-7: the gate rounded to bf16 before its tanh, a flipped
+# rounding of one edge's message moves that edge's translation by a step);
+# the rows that do not move equal, bit for bit.
+
+TOL_K3 = TOL_K1
+
+
+def _k3_args(dev, cdt, b, n, r, k, h, tanh, ucm, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g)
+
+    x = rnd(b, n, 3) * 2
+    idx = torch.randint(0, n, (b, n, k), generator=g)
+    idx[..., 0] = torch.arange(n)  # the self-edge first
+    mask = torch.ones(b, n)
+    mask[-1, r // 2] = 0  # a frozen row among the moving ones
+    args = (rnd(b, r, h).to(cdt), rnd(b, n, h).to(cdt), idx, (rnd(b, n, k).abs() * 5).to(cdt),
+            (torch.rand(b, n, k, generator=g) > 0.3).to(cdt), x, mask if ucm else None,
+            rnd(2, h) * 0.3, rnd(h, h) / h ** 0.5, rnd(h) * 0.1, rnd(h) / h ** 0.5)
+    moved = tuple(None if a is None else a.to(dev) for a in args)
+    return (*moved, 15.0, 1.0, 100.0, tanh, cdt)
+
+
+def _check_k3(args, tol):
+    """Kernel vs plain on the same arguments: the rows that do not move
+    equal, the displacement within tol of max|plain displacement|. Returns
+    the kernel's and the plain version's x_out."""
+    x = args[5]
+    r = args[0].shape[1]
+    before = ec.coord_update_agg.launches
+    with torch.no_grad():
+        out = ec.coord_update_agg(*args)
+        ref = ec.coord_update_agg_plain(*args)
+    torch.cuda.synchronize()
+    assert ec.coord_update_agg.launches == before + 1
+    assert out.shape == x.shape and out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert torch.equal(out[:, r:], x[:, r:])
+    dx, dref = out - x, ref - x
+    assert dref.abs().max().item() > 0
+    err, lim = (dx - dref).abs().max().item(), tol * dref.abs().max().item()
+    assert err <= lim, f"dx: max_abs_err {err:.3e} > {lim:.3e}"
+    return out, ref
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("b,n,r,k,h,tanh,ucm", [
+    (2, 13, 13, 5, 64, True, False),
+    (2, 13, 5, 5, 64, False, True),     # 5 of 13 rows move, no tanh, a mask
+    (1, 37, 37, 12, 256, True, True),
+    (64, 126, 126, 12, 256, True, False),  # the joint model's shape
+    (64, 126, 16, 12, 256, True, True),   # the conditional CA model's
+    (2, 130, 16, 16, 32, True, True),   # N past one tile, the narrowest width
+    (1, 20, 20, 12, 512, True, False),  # H = 512: bf16 on block_gemm, f32 64-row tiles
+    (2, 9, 9, 200, 256, True, False),   # K past one tile: two chunks a receiver
+    (3, 40, 0, 12, 64, True, False),    # no row moves: x copied
+    (2, 30, 30, 7, 100, True, True),    # a width that is not a power of two
+    (5, 37, 37, 12, 128, True, False),  # 20 items on 132 SMs: split in halves
+])
+def test_coord_update_agg_kernel_matches_plain(dev, cdt, b, n, r, k, h, tanh, ucm):
+    args = _k3_args(dev, cdt, b, n, r, k, h, tanh, ucm, seed=n * k + h + r)
+    if r == 0:
+        with torch.no_grad():
+            out = ec.coord_update_agg(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, args[5])
+        return
+    _check_k3(args, TOL_K3[cdt])
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+def test_coord_update_agg_seeded_fault_fails(dev, cdt):
+    """The comparison catches a kernel that would lose one column of
+    coord_mid or leave the gate's tanh out: the plain version so broken is
+    held to the sound kernel's result and fails."""
+    args = _k3_args(dev, cdt, 4, 40, 40, 12, 256, True, False, seed=3)
+    with torch.no_grad():
+        out = ec.coord_update_agg(*args)
+        wm = args[8].clone()
+        wm[:, 255] = 0
+        faults = {"coord_mid column 255": args[:8] + (wm,) + args[9:],
+                  "tanh left out": args[:14] + (False, cdt)}
+        x = args[5]
+        for name, a in faults.items():
+            bad = ec.coord_update_agg_plain(*a) - x
+            err = ((out - x) - bad).abs().max().item()
+            assert err > TOL_K3[cdt] * bad.abs().max().item(), name
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("joint", [False, True], ids=["conditional", "joint"])
+def test_coord_kernel_matches_plain_on_engine_inputs(dev, monkeypatch, cdt, joint):
+    """K3 on the arguments the msgpass engine gives it at the flagship
+    widths (B=16), every layer: the conditional model's 8 moving rows with
+    its update-coordinates mask, or the joint model's every row. The calls
+    are recorded from one denoiser evaluation run on the plain version,
+    then each is held kernel against plain; block 0's stage clock covers
+    its tiles."""
+    dyn, ecfg, inputs = _flagship_model(dev, cdt, 16, seed=5, joint=joint)
+    calls = []
+
+    def record(*args, **kw):
+        args = args + (kw.get("compute_dtype"),)
+        calls.append(args)
+        return ec.coord_update_agg_plain(*args)
+
+    monkeypatch.setattr(egnn_module, "coord_update_agg", record)
+    with torch.no_grad():
+        dyn.eager_forward(*inputs)
+        assert len(calls) == ecfg.n_layers
+        for args in calls:
+            assert args[0].shape[1] == (118 if joint else 8)
+            assert (args[6] is None) == joint
+            _check_k3(args, TOL_K3[cdt])
+        run = ec.prepare_launch(*calls[0])
+        assert run.plan["route"] == ("mma" if cdt == torch.bfloat16 else "block_gemm")
+        stamps = torch.zeros(len(mp.STAGES) + 1, dtype=torch.int64, device=dev)
+        torch.testing.assert_close(run(stamps), ec.coord_update_agg(*calls[0]), rtol=0, atol=0)
+    shares = mp.stage_shares(stamps)
+    assert shares["tiles"] >= 1 and sum(shares[s] for s in mp.STAGES) == pytest.approx(1.0)
+
+
+def test_coord_kernel_raises_on_unsupported_input(dev):
+    args = list(_k3_args(dev, torch.float32, 1, 9, 9, 4, 64, True, False, seed=0))
+    args[5] = args[5].cpu()  # x left on the CPU
+    with pytest.raises(ValueError, match="x must be a CUDA tensor"):
+        ec.coord_update_agg(*args)
+    args = list(_k3_args(dev, torch.bfloat16, 1, 9, 9, 4, 1025, True, False, seed=0))
+    with pytest.raises(ValueError, match="hidden width 1025"):
+        ec.coord_update_agg(*args)
+
+
+@pytest.mark.parametrize("joint", [False, True], ids=["conditional", "joint"])
+def test_graphed_denoiser_holds_k3(dev, joint):
+    """The module's graph holds one K3 launch a layer: a replay equals the
+    op-by-op pass bit for bit and adds a pass's K3 launches to its counter,
+    as it adds K1's; the op-by-op pass launches them through the wrapper,
+    each inside its ``kernel.coord`` span while a profiler records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmdgen_tpu_torch.utils import profiling
+
+    dyn, ecfg, inputs = _flagship_model(dev, torch.float32, 4, seed=8, joint=joint)
+    n = ecfg.n_layers
+    with torch.no_grad():
+        dyn(*inputs)  # captures
+        assert not dyn.graphs.refused, dyn.graphs.refused
+        before = (ec.coord_update_agg.launches, mp.gcl_message_agg.launches,
+                  graphed_forward.replays)
+        out = dyn(*inputs)
+        assert (ec.coord_update_agg.launches - before[0], mp.gcl_message_agg.launches - before[1],
+                graphed_forward.replays - before[2]) == (n, n, 1)
+        profiling.clear_spans()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ref = dyn.eager_forward(*inputs)
+            torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert torch.equal(o, r)
+    events = [e for e in prof.profiler.kineto_results.events() if not e.is_hidden_event()]
+    ours = {e.correlation_id() for e in events
+            if "coord_update_agg_kernel" in e.name() and e.device_type() == DeviceType.CUDA}
+    starts = [e.start_ns() for e in events if e.correlation_id() in ours
+              and "Launch" in e.name() and e.device_type() != DeviceType.CUDA]
+    windows = [(s.start_ns, s.end_ns) for s in profiling.spans() if s.name == "kernel.coord"]
+    profiling.clear_spans()
+    assert len(ours) == len(starts) == len(windows) == n
+    assert all(any(a <= c <= b for a, b in windows) for c in starts)
