@@ -478,7 +478,8 @@ def timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes):
 def k1_work(b, n, k, h, es):
     """K1's operations and bytes for b samples of n nodes, k neighbours
     each, width h, es bytes an element (every slot, masked ones too: the
-    kernel computes them)."""
+    bound of a kernel that computes them all, kept for comparison; the
+    kernel takes only the live ones, ``live_share`` of them)."""
     edges = b * n * k
     flops = 2 * edges * h * h + 2 * edges * h
     nbytes = 3 * b * n * h * es + 4 * edges * 4 + (h * h + 2 * h + h) * es + (h + 1) * 4
@@ -548,13 +549,15 @@ def check_k1(dev, dtype_name, b=B, h=H, route=None):
         run = prepare_launch(*args, route=route)
         kernel_ms = cuda_ms(run, 100)
         stamps = torch.zeros(len(STAGES) + 1, dtype=torch.int64, device=dev)
+        rows0 = gcl_message_agg.edge_rows()
         run(stamps)
+        rows1 = gcl_message_agg.edge_rows()
         stages = stage_shares(stamps)
         plain_ms = cuda_ms(lambda: gcl_message_agg_plain(*args), 10)
     plan = run.plan
     grid = {"blocks": plan["grid"], "threads": 512, "route": plan["route"],
-            "receivers_per_item": plan["receivers"], "items": plan["items"],
-            "units": plan["units"], "rows": plan["rows"], "hp": plan["hp"]}
+            "rows": plan["rows"], "hp": plan["hp"],
+            "live_share": (rows1[0] - rows0[0]) / max(rows1[1] - rows0[1], 1)}
     log(f"  grid: {grid}")
     es = 4 if dtype_name == "float32" else 2
     flops, nbytes = k1_work(b, N_P + N_Q, K, h, es)
@@ -588,7 +591,7 @@ K3_SHAPES = {
 def k3_work(b, n, r, k, h, es):
     """K3's operations and bytes for b samples of n nodes, r of them moving
     with k neighbours each, width h, es bytes an element (every slot of the
-    moving rows, masked ones too: the kernel computes them)."""
+    moving rows, masked ones too, as ``k1_work`` counts them)."""
     edges = b * r * k
     flops = 2 * edges * h * h + 2 * edges * h
     nbytes = ((b * r + b * n) * h * es + edges * (8 + 2 * es) + 2 * b * n * 3 * 4
@@ -691,13 +694,15 @@ def check_k3(dev, shape_name):
         run = prepare_launch(*args)
         kernel_ms = cuda_ms(run, 100)
         stamps = torch.zeros(len(STAGES) + 1, dtype=torch.int64, device=dev)
+        rows0 = coord_update_agg.edge_rows()
         run(stamps)
+        rows1 = coord_update_agg.edge_rows()
         stages = stage_shares(stamps)
         plain_ms = cuda_ms(lambda: coord_update_agg_plain(*args), 10)
     plan = run.plan
     grid = {"blocks": plan["grid"], "threads": 512, "route": plan["route"],
-            "receivers_per_item": plan["receivers"], "items": plan["items"],
-            "units": plan["units"], "rows": plan["rows"], "chunks": plan["chunks"]}
+            "rows": plan["rows"],
+            "live_share": (rows1[0] - rows0[0]) / max(rows1[1] - rows0[1], 1)}
     log(f"  grid: {grid}")
     flops, nbytes = k3_work(b, n, r, k, H, 4 if cdt == torch.float32 else 2)
     res = timed_check(dtype_name, checks, ms, plain_ms, flops, nbytes)

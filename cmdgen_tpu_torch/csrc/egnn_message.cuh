@@ -1,10 +1,11 @@
-// The GCL message tile shared by the EGNN kernels: K1 (egnn_msgpass.cu)
-// runs one per work item, K2 (egnn_fused.cu) one per item of its message
-// phase; K3 (egnn_msgpass.cu's coordinate update) runs its pair layer and
-// product (edge_messages) with a coordinate epilogue, the one K2's coordinate
-// phase shares (coord_translate, coord_ksum, at the end of this file). A
-// tile is rv receivers of one sample times kc of their edges (edge
-// e = r * kc + k, at most `rows` edges), and does
+// The GCL message tile shared by the EGNN kernels: K2 (egnn_fused.cu) runs
+// one per item of its message phase (message_tile); K1 and K3
+// (egnn_msgpass.cu) run its pair layer and product (edge_messages) on
+// tiles of live edges, with K-sums over receivers that hold any number of
+// a tile's edges (ksum_ragged; coord_ksum_ragged, beside the coordinate
+// epilogue that K2's coordinate phase shares: coord_translate, coord_ksum,
+// at the end of this file). K2's tile is rv receivers of one sample times
+// kc of their edges (edge e = r * kc + k, at most `rows` edges), and does
 //   pair layer  buf[e] = silu(wi_r + proj_j + radial * we0 + dist0 * we1)
 //   product     m = silu(buf @ W2 + b2), back into buf
 //   attention   escale[e] = sigmoid(m . att + att_b) * kmask (or kmask)
@@ -489,6 +490,60 @@ __device__ void message_tile(const MsgSmem<T>& sm, const T* wi, const T* proj, c
   }
 }
 
+// The K-sum of a tile of K1's work list (egnn_msgpass.cu), whose rv
+// receivers hold any number of its edges: receiver i's are edges
+// [eoff[i], eoff[i + 1]) of the tile, in k order, eoff[rv] the tile's
+// edges. As message_tile's K-sum otherwise: m kept in buf, each edge's
+// weight in et.escale, the sum in T, carried between the chunks of a
+// receiver taken in several tiles. A receiver with no edge sums to zero.
+template <typename T, bool kRagged>
+__device__ void ksum_ragged(const MsgSmem<T>& sm, const int* eoff, int rv, int H, int Hp,
+                            bool first, bool last, float inv, T* out) {
+  using C = Cvt<T>;
+  const int ld = sm.ld;
+  const float* sc = sm.et.escale;
+  const int cp = Hp / 2;
+  const int rpp = kThreads / cp;  // receivers per pass
+  if ((int)threadIdx.x >= rpp * cp) return;
+  const int c = 2 * (threadIdx.x % cp);
+  for (int i = threadIdx.x / cp; i < rv; i += rpp) {
+    const T* col = sm.buf + c;
+    int e = eoff[i];
+    const int e1 = eoff[i + 1];
+    float s0 = 0.0f, s1 = 0.0f;
+    if (!first) {
+      s0 = sm.carry[c];
+      s1 = sm.carry[c + 1];
+    } else if (e < e1) {
+      const float2 v = load2(col + (size_t)e * ld);
+      s0 = v.x * sc[e];
+      s1 = v.y * sc[e];
+      rnd2<T>(s0, s1);
+      ++e;
+    }
+    for (; e < e1; ++e) {
+      const float2 v = load2(col + (size_t)e * ld);
+      float t0 = v.x * sc[e], t1 = v.y * sc[e];
+      rnd2<T>(t0, t1);
+      s0 += t0;
+      s1 += t1;
+      rnd2<T>(s0, s1);
+    }
+    if (last) {
+      T* o = out + (size_t)i * H + c;
+      if (!kRagged || H % 2 == 0) {  // c < H holds c + 1 < H, the pair aligned
+        if (!kRagged || c < H) store2(o, s0 * inv, s1 * inv);
+      } else {
+        if (c < H) o[0] = C::from_f(s0 * inv);
+        if (c + 1 < H) o[1] = C::from_f(s1 * inv);
+      }
+    } else {  // one receiver per chunked tile: this thread reads it back
+      sm.carry[c] = s0;
+      sm.carry[c + 1] = s1;
+    }
+  }
+}
+
 // ---- the coordinate update's epilogue (K2's phase D, K3): each edge's
 // translation from its difference vector, and their sum over a receiver's
 // edges in k order
@@ -516,6 +571,30 @@ __device__ __forceinline__ void coord_ksum(const float* ediff, float* xcarry, in
     const float* d = ediff + (size_t)i * kc * 3 + c;
     float s = first ? d[0] : xcarry[c];
     for (int k = first ? 1 : 0; k < kc; ++k) s += d[k * 3];
+    if (last)
+      done(i, c, s);
+    else
+      xcarry[c] = s;
+  }
+}
+
+// coord_ksum over a tile of K3's work list, whose receiver i holds edges
+// [eoff[i], eoff[i + 1]) of the tile (ksum_ragged): a receiver with no
+// edge sums to zero.
+template <typename Done>
+__device__ __forceinline__ void coord_ksum_ragged(const float* ediff, float* xcarry,
+                                                  const int* eoff, int rv, bool first,
+                                                  bool last, Done done) {
+  for (int p = threadIdx.x; p < rv * 3; p += kThreads) {
+    const int i = p / 3, c = p % 3;
+    int e = eoff[i];
+    const int e1 = eoff[i + 1];
+    float s = 0.0f;
+    if (!first)
+      s = xcarry[c];
+    else if (e < e1)
+      s = ediff[(size_t)e++ * 3 + c];
+    for (; e < e1; ++e) s += ediff[(size_t)e * 3 + c];
     if (last)
       done(i, c, s);
     else

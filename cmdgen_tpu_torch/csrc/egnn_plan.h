@@ -95,12 +95,15 @@ EGNN_HD inline size_t alloc_rows(size_t rows, bool bf16) {
 // weight matrix [H, H] and the per-row partial sums of the epilogues' dot
 // products, on the block_gemm route the products' buffers (GemmSmem), the
 // vectors of the pair MLP (GclVecs), the running K-sum of a chunked
-// receiver, the per-edge arrays of one tile and, with `coords` (K2's
-// coordinate pass, K3), the edges' coordinate differences and running sum.
+// receiver, the per-edge arrays of one tile, with `coords` (K2's
+// coordinate pass, K3) the edges' coordinate differences and running sum
+// and, with `ragged` (K1 and K3, whose receivers hold any number of a
+// tile's edges), each receiver's first edge in the tile and the scan that
+// finds an item's sample in the work list.
 struct TileSmem {
   size_t buf, wsm, part, gemm, vec, carry, eidx, ercv, ekm, erad, ed0, escale, ediff, xcarry,
-      total;
-  EGNN_HD TileSmem(int H, int rows, bool mma, bool bf16, bool coords) {
+      eoff, iscan, total;
+  EGNN_HD TileSmem(int H, int rows, bool mma, bool bf16, bool coords, bool ragged = false) {
     const size_t ld = H + row_pad(bf16);
     Carver c;
     buf = c.take((bf16 ? 2 : 4) * alloc_rows(rows, bf16) * ld);
@@ -117,6 +120,8 @@ struct TileSmem {
     escale = c.take(4 * (size_t)rows);
     ediff = c.take(coords ? 4 * 3 * (size_t)rows : 0);
     xcarry = c.take(coords ? 4 * 3 : 0);
+    eoff = c.take(ragged ? 4 * ((size_t)rows + 1) : 0);
+    iscan = c.take(ragged ? 4 * (size_t)(kThreads + kWarps) : 0);
     total = c.off;
   }
 };
@@ -133,13 +138,13 @@ inline bool takes_mma(int hp, bool bf16, bool block_gemm) {
 
 // The most rows, a multiple of `step` up to kEdgeRows, whose block_gemm
 // tile fits in shared memory; 0 if none does.
-inline int fit_rows(int hp, bool bf16, bool coords, int step) {
+inline int fit_rows(int hp, bool bf16, bool coords, int step, bool ragged = false) {
   for (int rows = kEdgeRows; rows > 0; rows -= step)
-    if (TileSmem(hp, rows, false, bf16, coords).total <= (size_t)kMaxSmem) return rows;
+    if (TileSmem(hp, rows, false, bf16, coords, ragged).total <= (size_t)kMaxSmem) return rows;
   return 0;
 }
 
-// A message item: `receivers` receivers of one sample with all their K
+// K2's message item: `receivers` receivers of one sample with all their K
 // edges (receivers * K <= rows); a receiver with more than `rows` edges is
 // an item of its own, taken in `chunks` tiles of `chunk` edges, in k order.
 struct Chunking {
@@ -152,20 +157,73 @@ inline Chunking chunking(int K, int rows) {
   return {1, cdiv(K, chunks), chunks};
 }
 
+// The work list of K1 and K3 (egnn_msgpass.cu), which their pre-pass
+// (edge_worklist_kernel, one block a sample) builds on the device at every
+// launch from kmask, in one int32 buffer of `ints` elements laid out here:
+// `items`, each sample's items at [b * rcv][4] (sample, first receiver,
+// receivers, live edges); `slots`, each receiver's live k (kmask non-zero)
+// in k order at [(b * rcv + i) * K]; `poff`, each receiver's first live
+// edge among its sample's (an exclusive scan of the live counts); and each
+// sample's number of items. Every size is the worst case (an item a
+// receiver), so a graph that holds the launch stays valid whatever the
+// mask. The kernel walks the items of every sample in order.
+struct WorkList {
+  size_t items, slots, poff, sample_items, ints;
+  EGNN_HD WorkList(int B, int rcv, int K) {
+    const size_t rows = (size_t)B * rcv;
+    items = 0;
+    slots = items + 4 * rows;
+    poff = slots + rows * K;
+    sample_items = poff + rows;
+    ints = sample_items + B;
+  }
+};
+
+// The rows of an item of K1's or K3's work list: consecutive receivers of
+// one sample, kept whole, whose live edges together fit (at most `cap`,
+// and at most `cap` receivers); a receiver with more than `cap` live edges
+// is an item of its own, taken in chunks of at most `cap` edges in k order
+// (item_chunks).
+EGNN_HD inline int item_chunks(int edges, int cap) { return edges > cap ? cdiv(edges, cap) : 1; }
+
+// The pre-pass's shared memory for `rcv` receivers a sample: their live
+// counts (then the counts' scan, rcv + 1) and the item ends doubled
+// worklist_levels times (jump[l][i]: where the item 2**l items on from
+// receiver i starts), levels enough to reach any of rcv items.
+EGNN_HD inline int worklist_levels(int rcv) {
+  int l = 1;
+  while ((1 << l) < rcv) ++l;
+  return l;
+}
+EGNN_HD inline size_t worklist_smem(int rcv) {
+  return 4 * ((size_t)rcv + 1) * (1 + worklist_levels(rcv));
+}
+
+// The float product's rows a pass (egnn_common.cuh: gemm_f32 at its widest
+// register tile) at a power-of-two width hp; 0 at other widths.
+EGNN_HD inline int f32_pass_rows(int hp) {
+  return (hp & (hp - 1)) == 0 && hp >= 4 ? kThreads / (hp / 4) * 8 : 0;
+}
+
 // The plan of a pass over the edges of `rcv` receivers of each sample, the
 // first rcv of its N rows (egnn_msgpass.cu): K1's message pass (every row)
 // or, with `coords`, K3's coordinate update (the rows that move; its tile
-// keeps each edge's coordinate difference). The grid, one block per SM,
-// walks the units of work in a strided loop: items [0, whole) whole, then
-// the rest as two half items each (a last round that would leave blocks
-// idle, split when twice as many still fit in one round and an item has
-// two receivers to split); the grid is capped at the number of units, one
-// block at least (K3 copies the rows that do not move even where none
-// moves). rows: kEdgeRows on the mma route, else the most rows, a multiple
-// of 16, that fit. variant: the library that holds the launch's
-// instantiation (edge_variant).
+// keeps each edge's coordinate difference). The tiles are packed on the
+// device from the live edges (WorkList); the host plans the width, the
+// route, the rows of a tile, the list's size and the grid: one block per
+// SM walking the items in a strided loop, capped at the most items there
+// can be (one a receiver), one block at least (K3 copies the rows that do
+// not move even where none moves). rows: kEdgeRows on the mma route, else
+// the most rows, a multiple of 16, that fit. cap: the edges of an item at
+// most, `rows`, or half of them where every slot of the launch fits in one
+// round of full tiles and a float tile multiplies its rows in passes of
+// half a tile: the list then spreads over twice as many blocks, and the
+// round's one pass takes half the time of two (where every slot is live,
+// two rounds of one pass take what one of two did). variant: the library
+// that holds the launch's instantiation (edge_variant). list_smem: the
+// pre-pass's dynamic shared memory (worklist_smem).
 struct K1Plan {
-  int hp, mma, variant, rows, receivers, chunk, chunks, items, whole, units, grid, smem_bytes;
+  int hp, mma, variant, rows, cap, items, grid, smem_bytes, list_ints, list_smem;
 };
 
 // egnn_msgpass.cu's EGNN_VARIANT: K1 at the regular widths (0) and the
@@ -177,20 +235,20 @@ EGNN_HD inline int edge_variant(int H, bool bf16, bool coords) {
 inline int edge_plan(int B, int N, int rcv, int K, int H, bool bf16, int sms, bool block_gemm,
                      bool coords, K1Plan* p) {
   if (B < 1 || N < 1 || K < 1 || sms < 1) return kPlanEmpty;
-  if (rcv < 0 || rcv > N) return kPlanRows;
+  if (rcv < 0 || rcv > N || worklist_smem(rcv) > (size_t)kMaxSmem) return kPlanRows;
   const int hp = padded_width(H, bf16);
   if (!hp) return kPlanWidth;
   const bool mma = takes_mma(hp, bf16, block_gemm);
-  const int rows = mma ? kEdgeRows : fit_rows(hp, bf16, coords, 16);
+  const int rows = mma ? kEdgeRows : fit_rows(hp, bf16, coords, 16, true);
   if (!rows) return kPlanNoTile;
-  const Chunking c = chunking(K, rows);
-  const int items = B * cdiv(rcv, c.receivers);
-  const int tail = items % sms;
-  const int split = c.receivers >= 2 && 2 * tail <= sms ? tail : 0;
-  const int units = items + split;
-  *p = {hp, mma, edge_variant(H, bf16, coords), rows, c.receivers, c.chunk, c.chunks, items,
-        items - split, units, imin(sms, units > 0 ? units : 1),
-        (int)TileSmem(hp, rows, mma, bf16, coords).total};
+  const WorkList list(B, rcv, K);
+  if (list.ints > (size_t)0x7fffffff) return kPlanEmpty;
+  const int items = B * rcv;
+  const bool halve = !mma && !bf16 && 2 * f32_pass_rows(hp) == rows &&
+                     (size_t)items * K <= (size_t)sms * rows;
+  *p = {hp, mma, edge_variant(H, bf16, coords), rows, halve ? rows / 2 : rows, items,
+        imin(sms, items > 0 ? items : 1), (int)TileSmem(hp, rows, mma, bf16, coords, true).total,
+        (int)list.ints, (int)worklist_smem(rcv)};
   return kPlanOk;
 }
 

@@ -26,6 +26,7 @@ from typing import Callable, Optional
 import torch
 
 from cmdgen_tpu_torch.ops.egnn_msgpass import (
+    EdgeRows,
     edge_plan,
     gather_rows,
     ksum,
@@ -84,10 +85,10 @@ def launch_plan(b: int, n: int, r: int, k: int, h: int, cdt: torch.dtype, sms: i
                 route: Optional[str] = None) -> dict:
     """The kernel's work decomposition (``egnn_msgpass.edge_plan``), passed
     to it: K1's plan (``egnn_msgpass.launch_plan``: the width, the route,
-    the rows of a tile, the items, their split and the grid) over the
-    first ``r`` receivers of each sample, its tiles also holding each
-    edge's coordinate difference; the grid is one block at least, which
-    copies the rows that do not move where none moves."""
+    the rows of a tile, the work list's size and the grid) over the first
+    ``r`` receivers of each sample, its tiles also holding each edge's
+    coordinate difference; the grid is one block at least, which copies
+    the rows that do not move where none moves."""
     return edge_plan(b, n, r, k, h, cdt, sms, route, True)
 
 
@@ -97,8 +98,8 @@ def prepare_launch(wi, wj, idx, dist0, kmask, x, update_coords_mask, we, wm, bm,
                    ) -> Callable[..., torch.Tensor]:
     """Everything :func:`coord_update_agg` does on CUDA tensors before the
     launch (``egnn_msgpass.prepare_edge_pass``). Returns
-    ``run(stamps=None)``, which launches the kernel (counted in
-    ``coord_update_agg.launches``) and returns x + agg [B, N, 3] float32;
+    ``run(stamps=None)``, which launches the pre-pass and the kernel
+    (counted in ``coord_update_agg.launches``) and returns x + agg [B, N, 3] float32;
     ``stamps``: as K1's (``egnn_msgpass.stage_shares``). ``route``:
     :func:`launch_plan`'s."""
     return prepare_edge_pass(coord_update_agg, wi, wj, idx, None, dist0, kmask, we, wm, bm,
@@ -114,7 +115,8 @@ def coord_update_agg(wi, wj, idx, dist0, kmask, x, update_coords_mask, we, wm, b
     """The coordinate update x + agg. Same arguments and result as
     :func:`coord_update_agg_plain`. On CUDA tensors
     this launches the kernel (and counts the launch in
-    ``coord_update_agg.launches``) or raises, also where an input requires
+    ``coord_update_agg.launches``, its edge rows in
+    ``coord_update_agg.edge_rows``) or raises, also where an input requires
     grad under grad mode (``refuse_autograd``)."""
     if wi.device.type == "cpu":
         return coord_update_agg_plain(wi, wj, idx, dist0, kmask, x, update_coords_mask, we, wm,
@@ -128,3 +130,4 @@ def coord_update_agg(wi, wj, idx, dist0, kmask, x, update_coords_mask, we, wm, b
 
 
 coord_update_agg.launches = 0
+coord_update_agg.edge_rows = EdgeRows()

@@ -81,6 +81,75 @@ def gcl_message_agg_plain(
     return agg * torch.tensor(1.0 / norm_factor, dtype=cdt, device=agg.device)
 
 
+def edge_worklist_plain(kmask: torch.Tensor, r: int, rows: int) -> Dict[str, object]:
+    """The work list that the kernels' pre-pass builds on the device
+    (``csrc/egnn_msgpass.cu``: edge_worklist_kernel) from ``kmask`` [B, N,
+    K], over the first ``r`` receivers of each sample, for items of at
+    most ``rows`` edges (the plan's ``cap``), in plain PyTorch. Returns ``slots`` (a list per sample
+    of a list per receiver of its live k, kmask non-zero, in k order),
+    ``poff`` [B, r + 1] (each receiver's first live edge among its
+    sample's: the exclusive scan of the live counts, the total last) and
+    ``items`` (a list per sample of its items (first receiver, receivers,
+    live edges), in order). An item is the most consecutive receivers, at
+    most ``rows``, whose live edges together fit in ``rows``; a receiver
+    with more is an item alone, which the kernel takes in ``item_chunks``
+    tiles. Receivers with no live edge join items too."""
+    live = kmask[:, :r].float() != 0
+    count = live.sum(-1)
+    poff = torch.cat([torch.zeros_like(count[:, :1]), count.cumsum(-1)], -1).tolist()
+    slots, items = [], []
+    for s in range(kmask.shape[0]):
+        slots.append([torch.nonzero(live[s, i]).flatten().tolist() for i in range(r)])
+        p, mine, i = poff[s], [], 0
+        while i < r:
+            j = i + 1
+            if p[j] - p[i] <= rows:
+                while j < min(r, i + rows) and p[j + 1] - p[i] <= rows:
+                    j += 1
+            mine.append((i, j - i, p[j] - p[i]))
+            i = j
+        items.append(mine)
+    return {"slots": slots, "poff": torch.tensor(poff, dtype=torch.int64), "items": items}
+
+
+def item_chunks(edges: int, rows: int) -> int:
+    """The tiles an item of ``edges`` live edges takes (csrc/egnn_plan.h:
+    item_chunks): one, or a receiver's edges past ``rows`` in chunks of at
+    most ``rows``, ``-(-edges // chunks)`` each but the last."""
+    return -(-edges // rows) if edges > rows else 1
+
+
+class EdgeRows:
+    """A kernel's edge rows on the device: the live edges that K1's or K3's
+    pre-pass put on the work list, which are the rows the kernel's product
+    computes, and the B x r x K slots of its launches, added by the
+    pre-pass at every launch, graph replays included (no wrapper runs
+    there). One int64 pair a device, made outside any graph capture; a
+    launch captured before the device has one counts nothing."""
+
+    def __init__(self):
+        self._buffers: Dict[torch.device, torch.Tensor] = {}
+
+    def buffer(self, dev: torch.device) -> Optional[torch.Tensor]:
+        """The device's [rows, slots] counter, made at its first launch
+        outside a capture; None inside a capture before it exists."""
+        t = self._buffers.get(dev)
+        if t is None and not (dev.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            t = self._buffers[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+        return t
+
+    def __call__(self) -> Tuple[int, int]:
+        """(edge rows computed, slots) over every launch so far, read after
+        a synchronisation of each device."""
+        rows = slots = 0
+        for dev, t in self._buffers.items():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            got = t.tolist()
+            rows, slots = rows + got[0], slots + got[1]
+        return rows, slots
+
+
 def _check(t: torch.Tensor, name: str, shape, dtype) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -169,8 +238,8 @@ class _K1Plan(ctypes.Structure):
     """csrc/egnn_plan.h: K1Plan, field for field."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "hp", "mma", "variant", "rows", "receivers", "chunk", "chunks", "items", "whole",
-        "units", "grid", "smem_bytes")]
+        "hp", "mma", "variant", "rows", "cap", "items", "grid", "smem_bytes", "list_ints",
+        "list_smem")]
 
 
 def edge_plan(b: int, n: int, r: int, k: int, h: int, cdt: torch.dtype, sms: int,
@@ -188,9 +257,8 @@ def edge_plan(b: int, n: int, r: int, k: int, h: int, cdt: torch.dtype, sms: int
         raise plan_error(st, h, f"coordinate update of {r} of {n} rows: B={b}, K={k}" if coords
                          else f"empty message pass: B={b}, N={n}, K={k}")
     return {"route": "mma" if p.mma else "block_gemm", "hp": p.hp, "rows": p.rows,
-            "variant": p.variant, "smem_bytes": p.smem_bytes, "receivers": p.receivers,
-            "chunk": p.chunk, "chunks": p.chunks, "items": p.items, "whole": p.whole,
-            "units": p.units, "grid": p.grid}
+            "cap": p.cap, "variant": p.variant, "smem_bytes": p.smem_bytes, "items": p.items,
+            "grid": p.grid, "list_ints": p.list_ints, "list_smem": p.list_smem}
 
 
 def launch_plan(b: int, n: int, k: int, h: int, cdt: torch.dtype, sms: int,
@@ -205,15 +273,18 @@ def launch_plan(b: int, n: int, k: int, h: int, cdt: torch.dtype, sms: int,
     ``route="block_gemm"`` asks for it where mma would run
     (:func:`block_gemm_asked`).
     ``rows``: 128 on the mma route, else the most rows (a multiple of 16)
-    whose tile fits in shared memory (``smem_bytes``). A work item is
-    ``receivers`` receivers of one sample with all their edges,
-    ``receivers * k <= rows``; a receiver with more than ``rows`` edges is
-    one item of ``chunks`` tiles of ``chunk`` edges each. The grid, one
-    block per SM, walks the units of work in a strided loop: items ``[0,
-    whole)`` whole, then the rest as two half items each (a last round that
-    would leave blocks idle, split when twice as many still fit in one
-    round and an item has two receivers to split). The grid is capped at
-    the number of units. ``variant``: the library of the launch's
+    whose tile fits in shared memory (``smem_bytes``). The work items are
+    packed on the device at every launch from the live slots (kmask
+    non-zero) of each receiver (:func:`edge_worklist_plain` is the same
+    packing in plain PyTorch): consecutive receivers of one sample whose
+    live edges fit in ``cap``, kept whole; a receiver with more live edges
+    is an item of its own, taken in chunks. ``cap`` is ``rows``, or half of
+    them on the float route where every slot of the launch fits in one
+    round of full tiles (csrc/egnn_plan.h: K1Plan). ``items``: the most
+    items there can be (one a receiver), the size of the list
+    (``list_ints`` int32 elements; ``list_smem``, the packing's shared
+    memory). The grid, one block per SM capped at ``items``, walks the list
+    in a strided loop. ``variant``: the library of the launch's
     instantiation.
     """
     return edge_plan(b, n, n, k, h, cdt, sms, route, False)
@@ -251,10 +322,10 @@ class _Params(ctypes.Structure):
         ("norm_factor", ctypes.c_float),
         ("x", ctypes.c_void_p), ("ucm", ctypes.c_void_p),
         ("out", ctypes.c_void_p), ("stamps", ctypes.c_void_p),
+        ("list", ctypes.c_void_p), ("edge_rows", ctypes.c_void_p),
         ("B", ctypes.c_int), ("N", ctypes.c_int), ("K", ctypes.c_int), ("H", ctypes.c_int),
-        ("Hp", ctypes.c_int), ("r", ctypes.c_int), ("R", ctypes.c_int), ("rows", ctypes.c_int),
-        ("kc", ctypes.c_int), ("chunks", ctypes.c_int), ("whole", ctypes.c_int),
-        ("units", ctypes.c_int), ("grid", ctypes.c_int),
+        ("Hp", ctypes.c_int), ("r", ctypes.c_int), ("rows", ctypes.c_int),
+        ("cap", ctypes.c_int), ("grid", ctypes.c_int),
     ]
 
 
@@ -287,13 +358,15 @@ def prepare_edge_pass(counter: Callable, wi, wj, idx, radial, dist0, kmask, we, 
                       dot, norm_factor, compute_dtype=None, *, route: Optional[str] = None,
                       coords=None) -> Callable[..., torch.Tensor]:
     """Everything K1's and K3's wrappers do on CUDA tensors before the
-    launch: checks, the few casts the kernel cannot read through, the plan
-    and the output. ``dot``: the per-edge dot's (kernel [H], bias [1] or
+    launch: checks, the few casts the kernel cannot read through, the plan,
+    the work list's buffer and the output. ``dot``: the per-edge dot's (kernel [H], bias [1] or
     None), K1's attention or K3's gate, or None; ``radial``: K1's edge
     scalar, None for K3; ``coords``: None for K1, K3's (x, update_coords_mask,
     coords_range, norm_constant, use_tanh). Returns ``run(stamps=None)``,
-    which launches the kernel on those arguments (counted in
-    ``counter.launches``) and returns its output: K1's agg [B, N, H], K3's
+    which launches the pre-pass that packs the live edges into the work
+    list, then the kernel on those arguments (counted in
+    ``counter.launches``; the edge rows it computes in
+    ``counter.edge_rows``) and returns its output: K1's agg [B, N, H], K3's
     x + agg [B, N, 3] float32; ``stamps``, an int64 CUDA tensor of
     ``len(STAGES) + 1`` elements, receives block 0's stage clock
     (:func:`stage_shares`). Raises where the kernel cannot run: a dtype
@@ -356,6 +429,10 @@ def prepare_edge_pass(counter: Callable, wi, wj, idx, radial, dist0, kmask, we, 
         out = torch.empty((b, n, h), dtype=cdt, device=dev)
     else:
         out = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
+    # the work list, rebuilt by the pre-pass at every launch (worst-case
+    # size: a graph holding the launch stays valid whatever the mask)
+    work = torch.empty(plan["list_ints"], dtype=torch.int32, device=dev)
+    rows_counter = counter.edge_rows.buffer(dev)
 
     def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
         return None if t is None else t.data_ptr()
@@ -372,14 +449,14 @@ def prepare_edge_pass(counter: Callable, wi, wj, idx, radial, dist0, kmask, we, 
         coords_range=0.0 if coords is None else float(coords[2]),
         norm_constant=0.0 if coords is None else float(coords[3]),
         norm_factor=float(norm_factor), x=ptr(x), ucm=ptr(ucm), out=out.data_ptr(),
-        B=b, N=n, K=k, H=h, Hp=plan["hp"], r=r, R=plan["receivers"], rows=plan["rows"],
-        kc=plan["chunk"], chunks=plan["chunks"], whole=plan["whole"], units=plan["units"],
+        list=work.data_ptr(), edge_rows=ptr(rows_counter),
+        B=b, N=n, K=k, H=h, Hp=plan["hp"], r=r, rows=plan["rows"], cap=plan["cap"],
         grid=plan["grid"],
     )
     fn = _kernel(plan["variant"])
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the tensors the kernel reads stay alive with the closure
-    keep = (wi, wj, idx, radial, dist0, kmask, we, w2, w2b, atk, atb, x, ucm)
+    keep = (wi, wj, idx, radial, dist0, kmask, we, w2, w2b, atk, atb, x, ucm, work)
 
     def run(stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
         if stamps is not None:
@@ -401,8 +478,9 @@ def prepare_launch(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att, norm_fac
                    ) -> Callable[..., torch.Tensor]:
     """Everything :func:`gcl_message_agg` does on CUDA tensors before the
     launch (:func:`prepare_edge_pass`). Returns ``run(stamps=None)``, which
-    launches the kernel (counted in ``gcl_message_agg.launches``) and
-    returns agg [B, N, H]. ``route``: :func:`launch_plan`'s."""
+    launches the pre-pass and the kernel (counted in
+    ``gcl_message_agg.launches``) and returns agg [B, N, H]. ``route``:
+    :func:`launch_plan`'s."""
     return prepare_edge_pass(gcl_message_agg, wi, wj, idx, radial, dist0, kmask, we, w2, w2b,
                              att, norm_factor, compute_dtype, route=route)
 
@@ -412,7 +490,8 @@ def gcl_message_agg(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """GCL message pass + sum aggregation. Same arguments and result as
     :func:`gcl_message_agg_plain`. On CUDA tensors this launches the kernel
-    (and counts the launch in ``gcl_message_agg.launches``) or raises,
+    (and counts the launch in ``gcl_message_agg.launches``, its edge rows
+    in ``gcl_message_agg.edge_rows``: :class:`EdgeRows`) or raises,
     also where an input requires grad under grad mode (``refuse_autograd``)."""
     if wi.device.type == "cpu":
         return gcl_message_agg_plain(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
@@ -425,3 +504,4 @@ def gcl_message_agg(wi, wj, idx, radial, dist0, kmask, we, w2, w2b, att,
 
 
 gcl_message_agg.launches = 0
+gcl_message_agg.edge_rows = EdgeRows()

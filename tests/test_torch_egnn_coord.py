@@ -234,23 +234,25 @@ def test_other_cases_keep_the_torch_path(monkeypatch, engine):
     assert torch.isfinite(x).all()
 
 
+@pytest.mark.parametrize("mask", ["scattered", "prefix", "masked_rows", "long_rows"])
 @pytest.mark.parametrize("b,n,r,k,h,cdt", [
     (64, 126, 126, 12, 256, torch.float32),   # the joint cell: every row moves
     (64, 126, 16, 12, 256, torch.float32),    # the conditional CA cell: 16 rows
-    (16, 522, 16, 160, 256, torch.float32),   # full atom, K = 160: chunks of 80 edges
+    (16, 522, 16, 160, 256, torch.float32),   # full atom, K = 160: long rows in chunks
     (48, 118, 118, 12, 256, torch.bfloat16),  # bf16 on mma.sync
-    (1, 118, 37, 12, 256, torch.bfloat16),    # B = 1: items split in halves
+    (1, 118, 37, 12, 256, torch.bfloat16),    # B = 1
     (3, 9, 0, 4, 64, torch.float32),          # no row moves
     (2, 40, 30, 70, 100, torch.float32),      # a width that is not a power of two
     (2, 9, 9, 200, 640, torch.bfloat16),      # bf16 past 256, K past a tile
 ])
-def test_launch_plan_covers_every_moving_edge_once(b, n, r, k, h, cdt):
-    """K3's plan, walked as the kernel walks it (K1's walk,
-    tests/test_torch_egnn_msgpass.py: plan_tiles, over the moving rows),
-    takes every (sample, moving receiver, edge) exactly once, a receiver's
-    edges in k order, in tiles that fit; its tiles hold the coordinate
+def test_launch_plan_covers_every_moving_edge_once(b, n, r, k, h, cdt, mask):
+    """K3's plan and the work list its pre-pass packs over the moving rows,
+    walked as the kernel walks it (K1's walk,
+    tests/test_torch_egnn_msgpass.py: check_worklist), take every live
+    (sample, moving receiver, edge) exactly once and no masked one, a
+    receiver's in k order, in tiles that fit; its tiles hold the coordinate
     differences, so they take a little more shared memory than K1's."""
-    from test_torch_egnn_msgpass import plan_tiles
+    from test_torch_egnn_msgpass import check_worklist, mask_case
 
     sms = 132
     plan = launch_plan(b, n, r, k, h, cdt, sms)
@@ -258,19 +260,14 @@ def test_launch_plan_covers_every_moving_edge_once(b, n, r, k, h, cdt):
     lim = egnn_msgpass.kernel_limits()
     assert plan["route"] == k1["route"] and plan["hp"] == k1["hp"]
     assert k1["smem_bytes"] < plan["smem_bytes"] <= lim["max_smem"]
-    assert plan["grid"] == min(sms, max(plan["units"], 1))
-    seen = np.zeros((b, max(r, 1), k), dtype=int)
-    next_k = np.zeros((b, max(r, 1)), dtype=int)
-    for s, i0, rv, k0, kc in plan_tiles(plan, r, k):
-        assert rv * kc <= plan["rows"] and 0 <= i0 and i0 + rv <= r
-        seen[s, i0:i0 + rv, k0:k0 + kc] += 1
-        if rv:
-            assert (next_k[s, i0:i0 + rv] == k0).all()
-            next_k[s, i0:i0 + rv] = k0 + kc
-    assert (seen[:, :r] == 1).all()
-    if r == n:  # every row moves: K1's items and split
-        assert {key: plan[key] for key in ("rows", "receivers", "items", "units")} == {
-            key: k1[key] for key in ("rows", "receivers", "items", "units")}
+    assert plan["items"] == b * r and plan["grid"] == min(sms, max(plan["items"], 1))
+    assert plan["list_smem"] == 4 * (r + 1) * (1 + max(1, (r - 1).bit_length()))
+    kmask = mask_case(mask, b, n, k, seed=r + k)
+    wl = check_worklist(kmask, r, plan["cap"])
+    if r == n and plan["cap"] == k1["cap"]:  # every row moves: K1's list
+        assert wl["items"] == check_worklist(kmask, n, k1["cap"])["items"]
+    if (b, r, k, cdt) == (64, 16, 12, torch.float32):  # one round of full tiles: half tiles
+        assert (plan["cap"], k1["cap"]) == (64, 128)
 
 
 def test_launch_plan_refuses_more_rows_than_a_sample_has():

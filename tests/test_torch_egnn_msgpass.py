@@ -25,8 +25,10 @@ from cmdgen_tpu_torch.models.dynamics import EGNNDynamics as TEGNNDynamics
 from cmdgen_tpu_torch.ops import egnn_msgpass
 from cmdgen_tpu_torch.ops.egnn_msgpass import (
     STAGES,
+    edge_worklist_plain,
     gcl_message_agg,
     gcl_message_agg_plain,
+    item_chunks,
     kernel_limits,
     launch_plan,
     padded_width,
@@ -143,76 +145,173 @@ def test_msgpass_flagship_like_shape_matches_jax():
     _check_dynamics(cfg, params, inputs, 5e-4, 5e-4)
 
 
-def plan_tiles(plan, n, k):
-    """The tiles K1's item loop takes (csrc/egnn_msgpass.cu), in unit order:
-    (sample, first receiver, receivers, first edge, edges). A copy of that
-    loop's mapping from unit to tile, kept in step with it by hand: the
-    card cases (tests/test_torch_kernels_cuda.py) catch a kernel that
+def plan_tiles(wl, rows):
+    """The tiles K1's and K3's item loop takes (csrc/egnn_msgpass.cu:
+    edge_pass) from a work list (``edge_worklist_plain``), in item order:
+    (sample, first receiver, receivers, edges, and for each receiver the
+    range of its live slots that the tile holds, as (first, count)). A copy
+    of that loop's mapping from item to tile, kept in step with it by hand:
+    the card cases (tests/test_torch_kernels_cuda.py) catch a kernel that
     drifts from it."""
-    rcv, whole, chunk = plan["receivers"], plan["whole"], plan["chunk"]
-    per_sample = -(-n // rcv)
-    for w in range(plan["units"]):
-        it, half = (w, 0) if w < whole else (whole + (w - whole) // 2, 1 + (w - whole) % 2)
-        i0 = (it % per_sample) * rcv
-        rv = min(rcv, n - i0)
-        if half:
-            first = (rv + 1) // 2
-            i0, rv = (i0, first) if half == 1 else (i0 + first, rv - first)
-        for c in range(plan["chunks"]):
-            k0 = c * chunk
-            yield it // per_sample, i0, rv, k0, min(chunk, k - k0)
+    for s, per_sample in enumerate(wl["items"]):
+        p = wl["poff"][s].tolist()
+        for i0, rv, live in per_sample:
+            chunks = item_chunks(live, rows)
+            kc = -(-live // chunks)
+            for ch in range(chunks):
+                t0 = ch * kc
+                e = min(kc, live - t0)
+                if chunks > 1:
+                    spans = [(t0, e)]
+                else:
+                    spans = [(0, p[i0 + q + 1] - p[i0 + q]) for q in range(rv)]
+                yield s, i0, rv, e, spans
 
 
+MASKS = ["scattered", "prefix", "all_live", "masked_rows", "long_rows"]
+
+
+def mask_case(kind, b, n, k, seed=0):
+    """kmask [b, n, k] of one kind: slots live at random; each receiver's
+    first c slots live (what ``build_neighbor_list``'s topk gives); every
+    slot live; at random with whole receivers masked (padded rows); or,
+    where K passes a 128-row tile, receivers with 129 to K live slots
+    beside sparse ones."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "all_live":
+        return torch.ones(b, n, k)
+    if kind == "prefix":
+        c = torch.randint(0, k + 1, (b, n, 1), generator=g)
+        return (torch.arange(k) < c).float()
+    m = (torch.rand(b, n, k, generator=g) > 0.6).float()
+    if kind == "masked_rows":
+        m[torch.rand(b, n, generator=g) > 0.5] = 0
+    if kind == "long_rows":
+        c = torch.randint(min(129, k), k + 1, (b, n, 1), generator=g)
+        dense = (torch.rand(b, n, k, generator=g).argsort(-1) < c).float()
+        m = torch.where(torch.rand(b, n, 1, generator=g) > 0.5, dense, m)
+    return m
+
+
+def check_worklist(kmask, r, rows):
+    """The work list that the kernels' pre-pass builds from ``kmask`` over
+    the first ``r`` receivers of each sample (``edge_worklist_plain``),
+    walked as the kernel walks it: every live slot (kmask non-zero) taken
+    exactly once, a receiver's in k order, no masked slot taken; tiles of
+    at most ``rows`` edges and receivers; receivers whole unless they have
+    more than ``rows`` live slots; every receiver, live or not, in exactly
+    one item, so that its output is written; items in sample order."""
+    b, _, k = kmask.shape
+    wl = edge_worklist_plain(kmask, r, rows)
+    live = (kmask[:, :r] != 0).numpy()
+    seen = np.zeros((b, r, k), dtype=int)
+    next_t = np.zeros((b, r), dtype=int)
+    written = np.zeros((b, r), dtype=int)
+    last = (0, 0)
+    for s, i0, rv, e, spans in plan_tiles(wl, rows):
+        assert 0 < rv <= rows and e <= rows and 0 <= i0 and i0 + rv <= r
+        assert (s, i0) >= last
+        last = (s, i0)
+        assert sum(c for _, c in spans) == e
+        for q, (t0, c) in enumerate(spans):
+            slots = wl["slots"][s][i0 + q]
+            assert next_t[s, i0 + q] == t0  # chunks in k order
+            next_t[s, i0 + q] = t0 + c
+            if rv > 1 or len(slots) <= rows:  # whole
+                assert (t0, c) == (0, len(slots))
+            for kk in slots[t0:t0 + c]:
+                seen[s, i0 + q, kk] += 1
+    for s, per_sample in enumerate(wl["items"]):
+        for i0, rv, _ in per_sample:
+            written[s, i0:i0 + rv] += 1
+    assert (written == 1).all()
+    assert (seen == live).all()
+    assert all(sl == sorted(sl) for per in wl["slots"] for sl in per)
+    assert (next_t == live.sum(-1)).all()
+    return wl
+
+
+@pytest.mark.parametrize("mask", MASKS)
 @pytest.mark.parametrize("b,n,k,h,cdt", [
-    (48, 118, 12, 256, torch.bfloat16),   # the flagship shape: a split last round
-    (132, 118, 12, 256, torch.bfloat16),  # 12 whole rounds, no split
+    (48, 118, 12, 256, torch.bfloat16),   # the flagship shape
+    (132, 118, 12, 256, torch.bfloat16),  # 12 whole rounds when every slot is live
     (24, 69, 16, 128, torch.float32),     # the qrun_aa widths (trained run, f32)
     (24, 69, 16, 128, torch.bfloat16),
     (3, 5, 12, 64, torch.bfloat16),       # N < R: one item per sample
-    (1, 118, 12, 256, torch.bfloat16),    # B = 1: every item split in halves
+    (1, 118, 12, 256, torch.bfloat16),    # B = 1
     (2, 9, 200, 256, torch.bfloat16),     # K past one tile: chunks of edges
     (2, 40, 70, 512, torch.float32),      # float32 wider than 256: 64-row tiles
     (1, 3, 1, 32, torch.bfloat16),        # K = 1
     (48, 118, 12, 100, torch.float32),    # a width that is not a power of two
     (2, 40, 12, 640, torch.bfloat16),     # bf16 past 512: 112-row tiles
-    (3, 140, 160, 256, torch.float32),    # K = 160: two chunks of 80 edges
+    (3, 140, 160, 256, torch.float32),    # K = 160: rows of up to 160 live slots
     (4, 30, 7, 99, torch.float32),        # an odd width: tiles of Hp = 100
 ])
-def test_launch_plan_covers_every_edge_once(b, n, k, h, cdt):
-    """K1's work plan (``launch_plan``, walked as the kernel's item loop
-    walks it) takes every (sample, receiver, edge) exactly once, each
-    receiver's edges in k order, in tiles that fit the kernel's rows and
-    shared memory."""
+def test_launch_plan_covers_every_edge_once(b, n, k, h, cdt, mask):
+    """K1's plan (``launch_plan``) fits the kernel's rows and shared memory,
+    and the work list its pre-pass packs from kmask (``check_worklist``)
+    takes every live (sample, receiver, edge) exactly once and no masked
+    one, each receiver's in k order, in tiles of at most ``rows`` edges.
+    Where every slot is live the tiles are packed as a fixed R x K plan
+    would pack them: rows // K receivers an item."""
     sms = 132
     lim = kernel_limits()
     plan = launch_plan(b, n, k, h, cdt, sms)
-    rows, rcv = plan["rows"], plan["receivers"]
+    rows = plan["rows"]
     assert plan["route"] == ("mma" if cdt == torch.bfloat16 and h <= 256 else "block_gemm")
     assert plan["hp"] == padded_width(h, cdt) and plan["smem_bytes"] <= lim["max_smem"]
     assert rows == lim["edge_rows"] or (plan["route"] == "block_gemm" and rows % 16 == 0)
-    assert plan["chunk"] * plan["chunks"] >= k and rcv * plan["chunk"] <= rows <= lim["edge_rows"]
-    assert rcv == 1 or rcv * k <= rows < (rcv + 1) * k
-    assert plan["grid"] == min(sms, plan["units"])
-    split = plan["units"] - plan["items"]
-    assert plan["whole"] == plan["items"] - split and split in (0, plan["items"] % sms)
-    seen = np.zeros((b, n, k), dtype=int)
-    next_k = np.zeros((b, n), dtype=int)
-    for s, i0, rv, k0, kc in plan_tiles(plan, n, k):
-        assert rv * kc <= rows and 0 <= i0 and i0 + rv <= n
-        seen[s, i0:i0 + rv, k0:k0 + kc] += 1
-        if rv:
-            assert (next_k[s, i0:i0 + rv] == k0).all()  # chunks in k order
-            next_k[s, i0:i0 + rv] = k0 + kc
-    assert (seen == 1).all()
+    assert plan["items"] == b * n and plan["grid"] == min(sms, plan["items"])
+    assert plan["list_ints"] == 5 * b * n + b * n * k + b
+    assert plan["list_smem"] == 4 * (n + 1) * (1 + max(1, (n - 1).bit_length()))
+    cap = plan["cap"]
+    hp = plan["hp"]
+    pass_rows = 16384 // hp if hp & (hp - 1) == 0 else 0  # float's 64-row passes at 256
+    halved = cdt == torch.float32 and 2 * pass_rows == rows and b * n * k <= sms * rows
+    assert cap == (rows // 2 if halved else rows)
+    wl = check_worklist(mask_case(mask, b, n, k, seed=n + k), n, cap)
+    if mask == "all_live" and k <= cap:
+        for per_sample in wl["items"]:
+            assert [rv for _, rv, _ in per_sample] == [
+                min(cap // k, n - i0) for i0 in range(0, n, cap // k)]
+
+
+def test_worklist_packs_whole_receivers_greedily():
+    """The pre-pass's packing, by hand: receivers with 3, 0, 5, 130, 2 and
+    0 live slots in tiles of 8 rows: (3, 0, 5) fill one item, 130 is an
+    item alone, taken in 17 tiles (``item_chunks``: 16 of 8 edges, one of
+    2), then (2, 0)."""
+    counts = [3, 0, 5, 130, 2, 0]
+    kmask = torch.zeros(1, 6, 130)
+    for i, c in enumerate(counts):
+        kmask[0, i, torch.arange(130)[-c:] if c else []] = 1  # the last c slots
+    wl = edge_worklist_plain(kmask, 6, 8)
+    assert wl["items"] == [[(0, 3, 8), (3, 1, 130), (4, 2, 2)]]
+    assert wl["poff"].tolist() == [[0, 3, 3, 8, 138, 140, 140]]
+    assert item_chunks(130, 8) == 17 and item_chunks(8, 8) == 1
+    assert wl["slots"][0][0] == [127, 128, 129]
+    check_worklist(kmask, 6, 8)
 
 
 def test_launch_plan_splits_the_last_round():
-    """At the flagship shape 576 items leave 48 for a fifth round of 132
-    blocks: they run as 96 half items; at B=132 the rounds are whole."""
+    """A float launch whose every slot fits in one round of full tiles
+    packs items of half a tile (``cap``), so that twice as many blocks
+    share the round, each one 64-row pass instead of two: K3 over the CA
+    cells' 16 moving rows (64 x 16 x 12 slots, 96 full tiles on 132 SMs),
+    not K1 over all 126 rows, nor the mma route, whose tile always
+    multiplies its 128 rows. With every slot live, half items take two
+    rounds of one pass where full ones took one of two."""
+    from cmdgen_tpu_torch.ops import egnn_coord
+
+    k3 = egnn_coord.launch_plan(64, 126, 16, 12, 256, torch.float32, 132)
+    assert (k3["rows"], k3["cap"]) == (128, 64)
+    assert launch_plan(64, 126, 12, 256, torch.float32, 132)["cap"] == 128
+    assert egnn_coord.launch_plan(64, 126, 16, 12, 256, torch.bfloat16, 132)["cap"] == 128
+    full = edge_worklist_plain(torch.ones(64, 16, 12), 16, k3["cap"])
+    assert sum(map(len, full["items"])) == 64 * 4 <= 2 * 132  # 5, 5, 5 and 1 receivers
     plan = launch_plan(48, 118, 12, 256, torch.bfloat16, 132)
-    assert (plan["receivers"], plan["items"], plan["whole"], plan["units"]) == (10, 576, 528, 624)
-    plan = launch_plan(132, 118, 12, 256, torch.bfloat16, 132)
-    assert plan["units"] == plan["items"] == 1584
+    full = edge_worklist_plain(torch.ones(48, 118, 12), 118, plan["cap"])
+    assert sum(map(len, full["items"])) == 576
 
 
 def struct_fields(source: str, struct: str):
@@ -336,3 +435,18 @@ def test_gcl_routing_rule(monkeypatch, hidden, dtype):
         out_p, out_q = dyn(*_t(*inputs))
     assert len(calls) == 2
     assert torch.isfinite(out_p).all() and torch.isfinite(out_q).all()
+
+
+def test_edge_rows_counter_adds_over_devices_and_launches():
+    """``EdgeRows``: one [rows, slots] pair a device, made at the device's
+    first launch, which the pre-pass adds to; read as the sums over the
+    devices (here a CPU stand-in for the card's pair)."""
+    counter = egnn_msgpass.EdgeRows()
+    assert counter() == (0, 0)
+    dev = torch.device("cpu")
+    buf = counter.buffer(dev)
+    assert counter.buffer(dev) is buf and buf.tolist() == [0, 0]
+    buf += torch.tensor([38, 100])
+    buf += torch.tensor([2, 10])
+    assert counter() == (40, 110)
+    assert isinstance(gcl_message_agg.edge_rows, egnn_msgpass.EdgeRows)

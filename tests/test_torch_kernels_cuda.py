@@ -98,6 +98,88 @@ def test_gcl_message_agg_kernel_matches_plain(dev, cdt, b, n, k, h, attention):
     assert (out - ref).abs().max().item() <= tol
 
 
+# ------------------------------------------------------------------------
+# K1 and K3 take only the live slots of the neighbour list (kmask non-zero),
+# packed into tiles by their pre-pass: what a masked slot holds cannot reach
+# the output, and where the live slots lie in a receiver's K does not
+# change a bit of it. K=160 with receivers of 129 to 160 live slots (a
+# receiver past one tile, in chunks) beside sparse ones.
+
+def _live_mask(k, b, n, seed):
+    """kmask [b, n, k]: a third of the receivers with 129 to k live slots
+    where k > 128, the rest scattered (~40% live), a few with none."""
+    g = torch.Generator().manual_seed(seed)
+    m = (torch.rand(b, n, k, generator=g) > 0.6).float()
+    if k > 128:
+        c = torch.randint(129, k + 1, (b, n, 1), generator=g)
+        dense = (torch.rand(b, n, k, generator=g).argsort(-1) < c).float()
+        m = torch.where(torch.rand(b, n, 1, generator=g) > 0.66, dense, m)
+    m[torch.rand(b, n, generator=g) > 0.9] = 0
+    return m
+
+
+def _live_first(kmask, *edge):
+    """Each receiver's slots reordered with its live ones first, in k
+    order: kmask and every edge tensor [B, N, K] gathered alike."""
+    k = kmask.shape[-1]
+    key = (kmask == 0).long() * k + torch.arange(k, device=kmask.device)
+    perm = key.argsort(-1)
+    return tuple(torch.gather(t, -1, perm.to(t.device)) for t in (kmask, *edge))
+
+
+def _dirty(kmask, idx, *scalars):
+    """The masked slots' neighbour indices out of range (past N, and
+    negative) and their edge scalars NaN."""
+    masked = kmask == 0
+    n = idx.shape[1]
+    bad = torch.where(torch.arange(idx.shape[-1], device=idx.device) % 2 == 0,
+                      n + 1000, -7).to(idx.dtype)
+    idx = torch.where(masked, bad.expand_as(idx), idx)
+    return (idx, *(torch.where(masked, torch.full_like(v, float("nan")), v) for v in scalars))
+
+
+K_LIVE = [12, 160]
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("k", K_LIVE)
+def test_gcl_message_agg_takes_only_live_slots(dev, cdt, k):
+    """K1 on a mask with long and empty receivers: held to the plain version
+    at K1's tolerance; a fault planted in the plain version (the first live
+    slot of every receiver dropped) fails that comparison (in bfloat16 at
+    K=12 only: at K=160 one slot of ~100 in a sum is below a bf16 step of
+    its largest value, the tolerance). The same inputs
+    with NaN and out-of-range indices in the masked slots give the same
+    output bit for bit (torch.equal), and so do the same live slots moved
+    to the front of each receiver's K. The launch adds its live edges and
+    its B x N x K slots to the kernel's edge-row counter."""
+    b, n, h = 2, 150, 256
+    args = list(_k1_args(dev, cdt, b, n, k, h, True, seed=k + 1))
+    args[5] = _live_mask(k, b, n, seed=k).to(dev)
+    kmask = args[5]
+    rows0 = mp.gcl_message_agg.edge_rows()
+    with torch.no_grad():
+        out = mp.gcl_message_agg(*args)
+        rows1 = mp.gcl_message_agg.edge_rows()
+        ref = mp.gcl_message_agg_plain(*args).float()
+        tol = TOL_K1[cdt] * ref.abs().max().item()
+        assert (out.float() - ref).abs().max().item() <= tol
+        fault = list(args)
+        first = torch.zeros_like(kmask).scatter_(-1, (kmask != 0).float().argmax(-1,
+                                                                                 keepdim=True), 1)
+        fault[5] = kmask * (1 - first)
+        bad = mp.gcl_message_agg_plain(*fault).float()
+        if cdt == torch.float32 or k <= 128:  # bf16's step hides one of ~100 slots
+            assert (out.float() - bad).abs().max().item() > tol, "the dropped slot passed"
+        dirty = list(args)
+        dirty[2], dirty[3], dirty[4] = _dirty(kmask, args[2], args[3], args[4])
+        assert torch.equal(mp.gcl_message_agg(*dirty), out)
+        front = list(args)
+        front[5], front[2], front[3], front[4] = _live_first(kmask, args[2], args[3], args[4])
+        assert torch.equal(mp.gcl_message_agg(*front), out)
+    assert (rows1[0] - rows0[0], rows1[1] - rows0[1]) == (int((kmask != 0).sum()), b * n * k)
+
+
 def _k2_args(dev, cdt, b, n, k, h, n_layers, r_true, tanh, seed):
     g = torch.Generator().manual_seed(seed)
 
@@ -292,9 +374,9 @@ def test_joint_denoiser_and_inpaint_card_match_cpu(dev, engine):
 
 @pytest.mark.parametrize("cdt", DTYPES)
 @pytest.mark.parametrize("b", [
-    48,   # the flagship shape: 576 items, the last round as 96 half items
-    1,    # one sample: 12 items as 24 halves, a grid of 24 blocks
-    132,  # 12 whole rounds
+    48,   # the flagship shape
+    1,    # one sample: a few items, most blocks of the grid idle
+    132,  # one sample a block
 ])
 def test_msgpass_kernel_matches_plain_on_engine_inputs(dev, monkeypatch, cdt, b):
     """K1 on the arguments the msgpass engine gives it at the flagship
@@ -326,7 +408,7 @@ def test_msgpass_kernel_matches_plain_on_engine_inputs(dev, monkeypatch, cdt, b)
         run = mp.prepare_launch(*calls[0])
         assert run.plan["route"] == ("mma" if cdt == torch.bfloat16 else "block_gemm")
         assert run.plan["grid"] == min(torch.cuda.get_device_properties(dev).multi_processor_count,
-                                       run.plan["units"])
+                                       run.plan["items"])
         stamps = torch.zeros(len(mp.STAGES) + 1, dtype=torch.int64, device=dev)
         torch.testing.assert_close(run(stamps).float(), mp.gcl_message_agg(*calls[0]).float(),
                                    rtol=0, atol=0)
@@ -1052,6 +1134,40 @@ def test_coord_update_agg_seeded_fault_fails(dev, cdt):
             bad = ec.coord_update_agg_plain(*a) - x
             err = ((out - x) - bad).abs().max().item()
             assert err > TOL_K3[cdt] * bad.abs().max().item(), name
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("k", K_LIVE)
+def test_coord_update_agg_takes_only_live_slots(dev, cdt, k):
+    """K3 as K1 above (``test_gcl_message_agg_takes_only_live_slots``), 40 of
+    150 rows moving: held to its plain version at K3's tolerance, with the
+    first live slot of every receiver dropped failing it; NaN dist0 and
+    out-of-range indices in the masked slots, or the live slots moved to
+    the front, give the same output bit for bit; the edge-row counter gains
+    the moving rows' live edges and B x r x K slots."""
+    b, n, r, h = 2, 150, 40, 256
+    args = list(_k3_args(dev, cdt, b, n, r, k, h, True, True, seed=k + 2))
+    kmask = _live_mask(k, b, n, seed=k + 3).to(dev).to(cdt)
+    args[4] = kmask
+    rows0 = ec.coord_update_agg.edge_rows()
+    with torch.no_grad():
+        out, _ = _check_k3(tuple(args), TOL_K3[cdt])
+        rows1 = ec.coord_update_agg.edge_rows()
+        x = args[5]
+        first = torch.zeros_like(kmask).scatter_(-1, (kmask != 0).float().argmax(-1,
+                                                                                 keepdim=True), 1)
+        fault = list(args)
+        fault[4] = kmask * (1 - first)
+        bad = ec.coord_update_agg_plain(*fault) - x
+        assert ((out - x) - bad).abs().max().item() > TOL_K3[cdt] * bad.abs().max().item()
+        dirty = list(args)
+        dirty[2], dirty[3] = _dirty(kmask, args[2], args[3])
+        assert torch.equal(ec.coord_update_agg(*dirty), out)
+        front = list(args)
+        front[4], front[2], front[3] = _live_first(kmask, args[2], args[3])
+        assert torch.equal(ec.coord_update_agg(*front), out)
+    assert (rows1[0] - rows0[0], rows1[1] - rows0[1]) == (int((kmask[:, :r] != 0).sum()),
+                                                          b * r * k)
 
 
 @pytest.mark.parametrize("cdt", DTYPES)
